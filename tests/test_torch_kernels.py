@@ -1,0 +1,147 @@
+"""The RK-stage kernel module (t8gpu_tpu_torch.ops.kernels).
+
+On the CPU: the plain version `fused_rk_stage_reference` against the TPU
+kernel `fused_rk_stage_pallas` run in Pallas interpret mode, on seeded
+random states (a KH state is constant along y in 3D and would hide a
+swapped axis), with an element count that is not a multiple of the
+kernel tile and guard slots at the end; plus the wrapper's input checks.
+The CUDA kernel itself is held against the plain version in
+tests/test_torch_cuda.py (card only).  Tolerance rtol 2e-5, atol 2e-6, as tests/test_pallas.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from t8gpu_tpu.ops.pallas_kernels import fused_rk_stage_pallas
+from t8gpu_tpu_torch.ops import kernels
+from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
+                                         fused_rk_stage_reference)
+from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+from tests.torch_port_inputs import GAMMA, stage_inputs
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 2e-5, 2e-6
+N_GUARD = 9
+
+
+SHAPES = [(2, 8, 200), (3, 4, 200)]
+STAGES = [(True, STAGE_1), (False, STAGE_2), (False, STAGE_3)]
+# kepes: every shape with every stage; hll: each shape once, one with the
+# shared (stage-1) state and one with a separate u_prev
+CASES = ([(s, "kepes", st) for s in SHAPES for st in STAGES]
+         + [(SHAPES[0], "hll", STAGES[0]), (SHAPES[1], "hll", STAGES[1])])
+
+
+def _case_id(case):
+    (dim, ext, E), flux, (share_prev, coeffs) = case
+    stage = {STAGE_1: 1, STAGE_2: 2, STAGE_3: 3}[coeffs]
+    return f"{dim}d-ext{ext}-E{E}-{flux}-stage{stage}"
+
+
+@pytest.mark.parametrize("shape,flux,stage", CASES,
+                         ids=[_case_id(c) for c in CASES])
+def test_reference_matches_pallas(shape, flux, stage):
+    dim, ext, E = shape
+    share_prev, coeffs = stage
+    u, up, w, others = stage_inputs(7 * dim + ext, dim, ext, E, N_GUARD)
+    jn, jsp = fused_rk_stage_pallas(
+        jnp.asarray(u), None if share_prev else jnp.asarray(up),
+        jnp.asarray(w), tuple(jnp.asarray(o) for o in others),
+        gamma=GAMMA, flux=flux, coeffs=coeffs, interpret=True)
+    jn, jsp = np.asarray(jax.block_until_ready(jn)), np.asarray(jsp)
+    tn, tsp = fused_rk_stage_reference(
+        torch.from_numpy(u), None if share_prev else torch.from_numpy(up),
+        torch.from_numpy(w), [torch.from_numpy(o) for o in others],
+        gamma=GAMMA, flux=flux, coeffs=coeffs)
+    assert tn.shape == u.shape and tsp.shape == (E,)
+    np.testing.assert_allclose(tn.numpy(), jn, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tsp.numpy(), jsp, rtol=RTOL, atol=ATOL)
+    # guard slots: finite, unchanged up to the coefficients' rounding, speed 0
+    guard = tn[..., -N_GUARD:].numpy()
+    assert np.isfinite(tn.numpy()).all()
+    np.testing.assert_allclose(guard, u[..., -N_GUARD:], rtol=1e-6, atol=0)
+    assert (tsp[-N_GUARD:] == 0).all()
+
+
+def test_wrapper_on_cpu_runs_reference():
+    u, up, w, others = stage_inputs(1, 3, 4, 70, N_GUARD)
+    args = (torch.from_numpy(u), torch.from_numpy(up), torch.from_numpy(w),
+            [torch.from_numpy(o) for o in others])
+    before = fused_rk_stage.launches
+    a = fused_rk_stage(*args, gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
+    b = fused_rk_stage_reference(*args, gamma=GAMMA, flux="kepes",
+                                 coeffs=STAGE_2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert fused_rk_stage.launches == before      # no kernel was launched
+
+
+def test_wrapper_rejects_unsupported_inputs():
+    u, up, w, others = stage_inputs(2, 2, 8, 40, N_GUARD)
+    ut, upt, wt = torch.from_numpy(u), torch.from_numpy(up), torch.from_numpy(w)
+    ot = [torch.from_numpy(o) for o in others]
+    kw = dict(gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
+    with pytest.raises(ValueError, match="extras"):
+        fused_rk_stage(ut, upt, wt, ot, extras=(ot[0],), **kw)
+    with pytest.raises(ValueError, match="5 state rows"):
+        fused_rk_stage(torch.cat([ut, ut[:2]]), None, wt, ot, **kw)
+    bad_ext = torch.zeros((5, 6, 6, 40))
+    with pytest.raises(ValueError, match="ext"):
+        fused_rk_stage(bad_ext, None, wt, [o[:, :6] for o in ot], **kw)
+    with pytest.raises(ValueError, match="side layers"):
+        fused_rk_stage(ut, upt, wt, ot[:3], **kw)
+    with pytest.raises(ValueError, match="weights"):
+        fused_rk_stage(ut, upt, wt[:, :10], ot, **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_rk_stage(ut, upt.to("meta"), wt, ot, **kw)
+    with pytest.raises(ValueError, match="several dtypes"):
+        fused_rk_stage(ut, upt.double(), wt, ot, **kw)
+    # what only the CUDA kernel refuses (checked before any launch)
+    check = kernels._check_kernel_inputs
+    check(ut, upt, wt, ot, "kepes")
+    with pytest.raises(ValueError, match="kepes"):
+        check(ut, upt, wt, ot, "hll")
+    with pytest.raises(ValueError, match="float32"):
+        check(ut.double(), None, wt.double(), [o.double() for o in ot], "kepes")
+    with pytest.raises(ValueError, match="contiguous"):
+        nc = ut.transpose(1, 2)
+        check(nc, None, wt, ot, "kepes")
+
+
+def test_reference_float64_on_cpu():
+    u, up, w, others = stage_inputs(3, 3, 4, 50, N_GUARD)
+    args64 = (torch.from_numpy(u).double(), torch.from_numpy(up).double(),
+              torch.from_numpy(w).double(),
+              [torch.from_numpy(o).double() for o in others])
+    n64, _ = fused_rk_stage(*args64, gamma=GAMMA, flux="kepes", coeffs=STAGE_3)
+    n32, _ = fused_rk_stage(*(a.float() for a in args64[:3]),
+                            [o.float() for o in args64[3]],
+                            gamma=GAMMA, flux="kepes", coeffs=STAGE_3)
+    assert n64.dtype == torch.float64
+    np.testing.assert_allclose(n32.numpy(), n64.numpy(), rtol=RTOL, atol=ATOL)
+
+
+
+def test_stage_library_declares_c_signature(monkeypatch):
+    """Every pointer and the stream go to the C entry point as c_void_p
+    (an undeclared ctypes argument is a 32-bit int and cuts a pointer)."""
+    import ctypes
+    import types
+
+    from t8gpu_tpu_torch.ops import _build
+
+    def fn():
+        return types.SimpleNamespace(argtypes=None, restype=ctypes.c_int)
+    fake = types.SimpleNamespace(t8_fused_rk_stage=fn(),
+                                 t8_cuda_error_string=fn())
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    lib = kernels._stage_library()
+    args = lib.t8_fused_rk_stage.argtypes
+    assert args[:4] == [ctypes.c_int] * 4            # device, dim, ext, E
+    assert args[4:15] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
+    assert args[15] is ctypes.c_double and args[16:19] == [ctypes.c_float] * 3
+    assert args[19] is ctypes.c_void_p and len(args) == 20   # the stream
+    assert lib.t8_cuda_error_string.restype is ctypes.c_char_p
