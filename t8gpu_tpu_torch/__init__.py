@@ -7,9 +7,10 @@ the host code it needs.  Plain tensor code is PyTorch; each TPU kernel of
 the reference becomes a kernel written by hand for the H100 (CUDA C++
 under csrc/, built by nvcc at first use into build/t8gpu_tpu_torch/).
 
-Ported so far: the uniform-mesh, first-order subgrid Euler path
-(SubgridCompressibleEulerSolver) with its RK-stage kernel.  Entry points
-run on CUDA unless the caller passes device="cpu".
+Ported so far: the uniform-mesh subgrid Euler path
+(SubgridCompressibleEulerSolver) at first order, with its RK-stage
+kernel, and at second order (MUSCL), with its divergence kernel.  Entry
+points run on CUDA unless the caller passes device="cpu".
 """
 
 from t8gpu_tpu_torch.memory.subgrid import SUBGRID_4x4, SUBGRID_4x4x4, SubgridSpec

@@ -1,15 +1,19 @@
 """Block-structured (subgrid) compressible-Euler solver on torch tensors.
 
-Counterpart of t8gpu_tpu/models/subgrid_euler.py for the uniform-mesh,
-first-order path: each forest leaf carries a dense [ext]^dim block of
-cells; the state is one tensor [5, *ext, cap] with the element axis
-minor-most and padded to a capacity bucket, the padded slots holding a
-quiescent guard state.  Every SSP-RK3 stage is one call of the CUDA stage
-kernel on the card (ops/kernels.fused_rk_stage), or of its plain PyTorch
-version on the CPU.
+Counterpart of t8gpu_tpu/models/subgrid_euler.py for uniform meshes:
+each forest leaf carries a dense [ext]^dim block of cells; the state is
+one tensor [5, *ext, cap] with the element axis minor-most and padded to a
+capacity bucket, the padded slots holding a quiescent guard state.
+
+  order 1: every SSP-RK3 stage is one call of the CUDA stage kernel on the
+           card (ops/kernels.fused_rk_stage);
+  order 2: every stage is one call of the CUDA MUSCL divergence kernel
+           (ops/kernels.fused_muscl, via ops/subgrid.flux_divergence_muscl)
+           and a plain torch stage update (ops/rk.ssp_rk3).
+On the CPU each kernel's plain PyTorch version runs instead.
 
 The solver runs on CUDA unless the caller passes device="cpu", and raises
-when CUDA is asked for and missing.  The kernel is float32; float64 runs
+when CUDA is asked for and missing.  The kernels are float32; float64 runs
 only on the CPU.
 """
 
@@ -22,6 +26,7 @@ import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
+from t8gpu_tpu_torch.ops import rk
 from t8gpu_tpu_torch.ops import subgrid as sg
 from t8gpu_tpu_torch.ops.euler import cfl_sum_speed
 from t8gpu_tpu_torch.utils.config import (EulerConfig, resolve_device,
@@ -33,14 +38,15 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class SubgridCompressibleEulerSolver:
-    """Euler solver on subgrid elements over a fixed uniform forest.
+    """Euler solver on subgrid elements over a fixed uniform forest, first
+    or second order.
 
     Parameters
     ----------
     mesh: a SubgridMesh.
     ic: callable mapping cell centers [N*B, dim] -> conservative state
         [5, N*B] (cells in element-major C-order).
-    config: EulerConfig; options this slice does not port raise
+    config: EulerConfig (order 1 or 2); options not ported yet raise
         NotImplementedError when the solver steps.
     device: "cuda" (the default, also for None), or "cpu" for the plain
         PyTorch path.
@@ -75,8 +81,10 @@ class SubgridCompressibleEulerSolver:
         self.dtype = resolve_dtype(config.dtype)
         if config.boundary not in ("reflective", "farfield"):
             raise ValueError(f"unknown boundary model: {config.boundary!r}")
+        if config.order not in (1, 2):
+            raise ValueError(f"order must be 1 or 2, got {config.order!r}")
         if self.device.type == "cuda" and self.dtype != torch.float32:
-            raise ValueError(f"the CUDA stage kernel is float32; "
+            raise ValueError(f"the CUDA kernels are float32; "
                              f"{config.dtype} runs on device='cpu' only")
 
     # -- mesh / state installation --------------------------------------------
@@ -97,6 +105,7 @@ class SubgridCompressibleEulerSolver:
         # [cap] broadcasts directly against the element-minor state
         self.volumes = torch.as_tensor(vol).to(self.device)
         self.inv_cell_volume = torch.as_tensor(inv).to(self.device)
+        self._muscl_w = None      # MUSCL weights, built at first use
         u = u.to(device=self.device, dtype=self.dtype)
         if u.shape[-1] != cap:
             guard = torch.as_tensor(GUARD_STATE, dtype=self.dtype,
@@ -113,16 +122,42 @@ class SubgridCompressibleEulerSolver:
             return dt.to(device=self.device, dtype=self.dtype)
         return torch.tensor(float(dt), dtype=self.dtype, device=self.device)
 
+    def _sg_limiter(self) -> str:
+        """The subgrid limiter of config.limiter: "none" stays, every
+        other limiter becomes the per-axis "minmod"; a "-prim" suffix
+        (primitive-space reconstruction) passes through."""
+        lim, _, space = self.config.limiter.partition("-")
+        lim = "none" if lim == "none" else "minmod"
+        return f"{lim}-{space}" if space else lim
+
+    def _muscl_weights(self) -> torch.Tensor:
+        if self._muscl_w is None:
+            self._muscl_w = sg.muscl_weights(self.conn, self.spec,
+                                             self.volumes)
+        return self._muscl_w
+
     def _step(self, u: torch.Tensor, dt: torch.Tensor):
         c = self.config
-        if c.order != 1:
-            raise NotImplementedError("order-2 (MUSCL) stepping is not "
-                                      "ported yet")
         if c.boundary == "farfield":
             raise NotImplementedError("farfield boundaries are not ported yet")
-        return sg.ssp_rk3_fused(u, self.volumes, self.conn, self.spec,
-                                c.gamma, c.flux, dt, self.inv_cell_volume,
-                                mu=float(c.mu), gravity=tuple(c.gravity))[0]
+        if c.order == 1:
+            return sg.ssp_rk3_fused(u, self.volumes, self.conn, self.spec,
+                                    c.gamma, c.flux, dt, self.inv_cell_volume,
+                                    mu=float(c.mu),
+                                    gravity=tuple(c.gravity))[0]
+        if float(c.mu) > 0.0:
+            raise NotImplementedError("viscous (mu > 0) stepping is not "
+                                      "ported yet")
+        if any(float(g) != 0.0 for g in c.gravity):
+            raise NotImplementedError("the gravity source is not ported yet")
+        limiter = self._sg_limiter()
+        weights = self._muscl_weights()
+
+        def flux_fn(v):
+            return sg.flux_divergence_muscl(v, self.volumes, self.conn,
+                                            self.spec, c.gamma, c.flux,
+                                            limiter=limiter, weights=weights)
+        return rk.ssp_rk3(u, flux_fn, dt, self.inv_cell_volume)[0]
 
     def iterate(self, dt):
         """One SSP-RK3 step of size dt (a float or a 0-d device tensor)."""

@@ -23,7 +23,7 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "t8gpu_tpu_torch"
 
-SOURCES = ("fused_rk_stage",)
+SOURCES = ("fused_rk_stage", "fused_muscl")
 
 # No --use_fast_math: IEEE division, sqrt and logf.  --fmad=false keeps every
 # product rounded on its own, as in the plain PyTorch version (see the note

@@ -1,11 +1,14 @@
 """Compressible-Euler field and flux math on torch tensors.
 
-Counterpart of t8gpu_tpu/ops/euler.py, for the paths this slice ports:
+Counterpart of t8gpu_tpu/ops/euler.py, for the paths ported so far:
 primitives, the axis-summed CFL speed, the per-cell fields formulation
 (`cell_fields_tuple`) and the fields-based interface fluxes (KEPES, HLL,
-HLLC), and the axis-aligned face-frame rotations.  The arithmetic is the
-JAX package's, in the same order, so that the two agree to f32 round-off;
-the CUDA stage kernel (csrc/fused_rk_stage.cu) repeats the KEPES path.
+HLLC), the pair-flux formulation of order-2 MUSCL (`kepes_pair_fields`,
+`prim_rows`, `prim_pair_fields`, `kepes_pair_flux`), the wall mirror and
+the axis-aligned face-frame rotations.  The arithmetic is the JAX
+package's, in the same order, so that the two agree to f32 round-off; the
+CUDA kernels (csrc/fused_rk_stage.cu, csrc/fused_muscl.cu) repeat the
+KEPES paths.
 
 A state batch `u` has rows (rho, rho*v1, rho*v2, rho*v3, rho*e) on its
 first axis; 2D problems still carry three momentum components.  Field
@@ -251,6 +254,138 @@ def fields_flux(q_l, q_r, gamma: float = 1.4, flux: str = "kepes"):
     except KeyError:
         raise ValueError(f"unknown flux family: {flux}") from None
     return fn(q_l, q_r, gamma)
+
+
+def kepes_pair_fields(u, gamma: float) -> tuple:
+    """Log-free per-state ingredients of `kepes_pair_flux`, for a state
+    that feeds exactly one interface (a MUSCL reconstruction): (rho, v1,
+    v2, v3, p, rho/p, 1/rho, 1/p, ke).  `u` is a 5-tuple of rows."""
+    kappa_m1 = gamma - 1.0
+    rho, m1, m2, m3, e = u
+    inv_rho = 1.0 / rho
+    v1, v2, v3 = m1 * inv_rho, m2 * inv_rho, m3 * inv_rho
+    ke = 0.5 * (v1 * v1 + v2 * v2 + v3 * v3)
+    p = kappa_m1 * (e - rho * ke)
+    inv_p = 1.0 / p
+    rho_p = rho * inv_p
+    return (rho, v1, v2, v3, p, rho_p, inv_rho, inv_p, ke)
+
+
+def prim_rows(u, gamma: float) -> tuple:
+    """(rho, v1, v2, v3, p) rows from conserved rows: the reconstruction
+    variables of primitive-space MUSCL (limiter "<lim>-prim")."""
+    kappa_m1 = gamma - 1.0
+    rho, m1, m2, m3, e = u
+    inv_rho = 1.0 / rho
+    v1, v2, v3 = m1 * inv_rho, m2 * inv_rho, m3 * inv_rho
+    p = kappa_m1 * (e - 0.5 * (m1 * v1 + m2 * v2 + m3 * v3))
+    return (rho, v1, v2, v3, p)
+
+
+def prim_pair_fields(w) -> tuple:
+    """`kepes_pair_fields` tuple from primitive rows (rho, v1, v2, v3, p)."""
+    rho, v1, v2, v3, p = w
+    inv_rho = 1.0 / rho
+    inv_p = 1.0 / p
+    rho_p = rho * inv_p
+    ke = 0.5 * (v1 * v1 + v2 * v2 + v3 * v3)
+    return (rho, v1, v2, v3, p, rho_p, inv_rho, inv_p, ke)
+
+
+def kepes_pair_flux(q_l: tuple, q_r: tuple, gamma: float):
+    """Entropy-stable KEPES flux from `kepes_pair_fields` tuples (face
+    frame).  The same algebra as `kepes_fields_flux`, but the ln_mean
+    denominators are ratio logs, log(rho_r/rho_l) and log(p_r/p_l): two
+    logs per interface.  Returns (flux [5, ...], speed [...])."""
+    kappa_m1 = gamma - 1.0
+    rho_l, u_l, v_l, w_l, p_l, rhop_l, irho_l, ip_l, ke_l = q_l
+    rho_r, u_r, v_r, w_r, p_r, rhop_r, irho_r, ip_r, ke_r = q_r
+
+    dlrho = torch.log(rho_r * irho_l)           # log(rho_r/rho_l)
+    dlp = torch.log(p_r * ip_l)                 # log(p_r/p_l)
+
+    d_r = rho_r - rho_l
+    s_r = rho_l + rho_r
+    d_b = rhop_r - rhop_l
+    s_b = rhop_l + rhop_r
+    s_r2 = s_r * s_r
+    s_b2 = s_b * s_b
+    q2 = 1.0 / (s_r2 * s_b2)                    # divide 1 of 2
+    vsq_r = (d_r * d_r) * s_b2 * q2
+    vsq_b = (d_b * d_b) * s_r2 * q2
+    c_r = vsq_r < 1.0e-4
+    c_b = vsq_b < 1.0e-4
+    num_r = torch.where(c_r, s_r * 52.5, d_r)
+    den_r = torch.where(
+        c_r, 105.0 + vsq_r * (35.0 + vsq_r * (21.0 + vsq_r * 15.0)), dlrho)
+    num_b = torch.where(c_b, s_b * 52.5, d_b)
+    den_b = torch.where(
+        c_b, 105.0 + vsq_b * (35.0 + vsq_b * (21.0 + vsq_b * 15.0)),
+        dlrho - dlp)                            # log(beta_r/beta_l)
+    Q = 1.0 / (den_r * num_b * s_b)             # divide 2 of 2
+    nbsb = num_b * s_b
+    rho_hat = num_r * nbsb * Q
+    inv_bh = (2.0 * den_b * den_r * s_b) * Q
+    p1_hat = s_r * den_r * num_b * Q
+
+    u_hat = 0.5 * (u_l + u_r)
+    v_hat = 0.5 * (v_l + v_r)
+    w_hat = 0.5 * (w_l + w_r)
+    a_hat = torch.sqrt((gamma * 0.5) * (p_l + p_r)) * torch.rsqrt(rho_hat)
+    h_hat = (gamma / (2.0 * kappa_m1)) * inv_bh + 0.5 * (
+        u_l * u_r + v_l * v_r + w_l * w_r)
+    vel2_m = ke_l + ke_r
+
+    f0 = rho_hat * u_hat
+    f1 = f0 * u_hat + p1_hat
+    f2 = f0 * v_hat
+    f3 = f0 * w_hat
+    f4 = (f0 * 0.5 * ((1.0 / kappa_m1) * inv_bh - vel2_m)
+          + u_hat * f1 + v_hat * f2 + w_hat * f3)
+
+    d0 = (0.5 / gamma) * torch.abs(u_hat - a_hat) * rho_hat
+    d1 = torch.abs(u_hat) * (kappa_m1 / gamma) * rho_hat
+    d2 = torch.abs(u_hat) * p1_hat
+    d4 = (0.5 / gamma) * torch.abs(u_hat + a_hat) * rho_hat
+
+    # entropy-variable jump; the entropy s = log p - gamma log rho jumps by
+    # exactly dlp - gamma*dlrho (ratio logs again)
+    dv0 = (-(dlp - gamma * dlrho) * (1.0 / kappa_m1)
+           - (rhop_r * ke_r - rhop_l * ke_l))
+    dv1 = rhop_r * u_r - rhop_l * u_l
+    dv2 = rhop_r * v_r - rhop_l * v_l
+    dv3 = rhop_r * w_r - rhop_l * w_l
+    dv4 = -(rhop_r - rhop_l)
+
+    ek = 0.5 * (u_hat * u_hat + v_hat * v_hat + w_hat * w_hat)
+    w0 = dv0 + (u_hat - a_hat) * dv1 + v_hat * dv2 + w_hat * dv3 + (h_hat - u_hat * a_hat) * dv4
+    w1 = dv0 + u_hat * dv1 + v_hat * dv2 + w_hat * dv3 + ek * dv4
+    w2 = dv2 + v_hat * dv4
+    w3 = dv3 + w_hat * dv4
+    w4 = dv0 + (u_hat + a_hat) * dv1 + v_hat * dv2 + w_hat * dv3 + (h_hat + u_hat * a_hat) * dv4
+
+    g0, g1, g2, g3, g4 = d0 * w0, d1 * w1, d2 * w2, d2 * w3, d4 * w4
+
+    diss0 = g0 + g1 + g4
+    diss1 = (u_hat - a_hat) * g0 + u_hat * g1 + (u_hat + a_hat) * g4
+    diss2 = v_hat * (g0 + g1 + g4) + g2
+    diss3 = w_hat * (g0 + g1 + g4) + g3
+    diss4 = ((h_hat - u_hat * a_hat) * g0 + ek * g1 + v_hat * g2
+             + w_hat * g3 + (h_hat + u_hat * a_hat) * g4)
+
+    flux = torch.stack([f0 - 0.5 * diss0, f1 - 0.5 * diss1, f2 - 0.5 * diss2,
+                        f3 - 0.5 * diss3, f4 - 0.5 * diss4])
+    speed = torch.abs(u_hat) + a_hat
+    return flux, speed
+
+
+def fields_mirror(q):
+    """Reflective-wall ghost fields in a face frame: negate the normal
+    velocity (row 1); every other field row depends only on rho, p and
+    |v|^2.  Takes a tuple of rows or a stacked [C, ...] tensor."""
+    if isinstance(q, tuple):
+        return (q[0], -q[1]) + q[2:]
+    return torch.cat([q[:1], -q[1:2], q[2:]], dim=0)
 
 
 # Axis-aligned face frames are static row permutations.  State rows

@@ -1,10 +1,17 @@
 """Stage glue of the subgrid scheme on torch tensors.
 
-Counterpart of t8gpu_tpu/ops/subgrid.py, for the RK-fused first-order
-path that steps the uniform flagship: per RK stage, gather each element
-side's neighbor facing layer (`_state_side_layers`), then run one stage
-kernel (`ops/kernels.fused_rk_stage`) that computes the fluxes, the
-divergence and the stage update in one pass.
+Counterpart of t8gpu_tpu/ops/subgrid.py, for the two paths that step the
+uniform flagship:
+  * first order, RK-fused: per RK stage, gather each element side's
+    neighbor facing layer (`_state_side_layers`), then run one stage kernel
+    (`ops/kernels.fused_rk_stage`) that computes the fluxes, the divergence
+    and the stage update in one pass (`ssp_rk3_fused`);
+  * second order (MUSCL): per RK stage, gather each side's neighbor facing
+    and second layer (`muscl_side_slabs`; the kernel's weights,
+    `muscl_weights`, are built once per mesh), run one divergence kernel
+    (`ops/kernels.fused_muscl`), add the reflective walls' first-order
+    fluxes (`boundary_apply`), and update the state with plain torch ops
+    (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
 
 Layout: state is [5, *ext, E] with the element axis minor-most; a side
 layer is [5, *t_ext, E] where t_ext lists the remaining axes in increasing
@@ -16,12 +23,14 @@ from __future__ import annotations
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
-from t8gpu_tpu_torch.ops.kernels import fused_rk_stage
-from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_flux,
+                                       fields_mirror)
 # State rows [rho, m_x, m_y, m_z, e] rotate into the +axis face frame like
 # the velocity rows of a fields stack, and a 5-row flux rotates back.
-from t8gpu_tpu_torch.ops.euler import fields_axis_rotate as axis_rotate  # noqa: F401
-from t8gpu_tpu_torch.ops.euler import flux_axis_unrotate as axis_unrotate  # noqa: F401
+from t8gpu_tpu_torch.ops.euler import fields_axis_rotate as axis_rotate
+from t8gpu_tpu_torch.ops.euler import flux_axis_unrotate as axis_unrotate
+from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_rk_stage
+from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 
 
 def _gather_layers(opp_layer: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -149,3 +158,116 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     u2, _ = stage(u1, u, STAGE_2)
     u3, _ = stage(u2, u, STAGE_3)
     return u3, sp.max()
+
+
+def _slab_add(D: torch.Tensor, contrib: torch.Tensor, axis: int,
+              layer_hi: bool, spec: SubgridSpec) -> torch.Tensor:
+    """D plus a boundary-layer contribution [C, ext^(dim-1) * E] added at
+    the axis' last (layer_hi) or first cell layer; a new tensor."""
+    ext = spec.extent
+    tshape = (contrib.shape[0],) + (ext,) * (spec.dim - 1) + (-1,)
+    out = D.clone()
+    out.select(1 + axis, ext - 1 if layer_hi else 0).add_(
+        contrib.reshape(tshape))
+    return out
+
+
+def boundary_apply(D: torch.Tensor, q_flat: tuple, conn, spec: SubgridSpec,
+                   gamma: float, flux: str):
+    """Reflective-wall fluxes added into the block divergence: per wall
+    group, the owner's cell fields against their mirror (negated normal
+    velocity), weighted by the wall face area and scattered back by the
+    group's receive map.  q_flat: the cell-fields tuple with each row
+    flattened to [cells].  Returns (D, max wall wave speed)."""
+    speed = torch.zeros((), dtype=D.dtype, device=D.device)
+    for (axis, sign), bc, ar, br in zip(conn.b_groups, conn.b_cell,
+                                        conn.b_area, conn.b_recv):
+        q_own = axis_rotate(tuple(torch.index_select(r, 0, bc)
+                                  for r in q_flat), axis)
+        q_ghost = fields_mirror(q_own)
+        if sign > 0:   # outward normal +axis: the owner is the left state
+            f, sp = fields_flux(q_own, q_ghost, gamma=gamma, flux=flux)
+        else:
+            f, sp = fields_flux(q_ghost, q_own, gamma=gamma, flux=flux)
+        f = axis_unrotate(f, axis) * ar
+        f_pad = torch.cat([f, torch.zeros((5, 1), dtype=f.dtype,
+                                          device=f.device)], dim=1)
+        c = torch.index_select(f_pad, 1, br)
+        D = _slab_add(D, -c if sign > 0 else c, axis, layer_hi=sign > 0,
+                      spec=spec)
+        speed = torch.maximum(speed, (sp * (ar > 0)).max())
+    return D, speed
+
+
+def muscl_weights(conn, spec: SubgridSpec, volumes: torch.Tensor):
+    """Packed per-element weights [8, E] of the MUSCL kernel: row 0 the
+    interior cell-face area, rows 1+k side k's equal-level face weight
+    mask*area*(rel == 0) (zero at walls, padding and hanging faces; the
+    kernel reads its sign as the slope mask), the rest zero.  They depend
+    on the mesh only."""
+    dim = spec.dim
+    h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
+    h_cell = h_e / spec.extent
+    surface = (h_cell ** (dim - 1)) * (volumes > 0)
+    area_t = h_cell ** (dim - 1)
+    rows = [surface] + [conn.mask[k] * area_t * (conn.rel[k] == 0)
+                        for k in range(2 * dim)]
+    while len(rows) < 8:
+        rows.append(torch.zeros_like(surface))
+    return torch.stack(rows)
+
+
+def muscl_side_slabs(u: torch.Tensor, conn, spec: SubgridSpec) -> tuple:
+    """Per side, the equal-level neighbor's facing and second cell layer
+    as one [10, *t_ext, E] slab (rows 0-4 facing, 5-9 second), gathered
+    from quadrant 0 of the side table (the equal or coarser slot)."""
+    ext = spec.extent
+    others = []
+    for a in range(spec.dim):
+        for hi in (True, False):
+            k = 2 * a + (0 if hi else 1)
+            e_idx, s_idx = (0, 1) if hi else (ext - 1, ext - 2)
+            lay = torch.cat([u.select(1 + a, e_idx), u.select(1 + a, s_idx)])
+            others.append(_gather_layers(lay, conn.nbr[k][:, :1])[..., 0])
+    return tuple(others)
+
+
+def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
+                          spec: SubgridSpec, gamma: float, flux: str,
+                          limiter: str = "minmod", positivity: bool = True,
+                          farfield=None, weights: torch.Tensor = None):
+    """Second-order MUSCL flux divergence: u [5, *ext, E] -> (D, max
+    speed as a 0-d tensor).
+
+    Per-axis limited linear reconstruction ("minmod" or "none"; a "-prim"
+    suffix reconstructs in primitive space).  Interior and equal-level
+    mesh faces are one call of the MUSCL kernel; reflective walls add the
+    first-order closure (`boundary_apply`).  `weights` (muscl_weights)
+    may be passed in, since they depend on the mesh only.
+
+    Raises NotImplementedError on what is not ported yet: coarser/finer
+    neighbors (AMR, whose hanging faces take outer_apply's first-order
+    passes), farfield boundaries, extents other than 4 and 8."""
+    if any(conn.has_coarse) or any(conn.has_fine):
+        raise NotImplementedError(
+            "order-2 MUSCL on meshes with coarser/finer neighbors (AMR) is "
+            "not ported yet")
+    if farfield is not None:
+        raise NotImplementedError("farfield boundaries are not ported yet")
+    if spec.extent not in (4, 8):
+        raise NotImplementedError(
+            f"the MUSCL kernel takes extents 4 and 8, not {spec.extent}")
+    lim_base, _, space = limiter.partition("-")
+    if weights is None:
+        weights = muscl_weights(conn, spec, volumes)
+    others = muscl_side_slabs(u, conn, spec)
+    D, sp_e = fused_muscl(u, weights, others, gamma=gamma, flux=flux,
+                          limiter=lim_base, positivity=positivity,
+                          space=space or "cons")
+    speed = sp_e.max()
+    if conn.b_groups:
+        q = cell_fields_tuple(u, gamma, flux)
+        D, sp_b = boundary_apply(D, tuple(r.reshape(-1) for r in q), conn,
+                                 spec, gamma, flux)
+        speed = torch.maximum(speed, sp_b)
+    return D, speed

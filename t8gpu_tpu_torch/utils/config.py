@@ -4,9 +4,8 @@
 with the same names and defaults, so that one configuration means the
 same run in both packages.  The solver raises `NotImplementedError` for
 the values whose paths are not ported yet (mu > 0, gravity, farfield
-boundaries, order 2).  The other fields of the JAX package's config
-(limiter, prandtl, the no-slip wall model) come with the slices that
-read them.
+boundaries).  The other fields of the JAX package's config (prandtl, the
+no-slip wall model) come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -50,7 +49,11 @@ class EulerConfig:
     # plain PyTorch path and only on the CPU.
     dtype: str = "float32"
     gravity: tuple = (0.0, 0.0, 0.0)   # uniform body force
-    order: int = 1                     # spatial order
+    order: int = 1                     # spatial order: 1, or 2 (MUSCL)
+    # Slope limiter for order 2: "bj" or "venkat" (the subgrid path maps
+    # both to its per-axis minmod), or "none" (unlimited).  A "-prim"
+    # suffix ("bj-prim") reconstructs in primitive space (kepes only).
+    limiter: str = "bj"
     mu: float = 0.0                    # dynamic viscosity
     boundary: str = "reflective"       # or "farfield"
     farfield: tuple = None             # exterior (rho, vx, vy, vz, p)

@@ -129,17 +129,30 @@ def test_default_device_is_cuda():
                                        device=None)
 
 
-@pytest.mark.parametrize("config", [
-    EulerConfig(mu=1e-3), EulerConfig(gravity=(0.0, -1.0, 0.0)),
-    EulerConfig(boundary="farfield", farfield=(1.0, 0.0, 0.0, 0.0, 1.0)),
-    EulerConfig(boundary="farfield"),
-    EulerConfig(order=2)],
+def _hanging_mesh():
+    """A 2D mesh with one refined element: 2:1 hanging faces."""
+    jf = JForest.uniform(2, dim=2)
+    flags = np.zeros(jf.n_elements, np.int8)
+    flags[0] = 1
+    jf, _ = jf.adapt(jf.balance_flags(flags))
+    return SubgridMesh.from_forest(Forest(2, jf.level, jf.anchor, jf.L),
+                                   SubgridSpec((4, 4)))
+
+
+@pytest.mark.parametrize("config,hanging,match", [
+    (EulerConfig(mu=1e-3), False, "viscous"),
+    (EulerConfig(gravity=(0.0, -1.0, 0.0)), False, "gravity"),
+    (EulerConfig(boundary="farfield", farfield=(1.0, 0.0, 0.0, 0.0, 1.0)),
+     False, "farfield"),
+    (EulerConfig(boundary="farfield"), False, "farfield"),
+    (EulerConfig(order=2), True, "AMR")],
     ids=["viscous", "gravity", "farfield", "farfield-unset", "order2"])
-def test_unported_options_raise(config):
-    mesh = SubgridMesh.from_forest(Forest.uniform(1, dim=2), SubgridSpec((4, 4)))
+def test_unported_options_raise(config, hanging, match):
+    mesh = _hanging_mesh() if hanging else SubgridMesh.from_forest(
+        Forest.uniform(1, dim=2), SubgridSpec((4, 4)))
     s = SubgridCompressibleEulerSolver(mesh, lambda c: kh_planar(c, 2),
                                        config=config, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=match):
         s.iterate(1e-4)
 
 
@@ -152,13 +165,8 @@ def test_unknown_boundary_raises():
 
 
 def test_hanging_mesh_raises():
-    jf = JForest.uniform(2, dim=2)
-    flags = np.zeros(jf.n_elements, np.int8)
-    flags[0] = 1
-    jf, _ = jf.adapt(jf.balance_flags(flags))
-    mesh = SubgridMesh.from_forest(Forest(2, jf.level, jf.anchor, jf.L),
-                                   SubgridSpec((4, 4)))
-    s = SubgridCompressibleEulerSolver(mesh, lambda c: kh_planar(c, 2),
+    s = SubgridCompressibleEulerSolver(_hanging_mesh(),
+                                       lambda c: kh_planar(c, 2),
                                        device="cpu")
     with pytest.raises(NotImplementedError, match="AMR"):
         s.iterate(1e-4)

@@ -9,10 +9,10 @@ GAMMA = 1.4
 GUARD_STATE = np.array([1.0, 0.0, 0.0, 0.0, 2.5], np.float32)
 
 
-def random_state(rng, shape, gamma=GAMMA):
-    """Conservative states with rho, p in [0.5, 1.5] and |v| <= 0.5."""
-    rho = rng.uniform(0.5, 1.5, shape)
-    p = rng.uniform(0.5, 1.5, shape)
+def random_state(rng, shape, gamma=GAMMA, lo=0.5, hi=1.5):
+    """Conservative states with rho, p in [lo, hi] and |v| <= 0.5."""
+    rho = rng.uniform(lo, hi, shape)
+    p = rng.uniform(lo, hi, shape)
     v = rng.uniform(-1.0, 1.0, (3,) + shape)
     v *= 0.5 * rng.uniform(0.0, 1.0, shape) / np.maximum(
         np.sqrt((v * v).sum(axis=0)), 1e-12)
@@ -43,6 +43,29 @@ def stage_inputs(seed, dim, ext, E, n_guard):
         up[..., -n_guard:] = g
         w[:, -n_guard:] = 0.0
     return u, up, w, others
+
+
+def muscl_inputs(seed, dim, ext, E, n_guard, lo=0.5, hi=1.5):
+    """u [5, *ext, E], weights [8, E] and 2*dim side slabs
+    [10, *ext^(dim-1), E] (rows 0-4 the neighbour's facing layer, 5-9 its
+    second layer) for the MUSCL divergence, with rho and p in [lo, hi].
+    Weight rows: 0 interior face area, 1..2*dim side faces (some zero: a
+    wall, dead or hanging side), the rest zero.  The last n_guard slots
+    are guard slots (GUARD_STATE, zero weights)."""
+    rng = np.random.default_rng(seed)
+    u = random_state(rng, (ext,) * dim + (E,), lo=lo, hi=hi)
+    lay = (ext,) * (dim - 1) + (E,)
+    others = [np.concatenate([random_state(rng, lay, lo=lo, hi=hi),
+                              random_state(rng, lay, lo=lo, hi=hi)])
+              for _ in range(2 * dim)]
+    w = np.zeros((8, E), np.float32)
+    w[0] = rng.uniform(0.5, 1.0, E)
+    for k in range(2 * dim):
+        w[1 + k] = rng.uniform(0.5, 1.0, E) * (rng.uniform(size=E) > 0.25)
+    if n_guard:
+        u[..., -n_guard:] = GUARD_STATE.reshape((5,) + (1,) * (dim + 1))
+        w[:, -n_guard:] = 0.0
+    return u, w, others
 
 
 def noisy_kh(dim, seed):
