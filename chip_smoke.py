@@ -4,10 +4,11 @@
 Run from the repository root on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --profile DIR  # also profile ten flagship steps
-                                         # and ten order-2 steps (device
-                                         # time by kernel group, idle
-                                         # share); tables and traces to DIR
+    python3 chip_smoke.py --profile DIR  # also profile ten steps of the
+                                         # flagship, order 2, mhd and
+                                         # mhd_order2 (device time by kernel
+                                         # group, idle share); tables and
+                                         # traces to DIR
 
 Phases, one line each; any failure raises and the exit code is not 0:
   gpu              card name and power limit (nvidia-smi), torch and CUDA
@@ -15,7 +16,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
   kernel           each kernel against its plain PyTorch version on the card
                    (rtol 2e-5, atol 2e-6, and bit-identical on repeat), its
                    time, the plain version's time and the card's bound:
-                   the RK-stage kernel, then the MUSCL kernel
+                   the RK-stage kernel, then the MUSCL kernel, then the two
+                   GLM-MHD kernels (at the Orszag-Tang shape and three
+                   ragged ones; seeded random states, conductor-wall sides
+                   for the flux kernel, every limiter/positivity case for
+                   the MUSCL kernel)
   flagship         the main path: 3D KH, Forest.uniform(4), Subgrid<8,8,8>
                    (4096 elements, 2.1M cells), KEPES, SSP-RK3, stepped by
                    SubgridCompressibleEulerSolver.iterate_many on the card;
@@ -29,6 +34,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    launch of the MUSCL kernel; ms/step, mass drift, launches
   order2_prim      the same with limiter "bj-prim" (primitive space)
   order2_vs_cpu    one order-2 step on the card and one on the CPU
+  mhd              the GLM-MHD path: Orszag-Tang, Forest.uniform(7, dim=2),
+                   periodic, Subgrid<8,8> (16384 elements, 1.05M cells),
+                   gamma 5/3, glm_alpha 0.1, cfl 0.45, dt = 0.5 x the CFL
+                   step, stepped by SubgridMHDSolver.iterate_many at order
+                   1: ms/step (slope of 10 and 110 steps, median of three),
+                   cell updates/s, launches per step (3 of fused_mhd_flux,
+                   none of the others), mass drift, max |div B|
+  mhd_order2       the same at order 2 (minmod): 3 fused_mhd_muscl per step
+  mhd_vs_cpu       one step on the card and one on the CPU, order 1 and 2
 Then one JSON line per kernel table and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
@@ -72,10 +86,24 @@ FIELD_OPS, FLUX_OPS, FACE_OPS, UPDATE_OPS = 22, 198, 17, 26
 # cell and side-layer cell in primitive space.
 RECON_OPS, PAIR_OPS, PRIM_OPS = 65, 24, 12
 
+# The GLM-MHD kernels (models/mhd.py, a divide, sqrt, compare or select
+# counts as one): the interface flux _rusanov_rows, 66 per side's
+# _phys_flux and 51 for the GLM solve and the Rusanov rows; per interface
+# 9 weight products, 18 divergence adds and a masked max; per cell and axis
+# of the MUSCL kernel 18 differences, the minmod limiter (7 per row), 36
+# for the two reconstructions and two thermal-pressure guards (20 each).
+RUSANOV_OPS, MHD_FACE_OPS, MHD_RECON_OPS = 183, 30, 157
+MHD_GAMMA = 5.0 / 3.0
+
 # Sizes of the phases: the kernel shapes (dim, ext, E, live elements), the
-# flagship's and the large case's forest levels.
+# flagship's and the large case's forest levels, the Orszag-Tang level.
 KERNEL_SHAPES = ((3, 8, 4374, 4096), (3, 4, 4374, 4096), (2, 8, 4374, 4096))
 FLAGSHIP_LEVEL, LARGE_LEVEL = 4, 5
+MHD_LEVEL = 7
+# the MHD kernels at the Orszag-Tang shape (E its capacity, filled in by
+# mhd_kernel_shapes) and three ragged shapes
+MHD_KERNEL_SHAPES = ((2, 8, None, None), (2, 4, 4374, 4096),
+                     (3, 8, 4374, 4096), (3, 4, 4374, 4096))
 
 
 def phase(label: str, **fields) -> None:
@@ -150,6 +178,29 @@ def stage_cost(dim, ext, E, share_prev):
                + dim * (ext + 1) * T * (FLUX_OPS + FACE_OPS)
                + B * UPDATE_OPS)
     return 4 * (read + write), ops
+
+
+def mhd_cost(dim, ext, E, side_rows, recon):
+    """(bytes, ops) an MHD divergence must move and compute: u, the weights
+    and the side layers (9 rows) or slabs (18) read once, D and the speed
+    written once; each interface's flux once and, with `recon`, each cell's
+    reconstruction once per axis."""
+    B, T = ext ** dim, ext ** (dim - 1)
+    read = 9 * B * E + 8 * E + 2 * dim * side_rows * T * E
+    write = 9 * B * E + E
+    ops = E * dim * (ext + 1) * T * (RUSANOV_OPS + MHD_FACE_OPS)
+    if recon:
+        ops += E * dim * B * MHD_RECON_OPS
+    return 4 * (read + write), ops
+
+
+def mhd_kernel_shapes():
+    """MHD_KERNEL_SHAPES with the Orszag-Tang row's E (the capacity of
+    4**MHD_LEVEL elements) and live count filled in."""
+    from t8gpu_tpu_torch.memory.store import bucket_capacity
+    n = 4 ** MHD_LEVEL
+    return tuple((d, x, bucket_capacity(n), n) if E is None else (d, x, E, m)
+                 for d, x, E, m in MHD_KERNEL_SHAPES)
 
 
 def bound_ms(nbytes, ops):
@@ -303,6 +354,98 @@ def phase_kernel_muscl():
                 plain_ms=timing["cons"][1], bound_ms=b_ms, bound_by=b_by)
 
 
+def _hold(name, k1, k2, ref, n_live, errs):
+    """Hold one kernel result (D, speed) against its repeat k2 (bit for
+    bit) and its plain version ref; guard slots [n_live, E) must come out
+    with D = 0 and speed 0.  errs accumulates (max abs, max rel, share of
+    the tolerance)."""
+    for a, b in zip(k1, k2):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name} is not bit-identical on repeat")
+    if not (bool((k1[0][..., n_live:] == 0).all())
+            and bool((k1[1][n_live:] == 0).all())):
+        raise AssertionError(f"{name}: guard slots have a divergence or a "
+                             f"speed")
+    for got, want in zip(k1, ref):
+        a, r, t = compare(name, got, want)
+        errs[:] = [max(errs[0], a), max(errs[1], r), max(errs[2], t)]
+
+
+def mhd_inputs(which, seed, dim, ext, E, n_live, **kw):
+    """Seeded random MHD kernel inputs (tests/torch_port_inputs.py) on the
+    card; slots [n_live, E) are guard slots."""
+    from tests import torch_port_inputs as tpi
+    make = tpi.mhd_flux_inputs if which == "flux" else tpi.mhd_muscl_inputs
+    u, w, others = make(seed, dim, ext, E, n_guard=E - n_live, **kw)
+    dev = lambda a: torch.from_numpy(a).cuda()
+    return dev(u), dev(w), [dev(o) for o in others]
+
+
+def _kernel_row(name, errs, timing):
+    """The kernel phase line of an MHD kernel, and its JSON fields.
+    timing: (kernel ms, plain ms, bytes, ops) at the Orszag-Tang shape."""
+    t_k, t_p, nbytes, ops = timing
+    b_ms, b_by = bound_ms(nbytes, ops)
+    phase("kernel", kernel=name, max_abs_err=f"{errs[0]:.3e}",
+          max_rel_err=f"{errs[1]:.3e}", tolerance_used=f"{errs[2]:.3f}",
+          rtol=RTOL, atol=ATOL, kernel_ms=f"{t_k:.4f}", plain_ms=f"{t_p:.3f}",
+          bound_ms=f"{b_ms:.4f}", bytes=nbytes, ops=ops, bound_by=b_by)
+    return dict(max_abs_err=errs[0], ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_kernel_mhd_flux():
+    """The first-order MHD kernel against its plain version at the
+    Orszag-Tang shape and three ragged shapes, with conductor-wall sides;
+    timed at the Orszag-Tang shape."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
+                                             fused_mhd_flux_reference)
+    errs = [0.0, 0.0, 0.0]
+    for i, (dim, ext, E, n_live) in enumerate(mhd_kernel_shapes()):
+        args = mhd_inputs("flux", dim * 10 + ext, dim, ext, E, n_live)
+        k1 = fused_mhd_flux(*args, gamma=MHD_GAMMA)
+        k2 = fused_mhd_flux(*args, gamma=MHD_GAMMA)
+        ref = fused_mhd_flux_reference(*args, gamma=MHD_GAMMA)
+        torch.cuda.synchronize()
+        _hold(f"fused_mhd_flux {dim}d ext{ext}", k1, k2, ref, n_live, errs)
+        if i == 0:
+            timing = (cuda_ms(lambda: fused_mhd_flux(*args, gamma=MHD_GAMMA),
+                              reps=20),
+                      cuda_ms(lambda: fused_mhd_flux_reference(
+                          *args, gamma=MHD_GAMMA), reps=3, warmup=1)) \
+                + mhd_cost(dim, ext, E, 9, recon=False)
+    return _kernel_row("fused_mhd_flux", errs, timing)
+
+
+def phase_kernel_mhd_muscl():
+    """The order-2 MHD kernel against its plain version in every limiter
+    and positivity case at the same shapes (rho and p in [0.02, 2] with the
+    guard on, so that it fires); timed at the Orszag-Tang shape with the
+    main path's minmod and guard."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_mhd_muscl,
+                                             fused_mhd_muscl_reference)
+    errs = [0.0, 0.0, 0.0]
+    for i, (dim, ext, E, n_live) in enumerate(mhd_kernel_shapes()):
+        for limiter in ("minmod", "none"):
+            for pos in (True, False):
+                args = mhd_inputs("muscl", dim * 10 + ext, dim, ext, E,
+                                  n_live, lo=0.02 if pos else 0.5, hi=2.0)
+                kw = dict(gamma=MHD_GAMMA, limiter=limiter, positivity=pos)
+                k1 = fused_mhd_muscl(*args, **kw)
+                k2 = fused_mhd_muscl(*args, **kw)
+                ref = fused_mhd_muscl_reference(*args, **kw)
+                torch.cuda.synchronize()
+                _hold(f"fused_mhd_muscl {dim}d ext{ext} {limiter} "
+                      f"positivity={pos}", k1, k2, ref, n_live, errs)
+                if i == 0 and limiter == "minmod" and pos:
+                    timing = (cuda_ms(lambda: fused_mhd_muscl(*args, **kw),
+                                      reps=20),
+                              cuda_ms(lambda: fused_mhd_muscl_reference(
+                                  *args, **kw), reps=3, warmup=1)) \
+                        + mhd_cost(dim, ext, E, 18, recon=True)
+    return _kernel_row("fused_mhd_muscl", errs, timing)
+
+
 def flagship_solver(level, device=None, config=None):
     from t8gpu_tpu_torch import (EulerConfig, Forest,
                                  SubgridCompressibleEulerSolver, SubgridMesh,
@@ -314,11 +457,17 @@ def flagship_solver(level, device=None, config=None):
                                           device=device)
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by name."""
+    from t8gpu_tpu_torch.ops import kernels
+    return {n: getattr(kernels, n) for n in (
+        "fused_rk_stage", "fused_muscl", "fused_mhd_flux", "fused_mhd_muscl")}
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_rk_stage
-    fused_rk_stage.launches = 0
-    fused_muscl.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def timed_steps(solver, n, dt) -> float:
@@ -545,11 +694,94 @@ def phase_order2_vs_cpu():
               atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
 
 
+def ot_solver(order=1, device=None):
+    """bench.py's bench_mhd_subgrid mesh and state: Orszag-Tang on
+    Forest.uniform(MHD_LEVEL, dim=2), periodic, Subgrid<8,8>, the solver's
+    defaults (gamma 5/3, glm_alpha 0.1, cfl 0.45), limiter minmod."""
+    from t8gpu_tpu_torch import (Forest, SubgridMesh, SubgridMHDSolver,
+                                 SubgridSpec, orszag_tang)
+    mesh = SubgridMesh.from_forest(Forest.uniform(MHD_LEVEL, dim=2),
+                                   SubgridSpec((8, 8)))
+    return SubgridMHDSolver(mesh, orszag_tang, order=order,
+                            limiter="minmod", device=device)
+
+
+def phase_mhd(order, profile_dir):
+    """The GLM-MHD path at full size: ms/step as the slope of 10 and 110
+    steps (median of three), mass drift over the first 122 steps, max
+    |div B| at the end, and 3 launches per step of the order's kernel and
+    none of any other."""
+    name = "fused_mhd_flux" if order == 1 else "fused_mhd_muscl"
+    tag = "mhd" if order == 1 else "mhd_order2"
+    solver = ot_solver(order)              # device=None: the card
+    n_cells = solver.n_elements * solver.spec.size
+    m0 = solver.compute_integral()
+    dt = 0.5 * solver.compute_timestep_device()
+    reset_launches()                       # count this path only
+    warm = 2
+    solver.iterate_many(warm, dt)
+    slopes = []
+    for i in range(3):
+        t10 = timed_steps(solver, 10, dt)
+        t110 = timed_steps(solver, 110, dt)
+        slopes.append((t110 - t10) / 100 * 1e3)
+        if i == 0:
+            drift = check_state(tag, solver, m0)
+    steps = warm + 3 * 120
+    counts = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    want = {n: 3 * steps if n == name else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} for {steps} steps, "
+                             f"expected {want}")
+    div_b = float(abs(solver.compute_divergence_b()).max())
+    if not div_b < float("inf"):
+        raise AssertionError(f"{tag}: div B is not finite")
+    ms_step = statistics.median(slopes)
+    phase(tag, order=order, limiter=solver.limiter,
+          elements=solver.n_elements, cells=n_cells,
+          capacity=solver.conn.element_capacity,
+          state_mb=f"{solver.u.numel() * 4 / 1e6:.1f}", steps=steps,
+          launches=counts[name], launches_per_step=counts[name] / steps,
+          ms_per_step=f"{ms_step:.4f}", ms_per_step_min=f"{min(slopes):.4f}",
+          ms_per_step_max=f"{max(slopes):.4f}",
+          cell_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
+          mass_drift=f"{drift:.3e}", max_abs_div_b=f"{div_b:.3e}",
+          dt=f"{float(dt):.6e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir), tag,
+                 f"{name}_kernel")
+    return counts[name]
+
+
+def phase_mhd_vs_cpu():
+    """One GLM-MHD step on the card and one on the CPU (plain versions)
+    from the same state, at order 1 and 2."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    for order in (1, 2):
+        gpu = ot_solver(order)
+        cpu = ot_solver(order, device="cpu")
+        if not torch.equal(gpu.u.cpu(), cpu.u):
+            raise AssertionError("mhd_vs_cpu: initial states differ")
+        dt = 0.5 * gpu.compute_timestep()
+        gpu.iterate(dt)
+        t0 = time.perf_counter()
+        cpu.iterate(dt)
+        cpu_s = time.perf_counter() - t0
+        a, r, t = compare(f"mhd_vs_cpu order {order}",
+                          torch.from_numpy(gpu.conserved_state()),
+                          torch.from_numpy(cpu.conserved_state()))
+        phase("mhd_vs_cpu", order=order, level=MHD_LEVEL,
+              cells=gpu.n_elements * gpu.spec.size, max_abs_err=f"{a:.3e}",
+              max_rel_err=f"{r:.3e}", tolerance_used=f"{t:.3f}", rtol=RTOL,
+              atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile ten flagship steps: device time by "
-                         "kernel group, idle share; table and trace to DIR")
+                    help="also profile ten steps of each stepping phase: "
+                         "device time by kernel group, idle share; tables "
+                         "and traces to DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -561,12 +793,17 @@ def main(argv=None) -> int:
     phase_build()
     k_stage = phase_kernel()
     k_muscl = phase_kernel_muscl()
+    k_mhd_flux = phase_kernel_mhd_flux()
+    k_mhd_muscl = phase_kernel_mhd_muscl()
     stage_launches = phase_flagship(args.profile)
     phase_flagship_vs_cpu()
     phase_large()
     muscl_launches = phase_order2(args.profile)
     phase_order2_prim()
     phase_order2_vs_cpu()
+    mhd_launches = phase_mhd(1, args.profile)
+    mhd_muscl_launches = phase_mhd(2, args.profile)
+    phase_mhd_vs_cpu()
 
     def row(name, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -579,7 +816,11 @@ def main(argv=None) -> int:
         row("fused_rk_stage", "t8gpu_tpu/ops/pallas_kernels.py:1190",
             stage_launches, k_stage),
         row("fused_muscl", "t8gpu_tpu/ops/pallas_kernels.py:848",
-            muscl_launches, k_muscl)]}), flush=True)
+            muscl_launches, k_muscl),
+        row("fused_mhd_flux", "t8gpu_tpu/ops/pallas_kernels.py:365",
+            mhd_launches, k_mhd_flux),
+        row("fused_mhd_muscl", "t8gpu_tpu/ops/pallas_kernels.py:777",
+            mhd_muscl_launches, k_mhd_muscl)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

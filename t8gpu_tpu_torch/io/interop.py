@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+STATE_ROWS = (5, 9)     # compressible Euler, GLM-MHD
+
 
 def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
     """A contiguous tensor copy of the array `a` on `device`."""
@@ -23,16 +25,18 @@ def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
 
 
 def solver_arrays(u, volumes, inv_cell_volume, device="cpu") -> dict:
-    """The JAX subgrid solver's element-minor state [5, *ext, cap] and its
-    per-element volume arrays [cap] as tensors on `device`, keyed as the
-    port's solver attributes (`u`, `volumes`, `inv_cell_volume`)."""
+    """The JAX subgrid solver's element-minor state [C, *ext, cap] (C = 5
+    for Euler, 9 for GLM-MHD) and its per-element volume arrays [cap] as
+    tensors on `device`, keyed as the port's solver attributes (`u`,
+    `volumes`, `inv_cell_volume`)."""
     u = np.asarray(u)
     volumes = np.asarray(volumes)
     inv_cell_volume = np.asarray(inv_cell_volume)
     cap = u.shape[-1]
-    if u.shape[0] != 5 or volumes.shape != (cap,) \
+    if u.shape[0] not in STATE_ROWS or volumes.shape != (cap,) \
             or inv_cell_volume.shape != (cap,):
-        raise ValueError(f"expected u [5, *ext, cap] with volumes [cap], got "
+        raise ValueError(f"expected u [5 or 9, *ext, cap] with volumes "
+                         f"[cap], got "
                          f"{u.shape}, {volumes.shape}, "
                          f"{inv_cell_volume.shape}")
     return dict(u=to_tensor(u, device), volumes=to_tensor(volumes, device),

@@ -4,8 +4,8 @@ Each source under t8gpu_tpu_torch/csrc/ is compiled by `nvcc` into a
 shared library with a plain C interface, loaded with `ctypes`.  The build
 runs at first use into build/t8gpu_tpu_torch/ beside the package (a
 directory git ignores), from the sources alone; a library's file name
-carries a hash of its source and flags, so an edited source is never
-served by a stale build.  Nothing is compiled when this module is
+carries a hash of its source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source is never served by a stale build.  Nothing is compiled when this module is
 imported.
 """
 
@@ -23,7 +23,8 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "t8gpu_tpu_torch"
 
-SOURCES = ("fused_rk_stage", "fused_muscl")
+SOURCES = ("fused_rk_stage", "fused_muscl", "fused_mhd_flux",
+           "fused_mhd_muscl")
 
 # No --use_fast_math: IEEE division, sqrt and logf.  --fmad=false keeps every
 # product rounded on its own, as in the plain PyTorch version (see the note
@@ -49,7 +50,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
+    """The library of source `name`; its file name hashes the source, every
+    header under csrc/ and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

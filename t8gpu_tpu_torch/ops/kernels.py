@@ -23,6 +23,22 @@ pair flux) and the per-element max wave speed.  Bound on an H100: the
 bytes it must move, ~157 MB at the flagship shape (47 us at 3.35 TB/s).
 The kernel is the simple one-thread-per-cell design that evaluates every
 interface twice (csrc/fused_muscl.cu).
+
+fused_mhd_flux — replaces fused_mhd_flux_pallas
+(t8gpu_tpu/ops/pallas_kernels.py:365): the first-order GLM-MHD flux
+divergence (Rusanov with the exact 2x2 GLM interface solve, c_h read from
+weight row 7) of the interior faces, the equal-level mesh faces and the
+conductor walls (their ghosts ride in as side layers), and the
+per-element max speed.  Bound on an H100: the bytes it must move, ~128
+MB at the Orszag-Tang shape (38 us at 3.35 TB/s; csrc/fused_mhd_flux.cu).
+
+fused_mhd_muscl — replaces fused_mhd_muscl_pallas
+(t8gpu_tpu/ops/pallas_kernels.py:777): the order-2 GLM-MHD divergence of
+the interior and equal-level faces (per-axis minmod or unlimited slopes,
+the thermal-pressure positivity guard, the same Rusanov/GLM flux).  Bound:
+the bytes, ~154 MB at the Orszag-Tang shape (46 us;
+csrc/fused_mhd_muscl.cu).  Both are the one-thread-per-cell design of the
+Euler kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +47,9 @@ import ctypes
 
 import torch
 
+from t8gpu_tpu_torch.models.mhd import N_ROWS as MHD_ROWS
+from t8gpu_tpu_torch.models.mhd import (_rusanov_rows, axis_rotate9,
+                                        axis_unrotate9)
 from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_axis_rotate,
                                        fields_flux, flux_axis_unrotate,
                                        kepes_pair_fields, kepes_pair_flux,
@@ -47,17 +66,23 @@ def _stage_tensors(u_stage, u_prev, weights, others) -> list:
 
 
 def _check_block(u: torch.Tensor, name: str):
-    """(dim, ext, E) of a block state [5, *(ext,)*dim, E]; raises
+    """(dim, ext, E) of a block state [C, *(ext,)*dim, E]; raises
     ValueError on a shape no kernel takes."""
     dim = u.dim() - 2
     ext = u.shape[1]
     E = u.shape[-1]
     if dim not in KERNEL_DIMS or ext not in KERNEL_EXTENTS \
             or tuple(u.shape[1:-1]) != (ext,) * dim:
-        raise ValueError(f"{name} must be [5, *(ext,)*dim, E] with dim in "
+        raise ValueError(f"{name} must be [C, *(ext,)*dim, E] with dim in "
                          f"{KERNEL_DIMS} and ext in {KERNEL_EXTENTS}, got "
                          f"{tuple(u.shape)}")
     return dim, ext, E
+
+
+def _check_rows(u: torch.Tensor, rows: int, name: str):
+    if u.dim() < 1 or u.shape[0] != rows:
+        raise ValueError(f"{name} must have {rows} state rows, got "
+                         f"{tuple(u.shape)}")
 
 
 def _check_sides(weights, others, rows: int, dim: int, ext: int, E: int):
@@ -98,17 +123,23 @@ def _check_stage_shapes(u_stage, u_prev, weights, others, extras):
     return dim, ext, E
 
 
-def _check_cuda_tensors(tensors, flux: str, what: str):
-    """Raise ValueError on what a CUDA kernel does not take: another flux
-    than kepes, another dtype than float32, strided tensors."""
-    if flux != "kepes":
-        raise ValueError(f"the {what} kernel computes the kepes flux, not "
-                         f"{flux!r}")
+def _check_f32_contiguous(tensors, what: str):
+    """Raise ValueError on what every CUDA kernel refuses: another dtype
+    than float32, strided tensors."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"the {what} kernel is float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the {what} kernel takes contiguous tensors")
+
+
+def _check_cuda_tensors(tensors, flux: str, what: str):
+    """Raise ValueError on what an Euler CUDA kernel does not take: another
+    flux than kepes, another dtype than float32, strided tensors."""
+    if flux != "kepes":
+        raise ValueError(f"the {what} kernel computes the kepes flux, not "
+                         f"{flux!r}")
+    _check_f32_contiguous(tensors, what)
 
 
 def _check_kernel_inputs(u_stage, u_prev, weights, others, flux: str):
@@ -138,6 +169,163 @@ def _raise_on_error(lib, rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
+def _side_pointers(others) -> list:
+    """The 2*dim side-layer pointers, padded with None to the six of the C
+    entry points."""
+    return [o.data_ptr() for o in others] + [None] * (6 - len(others))
+
+
+def _speed_bits(E: int, dev) -> torch.Tensor:
+    """Zero-filled [E] buffer for a kernel's per-element speed max, which
+    it takes by atomicMax on the bits of non-negative floats."""
+    return torch.zeros(E, dtype=torch.int32, device=dev)
+
+
+def _launch(lib, entry: str, dev, args, what: str):
+    """Call the C entry point with the device index first and PyTorch's
+    current stream last; raises on a refused launch."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(dev.index, *args, stream)
+    _raise_on_error(lib, rc, what)
+
+
+def _axis_update(D, speed, a: int, ext: int, unrotate, f, sp, f_lo, sp_lo,
+                 surface, w_hi, w_lo, interior_ok):
+    """D and the per-cell speed after axis a's interfaces, the shift
+    structure of the TPU kernels' tiles: f/sp are the face-frame flux
+    [C, *blk] and speed [*blk] of every cell's +a interface (the last
+    cell's against the hi side), f_lo/sp_lo those of cell 0's -a mesh
+    face.  Interior faces carry `surface`, the +a face of the last cell
+    w_hi, the -a face of cell 0 w_lo; D[c] += f[c-1] - f[c]."""
+    dtype = D.dtype
+    idx = torch.arange(ext, device=D.device).view(
+        (ext,) + (1,) * (D.dim() - 2 - a))       # broadcasts along axis a
+    at_end = idx == ext - 1
+    f = unrotate(f, a) * torch.where(at_end, w_hi, surface)
+    sp_ok = torch.where(at_end, (w_hi > 0).to(dtype), interior_ok)
+    speed = torch.maximum(speed, sp * sp_ok)
+    f_lo = unrotate(f_lo, a) * w_lo
+    speed = torch.maximum(
+        speed, torch.where(idx == 0, sp_lo * (w_lo > 0), 0.0).to(dtype))
+    prev = torch.cat([f_lo, f.narrow(1 + a, 0, ext - 1)], dim=1 + a)
+    return D + prev - f, speed
+
+
+def _shift_next(r, h, a: int, ext: int):
+    """Rows of the next cell along a: shift by one, the last slot from the
+    side layer h."""
+    return torch.cat([r.narrow(a, 1, ext - 1), h.unsqueeze(a)], dim=a)
+
+
+def _shift_prev(r, h, a: int, ext: int):
+    """Rows of the previous cell along a, the first slot from h."""
+    return torch.cat([h.unsqueeze(a), r.narrow(a, 0, ext - 1)], dim=a)
+
+
+def _first_order_divergence(rows, sides, weights, n_rows: int, rotate,
+                            unrotate, iface):
+    """Plain first-order divergence of a block: rows a tuple of n_rows
+    block rows [*blk]; sides 2*dim tuples of n_rows side-layer rows
+    [*t_ext, E]; iface(l, r) -> (stacked face-frame flux, speed) on
+    rotated row tuples.  Returns (D [n_rows, *blk], per-cell speed)."""
+    dim = rows[0].dim() - 1
+    ext = rows[0].shape[0]
+    dtype, device = rows[0].dtype, rows[0].device
+    blk = tuple(rows[0].shape)
+    surface = weights[0]
+    interior_ok = (surface > 0).to(dtype)
+    D = torch.zeros((n_rows,) + blk, dtype=dtype, device=device)
+    speed = torch.zeros(blk, dtype=dtype, device=device)
+    for a in range(dim):
+        qa = rotate(rows, a)
+        hi = rotate(sides[2 * a], a)
+        lo = rotate(sides[2 * a + 1], a)
+        nxt = tuple(_shift_next(r, h, a, ext) for r, h in zip(qa, hi))
+        f, sp = iface(qa, nxt)
+        q0 = tuple(r.narrow(a, 0, 1) for r in qa)
+        f_lo, sp_lo = iface(tuple(h.unsqueeze(a) for h in lo), q0)
+        D, speed = _axis_update(D, speed, a, ext, unrotate, f, sp, f_lo,
+                                sp_lo, surface, weights[1 + 2 * a],
+                                weights[2 + 2 * a], interior_ok)
+    return D, speed
+
+
+def _muscl_divergence(rows, sides, weights, n_rows: int, rotate, unrotate,
+                      iface, guard, lim):
+    """Plain order-2 MUSCL divergence of the interior and equal-level
+    faces of a block, row-generic: rows a tuple of n_rows block rows
+    [*blk]; sides 2*dim pairs (facing, second) of n_rows side-layer row
+    tuples, in the rows' space and unrotated; guard(rec, base) and
+    iface(l, r) act on rotated row tuples; lim the slope limiter.
+    Returns (D [n_rows, *blk], speed [E])."""
+    dim = rows[0].dim() - 1
+    ext = rows[0].shape[0]
+    dtype, device = rows[0].dtype, rows[0].device
+    blk = tuple(rows[0].shape)
+    surface = weights[0]
+    interior_ok = (surface > 0).to(dtype)
+    D = torch.zeros((n_rows,) + blk, dtype=dtype, device=device)
+    speed = torch.zeros(blk, dtype=dtype, device=device)
+
+    for a in range(dim):
+        va = rotate(rows, a)
+        nb0_hi, nb1_hi = (rotate(t, a) for t in sides[2 * a])
+        nb0_lo, nb1_lo = (rotate(t, a) for t in sides[2 * a + 1])
+        w_hi = weights[1 + 2 * a]
+        w_lo = weights[2 + 2 * a]
+        eq_hi = (w_hi > 0).to(dtype)
+        eq_lo = (w_lo > 0).to(dtype)
+        idx = torch.arange(ext, device=device).view(
+            (ext,) + (1,) * (dim - a))           # broadcasts along axis a
+        at_end = idx == ext - 1
+        at_lo = idx == 0
+
+        # one-sided differences per cell; the outward ones at the block
+        # edge come from the neighbour layer, masked by the face weight
+        slope = []
+        for r, h0, l0 in zip(va, nb0_hi, nb0_lo):
+            dh = _shift_next(r, h0, a, ext) - r
+            dh = torch.where(at_end, dh * eq_hi, dh)
+            dl = r - _shift_prev(r, l0, a, ext)
+            dl = torch.where(at_lo, dl * eq_lo, dl)
+            slope.append(lim(dl, dh))
+
+        u_l_t = guard(tuple(r + 0.5 * s for r, s in zip(va, slope)), va)
+        u_r_t = guard(tuple(r - 0.5 * s for r, s in zip(va, slope)), va)
+
+        # the neighbours' edge-cell reconstructions toward us, from the
+        # same four layers both elements see (exact conservation)
+        my_hi = tuple(r.select(a, ext - 1) for r in va)
+        my_lo = tuple(r.select(a, 0) for r in va)
+        s_nbr_hi = tuple(lim(h0 - m, h1 - h0)
+                         for m, h0, h1 in zip(my_hi, nb0_hi, nb1_hi))
+        s_nbr_lo = tuple(lim(l0 - l1, m - l0)
+                         for m, l0, l1 in zip(my_lo, nb0_lo, nb1_lo))
+        hi_sub = guard(tuple(h0 - 0.5 * s
+                             for h0, s in zip(nb0_hi, s_nbr_hi)), nb0_hi)
+        lo_sub = guard(tuple(l0 + 0.5 * s
+                             for l0, s in zip(nb0_lo, s_nbr_lo)), nb0_lo)
+
+        # interior and hi mesh-face interfaces in one evaluation, then the
+        # low-side mesh face of the first slot
+        nxt = tuple(_shift_next(r, h, a, ext) for r, h in zip(u_r_t, hi_sub))
+        f, sp = iface(u_l_t, nxt)
+        u_rf0 = tuple(r.narrow(a, 0, 1) for r in u_r_t)
+        f_lo, sp_lo = iface(tuple(h.unsqueeze(a) for h in lo_sub), u_rf0)
+        D, speed = _axis_update(D, speed, a, ext, unrotate, f, sp, f_lo,
+                                sp_lo, surface, w_hi, w_lo, interior_ok)
+
+    return D, speed.amax(dim=tuple(range(dim)))
+
+
+def _rows(t: torch.Tensor, first: int = 0, n: int = 5) -> tuple:
+    return tuple(t[first + i] for i in range(n))
+
+
+# -- the RK-stage kernel -----------------------------------------------------
+
+
 def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
                    others, gamma: float, flux: str, coeffs, extras=()):
     """One SSP-RK stage: (u_next, speed) with
@@ -160,21 +348,17 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
         raise ValueError(f"no stage kernel for device {dev}")
     _check_kernel_inputs(u_stage, u_prev, weights, others, flux)
 
-    lib = _stage_library()
     out = torch.empty_like(u_stage)
-    speed_bits = torch.zeros(E, dtype=torch.int32, device=dev)
-    sides = [o.data_ptr() for o in others] + [None] * (6 - len(others))
+    speed = _speed_bits(E, dev)
     a_c, b_c, c_c = (float(x) for x in coeffs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.t8_fused_rk_stage(
-            dev.index, dim, ext, E, u_stage.data_ptr(),
-            None if u_prev is None else u_prev.data_ptr(),
-            weights.data_ptr(), *sides, out.data_ptr(),
-            speed_bits.data_ptr(), float(gamma), a_c, b_c, c_c, stream)
-    _raise_on_error(lib, rc, "fused_rk_stage")
+    _launch(_stage_library(), "t8_fused_rk_stage", dev,
+            [dim, ext, E, u_stage.data_ptr(),
+             None if u_prev is None else u_prev.data_ptr(),
+             weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
+             speed.data_ptr(), float(gamma), a_c, b_c, c_c],
+            "fused_rk_stage")
     fused_rk_stage.launches += 1
-    return out, speed_bits.view(torch.float32)
+    return out, speed.view(torch.float32)
 
 
 fused_rk_stage.launches = 0
@@ -197,52 +381,21 @@ def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
     element axis, for kepes, hll and hllc.  Same signature and result as
     fused_rk_stage; runs on any device and dtype."""
     dim = u_stage.dim() - 2
-    ext = u_stage.shape[1]
-    dtype = u_stage.dtype
-    blk = tuple(u_stage.shape[1:])
-    q = cell_fields_tuple(tuple(u_stage[i] for i in range(5)), gamma, flux)
-    others_q = [cell_fields_tuple(tuple(o[i] for i in range(5)), gamma, flux)
-                for o in others]
-    surface = weights[0]
-    interior_ok = (surface > 0).to(dtype)
-    D = torch.zeros((5,) + blk, dtype=dtype, device=u_stage.device)
-    speed = torch.zeros(blk, dtype=dtype, device=u_stage.device)
+    q = cell_fields_tuple(_rows(u_stage), gamma, flux)
+    others_q = [cell_fields_tuple(_rows(o), gamma, flux) for o in others]
 
-    for a in range(dim):
-        qa = fields_axis_rotate(q, a)
-        hi = fields_axis_rotate(others_q[2 * a], a)
-        lo = fields_axis_rotate(others_q[2 * a + 1], a)
-        w_hi = weights[1 + 2 * a]
-        w_lo = weights[2 + 2 * a]
-        idx = torch.arange(ext, device=u_stage.device).view(
-            (ext,) + (1,) * (dim - a))           # broadcasts along axis a
-        at_end = idx == ext - 1
-
-        # next state along a: shift by one, last slot <- hi side layer
-        nxt = tuple(torch.cat([r.narrow(a, 1, ext - 1), h.unsqueeze(a)], dim=a)
-                    for r, h in zip(qa, hi))
-        f, sp = fields_flux(qa, nxt, gamma=gamma, flux=flux)
-        wgt = torch.where(at_end, w_hi, surface)
-        f = flux_axis_unrotate(f, a) * wgt
-        sp_ok = torch.where(at_end, (w_hi > 0).to(dtype), interior_ok)
-        speed = torch.maximum(speed, sp * sp_ok)
-
-        # low-side mesh face of the first slot
-        q0 = tuple(r.narrow(a, 0, 1) for r in qa)
-        lo_e = tuple(h.unsqueeze(a) for h in lo)
-        f_lo, sp_lo = fields_flux(lo_e, q0, gamma=gamma, flux=flux)
-        f_lo = flux_axis_unrotate(f_lo, a) * w_lo
-        speed = torch.maximum(
-            speed, torch.where(idx == 0, sp_lo * (w_lo > 0), 0.0).to(dtype))
-
-        # divergence: D[c] += f[c-1] - f[c]; f[-1] is the low-side flux
-        prev = torch.cat([f_lo, f.narrow(1 + a, 0, ext - 1)], dim=1 + a)
-        D = D + prev - f
-
+    def iface(l, r):
+        return fields_flux(l, r, gamma=gamma, flux=flux)
+    D, speed = _first_order_divergence(q, others_q, weights, 5,
+                                       fields_axis_rotate,
+                                       flux_axis_unrotate, iface)
     a_c, b_c, c_c = coeffs
     up = u_stage if u_prev is None else u_prev
     u_next = a_c * up + b_c * u_stage + c_c * weights[7] * D
     return u_next, speed.amax(dim=tuple(range(dim)))
+
+
+# -- the Euler MUSCL kernel ---------------------------------------------------
 
 
 def _check_muscl_inputs(u, weights, others, flux, limiter, space):
@@ -253,9 +406,7 @@ def _check_muscl_inputs(u, weights, others, flux, limiter, space):
     dim, ext, E = _check_block(u, "u")
     _check_sides(weights, others, 10, dim, ext, E)
     _check_one_device_dtype([u, weights, *others], "MUSCL")
-    if limiter not in MUSCL_LIMITERS:
-        raise ValueError(f"unknown fused-MUSCL limiter {limiter!r}; "
-                         f"expected one of {MUSCL_LIMITERS}")
+    _check_limiter(limiter)
     if space not in MUSCL_SPACES:
         raise ValueError(f"unknown reconstruction space {space!r}; "
                          f"expected one of {MUSCL_SPACES}")
@@ -263,6 +414,12 @@ def _check_muscl_inputs(u, weights, others, flux, limiter, space):
         raise ValueError("primitive-space MUSCL ('<lim>-prim') supports the "
                          f"kepes flux, not {flux!r}")
     return dim, ext, E
+
+
+def _check_limiter(limiter):
+    if limiter not in MUSCL_LIMITERS:
+        raise ValueError(f"unknown fused-MUSCL limiter {limiter!r}; "
+                         f"expected one of {MUSCL_LIMITERS}")
 
 
 def fused_muscl(u: torch.Tensor, weights: torch.Tensor, others, gamma: float,
@@ -290,20 +447,15 @@ def fused_muscl(u: torch.Tensor, weights: torch.Tensor, others, gamma: float,
         raise ValueError(f"no MUSCL kernel for device {dev}")
     _check_cuda_tensors([u, weights, *others], flux, "MUSCL")
 
-    lib = _muscl_library()
     D = torch.empty_like(u)
-    speed_bits = torch.zeros(E, dtype=torch.int32, device=dev)
-    sides = [o.data_ptr() for o in others] + [None] * (6 - len(others))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.t8_fused_muscl(
-            dev.index, dim, ext, E, int(space == "prim"),
-            int(limiter == "minmod"), int(bool(positivity)), u.data_ptr(),
-            weights.data_ptr(), *sides, D.data_ptr(), speed_bits.data_ptr(),
-            float(gamma), stream)
-    _raise_on_error(lib, rc, "fused_muscl")
+    speed = _speed_bits(E, dev)
+    _launch(_muscl_library(), "t8_fused_muscl", dev,
+            [dim, ext, E, int(space == "prim"), int(limiter == "minmod"),
+             int(bool(positivity)), u.data_ptr(), weights.data_ptr(),
+             *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
+             float(gamma)], "fused_muscl")
     fused_muscl.launches += 1
-    return D, speed_bits.view(torch.float32)
+    return D, speed.view(torch.float32)
 
 
 fused_muscl.launches = 0
@@ -341,19 +493,12 @@ def fused_muscl_reference(u: torch.Tensor, weights: torch.Tensor, others,
     space.  Same signature and result as fused_muscl; runs on any device
     and dtype."""
     _check_muscl_inputs(u, weights, others, flux, limiter, space)
-    dim = u.dim() - 2
-    ext = u.shape[1]
-    dtype, device = u.dtype, u.device
-    blk = tuple(u.shape[1:])
     lim = _minmod if limiter == "minmod" else _central
     prim = space == "prim"
     kappa_m1 = gamma - 1.0
 
-    rows = tuple(u[i] for i in range(5))
     if prim:
         # prim_rows once per cell and side-layer cell, before the rotation
-        rows = prim_rows(rows, gamma)
-
         def cvt(t):
             return prim_rows(t, gamma)
 
@@ -390,79 +535,166 @@ def fused_muscl_reference(u: torch.Tensor, weights: torch.Tensor, others,
             ok = (rho > 0.0) & (p > 0.0)
         return tuple(torch.where(ok, r, b) for r, b in zip(rec, base))
 
-    surface = weights[0]
-    interior_ok = (surface > 0).to(dtype)
-    D = torch.zeros((5,) + blk, dtype=dtype, device=device)
-    speed = torch.zeros(blk, dtype=dtype, device=device)
+    sides = [(cvt(_rows(o)), cvt(_rows(o, 5))) for o in others]
+    return _muscl_divergence(cvt(_rows(u)), sides, weights, 5,
+                             fields_axis_rotate, flux_axis_unrotate, iface,
+                             guard, lim)
 
-    for a in range(dim):
-        va = fields_axis_rotate(rows, a)
-        o_hi, o_lo = others[2 * a], others[2 * a + 1]
 
-        def side(o, first):
-            return fields_axis_rotate(
-                cvt(tuple(o[first + i] for i in range(5))), a)
-        nb0_hi, nb1_hi = side(o_hi, 0), side(o_hi, 5)
-        nb0_lo, nb1_lo = side(o_lo, 0), side(o_lo, 5)
-        w_hi = weights[1 + 2 * a]
-        w_lo = weights[2 + 2 * a]
-        eq_hi = (w_hi > 0).to(dtype)
-        eq_lo = (w_lo > 0).to(dtype)
-        idx = torch.arange(ext, device=device).view(
-            (ext,) + (1,) * (dim - a))           # broadcasts along axis a
-        at_end = idx == ext - 1
-        at_lo = idx == 0
+# -- the GLM-MHD kernels ------------------------------------------------------
 
-        def shift_next(r, h):
-            return torch.cat([r.narrow(a, 1, ext - 1), h.unsqueeze(a)], dim=a)
 
-        def shift_prev(r, h):
-            return torch.cat([h.unsqueeze(a), r.narrow(a, 0, ext - 1)], dim=a)
+def _check_mhd_inputs(u, weights, others, side_rows: int, what: str):
+    """Raise ValueError on inputs no version of an MHD kernel takes.
+    Returns (dim, ext, E)."""
+    _check_rows(u, MHD_ROWS, "u")
+    dim, ext, E = _check_block(u, "u")
+    _check_sides(weights, others, side_rows, dim, ext, E)
+    _check_one_device_dtype([u, weights, *others], what)
+    return dim, ext, E
 
-        # one-sided differences per cell; the outward ones at the block
-        # edge come from the neighbour layer, masked by the face weight
-        slope = []
-        for r, h0, l0 in zip(va, nb0_hi, nb0_lo):
-            dh = shift_next(r, h0) - r
-            dh = torch.where(at_end, dh * eq_hi, dh)
-            dl = r - shift_prev(r, l0)
-            dl = torch.where(at_lo, dl * eq_lo, dl)
-            slope.append(lim(dl, dh))
 
-        u_l_t = guard(tuple(r + 0.5 * s for r, s in zip(va, slope)), va)
-        u_r_t = guard(tuple(r - 0.5 * s for r, s in zip(va, slope)), va)
+def _mhd_iface(gamma: float, ch):
+    """The Rusanov + exact-GLM interface flux on rotated row tuples:
+    (stacked face-frame flux [9, ...], speed)."""
+    def iface(l_rows, r_rows):
+        f, sp = _rusanov_rows(l_rows, r_rows, gamma, ch)
+        return torch.stack(f), sp
+    return iface
 
-        # the neighbours' edge-cell reconstructions toward us, from the
-        # same four layers both elements see (exact conservation)
-        my_hi = tuple(r.select(a, ext - 1) for r in va)
-        my_lo = tuple(r.select(a, 0) for r in va)
-        s_nbr_hi = tuple(lim(h0 - m, h1 - h0)
-                         for m, h0, h1 in zip(my_hi, nb0_hi, nb1_hi))
-        s_nbr_lo = tuple(lim(l0 - l1, m - l0)
-                         for m, l0, l1 in zip(my_lo, nb0_lo, nb1_lo))
-        hi_sub = guard(tuple(h0 - 0.5 * s
-                             for h0, s in zip(nb0_hi, s_nbr_hi)), nb0_hi)
-        lo_sub = guard(tuple(l0 + 0.5 * s
-                             for l0, s in zip(nb0_lo, s_nbr_lo)), nb0_lo)
 
-        # interior and hi mesh-face interfaces in one evaluation
-        nxt = tuple(shift_next(r, h) for r, h in zip(u_r_t, hi_sub))
-        f, sp = iface(u_l_t, nxt)
-        wgt = torch.where(at_end, w_hi, surface)
-        f = flux_axis_unrotate(f, a) * wgt
-        sp_ok = torch.where(at_end, (w_hi > 0).to(dtype), interior_ok)
-        speed = torch.maximum(speed, sp * sp_ok)
+def fused_mhd_flux(u: torch.Tensor, weights: torch.Tensor, others,
+                   gamma: float):
+    """First-order GLM-MHD flux divergence of the interior faces, the
+    equal-level mesh faces and the conductor walls: (D [9, *(ext,)*dim,
+    E], speed [E]), speed the per-element max signal speed.
 
-        # low-side mesh face of the first slot
-        u_rf0 = tuple(r.narrow(a, 0, 1) for r in u_r_t)
-        lo_e = tuple(h.unsqueeze(a) for h in lo_sub)
-        f_lo, sp_lo = iface(lo_e, u_rf0)
-        f_lo = flux_axis_unrotate(f_lo, a) * w_lo
-        speed = torch.maximum(
-            speed, torch.where(at_lo, sp_lo * (w_lo > 0), 0.0).to(dtype))
+    u: [9, *(ext,)*dim, E] states; weights [8, E] (row 0 the interior
+    cell-face area, rows 1+k side k's face weight, wall area on wall
+    sides, row 7 the cleaning speed c_h of every element); others: 2*dim
+    side layers [9, *(ext,)*(dim-1), E], the neighbour's facing layer or
+    the wall's conductor ghost, unrotated, side k = 2*axis + (0 hi, 1 lo).
+    CUDA tensors launch the kernel, CPU tensors run
+    fused_mhd_flux_reference."""
+    dim, ext, E = _check_mhd_inputs(u, weights, others, MHD_ROWS, "MHD flux")
+    dev = u.device
+    if dev.type == "cpu":
+        return fused_mhd_flux_reference(u, weights, others, gamma=gamma)
+    if dev.type != "cuda":
+        raise ValueError(f"no MHD flux kernel for device {dev}")
+    _check_f32_contiguous([u, weights, *others], "MHD flux")
 
-        # divergence: D[c] += f[c-1] - f[c]; f[-1] is the low-side flux
-        prev = torch.cat([f_lo, f.narrow(1 + a, 0, ext - 1)], dim=1 + a)
-        D = D + prev - f
+    D = torch.empty_like(u)
+    speed = _speed_bits(E, dev)
+    _launch(_mhd_flux_library(), "t8_fused_mhd_flux", dev,
+            [dim, ext, E, u.data_ptr(), weights.data_ptr(),
+             *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
+             float(gamma)], "fused_mhd_flux")
+    fused_mhd_flux.launches += 1
+    return D, speed.view(torch.float32)
 
+
+fused_mhd_flux.launches = 0
+
+
+def _mhd_flux_library() -> ctypes.CDLL:
+    """The MHD flux kernel's library: device, dim, ext, E as int; every
+    pointer and the stream as c_void_p; gamma double."""
+    return _library("fused_mhd_flux", "t8_fused_mhd_flux",
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+                    + [ctypes.c_double, ctypes.c_void_p])
+
+
+def fused_mhd_flux_reference(u: torch.Tensor, weights: torch.Tensor, others,
+                             gamma: float):
+    """Plain PyTorch version of the MHD flux divergence: the tile math of
+    the TPU kernel (_tile_mhd_divergence) over the whole element axis.
+    Same signature and result as fused_mhd_flux; runs on any device and
+    dtype."""
+    dim, _, _ = _check_mhd_inputs(u, weights, others, MHD_ROWS, "MHD flux")
+    D, speed = _first_order_divergence(
+        _rows(u, n=MHD_ROWS), [_rows(o, n=MHD_ROWS) for o in others],
+        weights, MHD_ROWS, axis_rotate9, axis_unrotate9,
+        _mhd_iface(gamma, weights[7]))
     return D, speed.amax(dim=tuple(range(dim)))
+
+
+def fused_mhd_muscl(u: torch.Tensor, weights: torch.Tensor, others,
+                    gamma: float, limiter: str = "minmod",
+                    positivity: bool = True):
+    """Order-2 GLM-MHD divergence of the interior and equal-level mesh
+    faces: (D [9, *(ext,)*dim, E], speed [E]).
+
+    u: [9, *(ext,)*dim, E]; weights [8, E] (row 0 the interior cell-face
+    area, rows 1+k side k's equal-level face weight, whose sign is also
+    the slope mask of the block edge, row 7 c_h); others: 2*dim side slabs
+    [18, *(ext,)*(dim-1), E], rows 0-8 the equal-level neighbour's facing
+    layer, rows 9-17 its second layer.  Walls and hanging faces are the
+    caller's first-order closure.  positivity keeps the cell's own state
+    where a reconstruction has rho <= 0 or thermal p <= 0.  CUDA tensors
+    launch the kernel, CPU tensors run fused_mhd_muscl_reference."""
+    dim, ext, E = _check_mhd_inputs(u, weights, others, 2 * MHD_ROWS,
+                                    "MHD MUSCL")
+    _check_limiter(limiter)
+    dev = u.device
+    if dev.type == "cpu":
+        return fused_mhd_muscl_reference(u, weights, others, gamma=gamma,
+                                         limiter=limiter,
+                                         positivity=positivity)
+    if dev.type != "cuda":
+        raise ValueError(f"no MHD MUSCL kernel for device {dev}")
+    _check_f32_contiguous([u, weights, *others], "MHD MUSCL")
+
+    D = torch.empty_like(u)
+    speed = _speed_bits(E, dev)
+    _launch(_mhd_muscl_library(), "t8_fused_mhd_muscl", dev,
+            [dim, ext, E, int(limiter == "minmod"), int(bool(positivity)),
+             u.data_ptr(), weights.data_ptr(), *_side_pointers(others),
+             D.data_ptr(), speed.data_ptr(), float(gamma)],
+            "fused_mhd_muscl")
+    fused_mhd_muscl.launches += 1
+    return D, speed.view(torch.float32)
+
+
+fused_mhd_muscl.launches = 0
+
+
+def _mhd_muscl_library() -> ctypes.CDLL:
+    """The MHD MUSCL kernel's library: device, dim, ext, E, minmod,
+    positivity as int; every pointer and the stream as c_void_p; gamma
+    double."""
+    return _library("fused_mhd_muscl", "t8_fused_mhd_muscl",
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
+                    + [ctypes.c_double, ctypes.c_void_p])
+
+
+def fused_mhd_muscl_reference(u: torch.Tensor, weights: torch.Tensor, others,
+                              gamma: float, limiter: str = "minmod",
+                              positivity: bool = True):
+    """Plain PyTorch version of the MHD MUSCL divergence: the tile math of
+    the TPU kernel (_tile_mhd_muscl_divergence) over the whole element
+    axis.  Same signature and result as fused_mhd_muscl; runs on any
+    device and dtype."""
+    _check_mhd_inputs(u, weights, others, 2 * MHD_ROWS, "MHD MUSCL")
+    _check_limiter(limiter)
+    kappa_m1 = gamma - 1.0
+
+    def guard(rec, base):
+        """Thermal-pressure positivity: the magnetic pressure is >= 0 and
+        must not mask a negative p."""
+        if not positivity:
+            return rec
+        rho, m1, m2, m3, e, b1, b2, b3, _ = rec
+        s_rho = 1.0 / rho
+        ke = 0.5 * (m1 * m1 + m2 * m2 + m3 * m3) * s_rho
+        b2s = b1 * b1 + b2 * b2 + b3 * b3
+        p = kappa_m1 * (e - ke - 0.5 * b2s)
+        ok = (rho > 0.0) & (p > 0.0)
+        return tuple(torch.where(ok, r, b) for r, b in zip(rec, base))
+
+    n = MHD_ROWS
+    sides = [(_rows(o, 0, n), _rows(o, n, n)) for o in others]
+    return _muscl_divergence(_rows(u, n=n), sides, weights, n, axis_rotate9,
+                             axis_unrotate9, _mhd_iface(gamma, weights[7]),
+                             guard, _minmod if limiter == "minmod"
+                             else _central)

@@ -82,11 +82,11 @@ def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
     return tuple(others)
 
 
-def rk_weights(conn, spec: SubgridSpec, volumes: torch.Tensor, dt,
-               inv_cell_volume: torch.Tensor) -> torch.Tensor:
-    """Packed per-element weights [8, E] for the RK stage kernel: row 0
-    interior cell surface, rows 1..2*dim side mesh-face weights (wall
-    areas on wall sides), unused rows zero, row 7 = dt * inv_cell_volume."""
+def face_weight_rows(conn, spec: SubgridSpec, volumes: torch.Tensor) -> list:
+    """Rows 0-6 of the first-order kernels' packed weights [8, E]: row 0
+    the interior cell surface, rows 1..2*dim the side mesh-face weights
+    mask*area*(rel <= 0) plus the wall area on wall sides, unused rows
+    zero.  They depend on the mesh only."""
     dim = spec.dim
     ext = spec.extent
     h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
@@ -100,10 +100,17 @@ def rk_weights(conn, spec: SubgridSpec, volumes: torch.Tensor, dt,
         if walls is not None:
             w = w + walls[k] * area_t
         rows.append(w)
-    while len(rows) < 7:             # fixed layout: dt always in row 7
+    while len(rows) < 7:
         rows.append(torch.zeros_like(surface))
-    rows.append(dt * inv_cell_volume)
-    return torch.stack(rows)
+    return rows
+
+
+def rk_weights(conn, spec: SubgridSpec, volumes: torch.Tensor, dt,
+               inv_cell_volume: torch.Tensor) -> torch.Tensor:
+    """Packed per-element weights [8, E] for the RK stage kernel: rows 0-6
+    `face_weight_rows`, row 7 = dt * inv_cell_volume."""
+    return torch.stack(face_weight_rows(conn, spec, volumes)
+                       + [dt * inv_cell_volume])
 
 
 def can_fuse_rk(conn, spec: SubgridSpec) -> bool:

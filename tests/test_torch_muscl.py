@@ -13,11 +13,14 @@
     (kernel_mode() == "off", muscl_core) on periodic and walled meshes;
 (d) the order-2 solver, 3 steps from the same state against the JAX
     solver (rtol 2e-5, atol 2e-6), mass conservation and bitwise repeats.
+The JAX side of (c) and (d) runs op by op (`jax.disable_jit`), as in
+tests/test_torch_solver.py: the same arithmetic, compiled one primitive
+at a time on one core instead of one large multi-threaded XLA compile
+per case; (d) reuses the primitives (c) compiled.
 The CUDA kernel itself is held against the plain version in
 tests/test_torch_cuda.py (card only).
 """
 
-import functools
 import types
 
 import jax
@@ -282,10 +285,10 @@ DIV_CASES = [  # (dim, level, ext, periodic, flux, limiter)
 def test_flux_divergence_matches_jax(dim, level, ext, periodic, flux, limiter):
     assert kernel_mode() == "off"         # the JAX muscl_core stencil path
     js, ts = _pair(dim, level, ext, periodic, 22 + dim)
-    jdiv = jax.jit(functools.partial(jsg.flux_divergence_muscl,
-                                     spec=js.spec, gamma=GAMMA, flux=flux,
-                                     limiter=limiter))
-    Dj, sj = jdiv(js.u, js.volumes, js.conn)
+    with jax.disable_jit():
+        Dj, sj = jsg.flux_divergence_muscl(js.u, js.volumes, js.conn,
+                                           spec=js.spec, gamma=GAMMA,
+                                           flux=flux, limiter=limiter)
     Dt, st = tsg.flux_divergence_muscl(ts.u, ts.volumes, ts.conn, ts.spec,
                                        GAMMA, flux, limiter=limiter)
     assert bool(ts.conn.b_groups) == (not periodic)
@@ -306,8 +309,9 @@ SOLVER_CASES = [  # (dim, level, ext, periodic, limiter)
 def test_solver_order2_matches_jax(dim, level, ext, periodic, limiter):
     config = dict(order=2, limiter=limiter)
     js, ts = _pair(dim, level, ext, periodic, 30 + dim, config)
-    dt = js.compute_timestep()
-    js.iterate_many(3, dt)
+    with jax.disable_jit():
+        dt = js.compute_timestep()
+        js.iterate_many(3, dt)
     ts.iterate_many(3, dt)
     np.testing.assert_allclose(ts.conserved_state(), js.conserved_state(),
                                rtol=RTOL, atol=ATOL)

@@ -5,13 +5,21 @@ PyTorch path.  Tolerance: conserved state rtol 2e-5, atol 2e-6 (as
 tests/test_pallas.py); the CFL timestep rtol 1e-5.  Also: runs repeat bit
 for bit, mass is conserved, unported options raise, the default device
 is CUDA, and no module of the port imports jax or t8gpu_tpu.
+
+The JAX solver steps op by op (`jax.disable_jit`): the same arithmetic
+without XLA's fusion.  The jitted step compiles as one large XLA program
+on several threads, which test files running beside this one in other
+workers pay for; op by op, each primitive compiles once on one thread
+and the later cases reuse it, at a fraction of the CPU time.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -19,16 +27,21 @@ import torch
 from t8gpu_tpu.memory.subgrid import SubgridSpec as JSpec
 from t8gpu_tpu.mesh.forest import Forest as JForest
 from t8gpu_tpu.mesh.subgrid import SubgridMesh as JMesh
+from t8gpu_tpu.models import initial_conditions as jic
 from t8gpu_tpu.models.subgrid_euler import \
     SubgridCompressibleEulerSolver as JSolver
+from t8gpu_tpu.ops import subgrid as jsg
 from t8gpu_tpu.ops.pallas_kernels import kernel_mode
-from t8gpu_tpu_torch.io.interop import solver_arrays
+from t8gpu_tpu.utils.config import EulerConfig as JConfig
+from t8gpu_tpu_torch.io.interop import solver_arrays, to_tensor
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.mesh.forest import Forest
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.models.initial_conditions import kh_planar
 from t8gpu_tpu_torch.models.subgrid_euler import SubgridCompressibleEulerSolver
-from t8gpu_tpu_torch.utils.config import EulerConfig
+from t8gpu_tpu_torch.ops import subgrid as tsg
+from t8gpu_tpu_torch.utils.config import (EulerConfig, resolve_device,
+                                          resolve_dtype)
 from tests.torch_port_inputs import noisy_kh
 
 torch.set_num_threads(1)
@@ -66,16 +79,76 @@ def test_solver_matches_jax(dim, level, ext, periodic):
     assert torch.equal(ts.volumes, carried["volumes"])
     assert torch.equal(ts.inv_cell_volume, carried["inv_cell_volume"])
 
-    dt = js.compute_timestep()
+    with jax.disable_jit():               # op by op: see the docstring
+        dt = js.compute_timestep()
+        js.iterate_many(N_STEPS, dt)
+        dt_after = js.compute_timestep()
     np.testing.assert_allclose(float(ts.compute_timestep_device()), dt,
                                rtol=1e-5)
-    js.iterate_many(N_STEPS, dt)
     ts.iterate_many(N_STEPS, dt)
     np.testing.assert_allclose(ts.conserved_state(), js.conserved_state(),
                                rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(float(ts.compute_timestep_device()),
-                               js.compute_timestep(), rtol=1e-5)
+                               dt_after, rtol=1e-5)
     assert ts.conserved_state().shape == (5, ts.n_elements) + (ext,) * dim
+
+
+@pytest.mark.parametrize("dim,level,ext,periodic", [(3, 1, 4, False),
+                                                    (2, 2, 8, True)])
+def test_rk_weights_match_jax(dim, level, ext, periodic):
+    """The stage kernel's packed weights [8, E]: interior surface, side
+    face weights (wall areas on the walled 3D mesh), dt / cell volume."""
+    js, ts = _pair(dim, level, ext, periodic, seed=4)
+    dt = 1.25e-3
+    wj = jsg.rk_weights(js.conn, js.spec, js.volumes, dt,
+                        js.inv_cell_volume)
+    wt = tsg.rk_weights(ts.conn, ts.spec, ts.volumes, dt,
+                        ts.inv_cell_volume)
+    assert wt.shape == (8, ts.u.shape[-1])
+    assert bool(ts.conn.b_groups) == (not periodic)
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kh_planar_matches_jax(dim):
+    centers = np.random.default_rng(40 + dim).uniform(size=(500, dim))
+    for gamma in (1.4, 5.0 / 3.0):
+        np.testing.assert_array_equal(kh_planar(centers, dim, gamma),
+                                      jic.kh_planar(centers, dim, gamma))
+
+
+def test_euler_config_matches_jax():
+    """Every field of the port's EulerConfig is one of the JAX package's,
+    with the same default: one configuration means the same run."""
+    mine = {f.name: f.default for f in dataclasses.fields(EulerConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    assert {"gamma", "cfl", "flux", "order", "limiter"} <= set(mine)
+    assert set(mine) <= set(ref)
+    for name, default in mine.items():
+        assert default == ref[name], name
+
+
+def test_resolve_dtype_and_device():
+    assert resolve_dtype("float32") is torch.float32
+    assert resolve_dtype("float64") is torch.float64
+    with pytest.raises(ValueError, match="dtype"):
+        resolve_dtype("bfloat16")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                resolve_device(device)
+
+
+def test_to_tensor_copies():
+    base = np.arange(48, dtype=np.float32).reshape(4, 12)
+    view = base[:, ::3]                       # not contiguous
+    t = to_tensor(view)
+    assert t.is_contiguous() and t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), view)
+    base[...] = -1.0                          # a copy, not a view
+    assert (t >= 0).all()
+    assert to_tensor(view, dtype=torch.float64).dtype == torch.float64
 
 
 def test_solver_bitwise_repeatable_and_conservative():
