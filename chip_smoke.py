@@ -5,10 +5,10 @@ Run from the repository root on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
-                                         # flagship, order 2, mhd and
-                                         # mhd_order2 (device time by kernel
-                                         # group, idle share); tables and
-                                         # traces to DIR
+                                         # flagship, fields, logs, order 2,
+                                         # mhd and mhd_order2 (device time
+                                         # by kernel group, idle share);
+                                         # tables and traces to DIR
 
 Phases, one line each; any failure raises and the exit code is not 0:
   gpu              card name and power limit (nvidia-smi), torch and CUDA
@@ -20,7 +20,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    GLM-MHD kernels (at the Orszag-Tang shape and three
                    ragged ones; seeded random states, conductor-wall sides
                    for the flux kernel, every limiter/positivity case for
-                   the MUSCL kernel)
+                   the MUSCL kernel), then the stage kernel's 7-row log
+                   input, the field-input divergence and stage kernels
+                   (at the stage kernel's shapes) and the inner-only
+                   kernel (Subgrid<16,16,16> with 512 live elements, and
+                   2D extent 16, 3D extents 2 and 4)
   flagship         the main path: 3D KH, Forest.uniform(4), Subgrid<8,8,8>
                    (4096 elements, 2.1M cells), KEPES, SSP-RK3, stepped by
                    SubgridCompressibleEulerSolver.iterate_many on the card;
@@ -28,6 +32,23 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    three), mass drift, and every kernel launch counted
   flagship_vs_cpu  one step on the card and one on the CPU (plain version)
                    from the same state
+  fields           the flagship with ops/subgrid.RK_STAGE_INPUTS = "fields":
+                   every stage one launch of the field-input stage kernel;
+                   ms/step, mass drift, launches (3 per step, no
+                   state-input stage launch)
+  logs             the same with "logs": every stage one launch of the stage
+                   kernel on 7-row states (counted apart)
+  fields_vs_cpu    one step in each of the two modes on the card and on the
+                   CPU from the same state
+  divergence       ops/subgrid.flux_divergence at the flagship's state: one
+                   field-input divergence launch per call, against the torch
+                   stencil (use_kernel=False) on the card and the CPU; ms
+                   per call
+  ext16            the order-1 solver on Forest.uniform(3, dim=3) with
+                   Subgrid<16,16,16> (512 elements, 2.1M cells) on the torch
+                   stencil path: ms/step, mass drift; and
+                   flux_divergence(use_kernel=True) there, one inner-only
+                   kernel launch per call, against use_kernel=False
   large            the same at Forest.uniform(5): 32768 elements, 16.8M cells
   order2           the order-2 path: the flagship with EulerConfig(order=2)
                    (MUSCL, minmod, conserved space), every RK stage one
@@ -43,7 +64,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    none of the others), mass drift, max |div B|
   mhd_order2       the same at order 2 (minmod): 3 fused_mhd_muscl per step
   mhd_vs_cpu       one step on the card and one on the CPU, order 1 and 2
-Then one JSON line per kernel table and, last, the device line
+Then one JSON line with the seven kernels (the stage kernel's log input
+as a variant of its row) and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -52,6 +74,7 @@ the script prints no result and exits with a code other than 0.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -95,6 +118,16 @@ RECON_OPS, PAIR_OPS, PRIM_OPS = 65, 24, 12
 RUSANOV_OPS, MHD_FACE_OPS, MHD_RECON_OPS = 183, 30, 157
 MHD_GAMMA = 5.0 / 3.0
 
+# The kernels added with the stage inputs (counted the same way): the
+# log-row input derives a cell's fields in 20 (its two logs are read); the
+# field-input stage recovers the state from the fields in 6 per cell; the
+# inner-only kernel evaluates the state-form kepes_es_flux (ops/euler.py:
+# kepes_flux 118 with its two ln_mean, the entropy variables of both
+# states 64 with their four logs, the dissipation 113) per interior face,
+# 295, plus 5 weight products, 10 divergence adds and a max.
+LOG_FIELD_OPS, RECOVER_OPS = 20, 6
+INNER_FLUX_OPS, INNER_FACE_OPS = 295, 16
+
 # Sizes of the phases: the kernel shapes (dim, ext, E, live elements), the
 # flagship's and the large case's forest levels, the Orszag-Tang level.
 KERNEL_SHAPES = ((3, 8, 4374, 4096), (3, 4, 4374, 4096), (2, 8, 4374, 4096))
@@ -104,6 +137,14 @@ MHD_LEVEL = 7
 # mhd_kernel_shapes) and three ragged shapes
 MHD_KERNEL_SHAPES = ((2, 8, None, None), (2, 4, 4374, 4096),
                      (3, 8, 4374, 4096), (3, 4, 4374, 4096))
+# the inner-only kernel: the ext16 phase's shape (timed) first, then 2D
+# extent 16, 3D extent 2 at the flagship's cell count and 3D extent 4
+INNER_KERNEL_SHAPES = ((3, 16, 576, 512), (2, 16, 4374, 4096),
+                       (3, 2, 279936, 262144), (3, 4, 4374, 4096))
+EXT16_LEVEL = 3
+# the stage inputs the stage kernels take (ops/subgrid.RK_STAGE_INPUTS)
+STAGE_INPUT_KERNELS = {"fields": "fused_rk_stage_fields",
+                       "logs": "fused_rk_stage_logs"}
 
 
 def phase(label: str, **fields) -> None:
@@ -192,6 +233,45 @@ def mhd_cost(dim, ext, E, side_rows, recon):
     if recon:
         ops += E * dim * B * MHD_RECON_OPS
     return 4 * (read + write), ops
+
+
+def logs_cost(dim, ext, E, share_prev):
+    """(bytes, ops) of the stage on 7-row states: u and the side layers
+    carry the two log rows, u_prev and the output 5 rows; every cell's
+    fields derived once without their logs."""
+    B, T = ext ** dim, ext ** (dim - 1)
+    read = (7 * B * E + (0 if share_prev else 5 * B * E) + 8 * E
+            + 2 * dim * 7 * T * E)
+    write = 5 * B * E + E
+    ops = E * ((B + 2 * dim * T) * LOG_FIELD_OPS
+               + dim * (ext + 1) * T * (FLUX_OPS + FACE_OPS)
+               + B * UPDATE_OPS)
+    return 4 * (read + write), ops
+
+
+def fields_cost(dim, ext, E, rk, share_prev):
+    """(bytes, ops) of the field-input kernels: q (10 rows), the weights
+    and the field side layers read once, D or u_next and the speed written
+    once (u_prev read too at stages 2-3); each interface's flux once, and
+    for the stage the state recovery and the update per cell."""
+    B, T = ext ** dim, ext ** (dim - 1)
+    read = 10 * B * E + 8 * E + 2 * dim * 10 * T * E
+    if rk and not share_prev:
+        read += 5 * B * E
+    write = 5 * B * E + E
+    ops = E * dim * (ext + 1) * T * (FLUX_OPS + FACE_OPS)
+    if rk:
+        ops += E * B * (RECOVER_OPS + UPDATE_OPS)
+    return 4 * (read + write), ops
+
+
+def inner_cost(dim, ext, E):
+    """(bytes, ops) of the inner-only kernel: u and the per-element face
+    area read once, D and the scalar speed written once; each interior
+    face's state-form flux once."""
+    B, T = ext ** dim, ext ** (dim - 1)
+    nbytes = 4 * (5 * B * E + E + 5 * B * E + 1)
+    return nbytes, E * dim * (ext - 1) * T * (INNER_FLUX_OPS + INNER_FACE_OPS)
 
 
 def mhd_kernel_shapes():
@@ -354,15 +434,17 @@ def phase_kernel_muscl():
                 plain_ms=timing["cons"][1], bound_ms=b_ms, bound_by=b_by)
 
 
-def _hold(name, k1, k2, ref, n_live, errs):
+def _hold(name, k1, k2, ref, n_live, errs, stage=False):
     """Hold one kernel result (D, speed) against its repeat k2 (bit for
     bit) and its plain version ref; guard slots [n_live, E) must come out
-    with D = 0 and speed 0.  errs accumulates (max abs, max rel, share of
-    the tolerance)."""
+    with D = 0 and speed 0 (for a stage's (u_next, speed), finite with
+    speed 0).  errs accumulates (max abs, max rel, share of the
+    tolerance)."""
     for a, b in zip(k1, k2):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"{name} is not bit-identical on repeat")
-    if not (bool((k1[0][..., n_live:] == 0).all())
+    guard = k1[0][..., n_live:]
+    if not (bool((torch.isfinite(guard) if stage else guard == 0).all())
             and bool((k1[1][n_live:] == 0).all())):
         raise AssertionError(f"{name}: guard slots have a divergence or a "
                              f"speed")
@@ -381,15 +463,16 @@ def mhd_inputs(which, seed, dim, ext, E, n_live, **kw):
     return dev(u), dev(w), [dev(o) for o in others]
 
 
-def _kernel_row(name, errs, timing):
-    """The kernel phase line of an MHD kernel, and its JSON fields.
-    timing: (kernel ms, plain ms, bytes, ops) at the Orszag-Tang shape."""
+def _kernel_row(name, errs, timing, extra=None):
+    """The kernel phase line of a divergence kernel, and its JSON fields.
+    timing: (kernel ms, plain ms, bytes, ops) at the timed shape."""
     t_k, t_p, nbytes, ops = timing
     b_ms, b_by = bound_ms(nbytes, ops)
     phase("kernel", kernel=name, max_abs_err=f"{errs[0]:.3e}",
           max_rel_err=f"{errs[1]:.3e}", tolerance_used=f"{errs[2]:.3f}",
           rtol=RTOL, atol=ATOL, kernel_ms=f"{t_k:.4f}", plain_ms=f"{t_p:.3f}",
-          bound_ms=f"{b_ms:.4f}", bytes=nbytes, ops=ops, bound_by=b_by)
+          bound_ms=f"{b_ms:.4f}", bytes=nbytes, ops=ops, bound_by=b_by,
+          **(extra or {}))
     return dict(max_abs_err=errs[0], ms=t_k, plain_ms=t_p, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -446,6 +529,158 @@ def phase_kernel_mhd_muscl():
     return _kernel_row("fused_mhd_muscl", errs, timing)
 
 
+def _mixed_row(name, errs, timing, extra=None):
+    """The kernel phase line of a stage kernel and its JSON fields: ms,
+    plain ms and bound per launch averaged over a step's three stages (the
+    first shares u_prev).  timing[share_prev] = (kernel ms, plain ms,
+    bytes, ops) at the flagship shape."""
+    mix = lambda i: (timing[True][i] + 2 * timing[False][i]) / 3
+    b_ms, b_by = bound_ms(mix(2), mix(3))
+    phase("kernel", kernel=name, max_abs_err=f"{errs[0]:.3e}",
+          max_rel_err=f"{errs[1]:.3e}", tolerance_used=f"{errs[2]:.3f}",
+          rtol=RTOL, atol=ATOL, kernel_ms=f"{mix(0):.4f}",
+          plain_ms=f"{mix(1):.3f}", bound_ms=f"{b_ms:.4f}",
+          stage1_ms=f"{timing[True][0]:.4f}",
+          stage23_ms=f"{timing[False][0]:.4f}",
+          bound_stage1_ms=f"{bound_ms(*timing[True][2:])[0]:.4f}",
+          bound_stage23_ms=f"{bound_ms(*timing[False][2:])[0]:.4f}",
+          bytes_stage1=timing[True][2], bytes_stage23=timing[False][2],
+          ops_stage23=timing[False][3], bound_by=b_by, **(extra or {}))
+    return dict(max_abs_err=errs[0], ms=mix(0), plain_ms=mix(1),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_kernel_logs():
+    """The stage kernel on 7-row states (ops/subgrid.append_log_rows, side
+    layers with their log rows too) against its plain version at the
+    stage kernel's shapes and coefficients; timed at the flagship shape."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
+                                             fused_rk_stage_reference)
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+    from t8gpu_tpu_torch.ops.subgrid import append_log_rows
+
+    errs, timing = [0.0, 0.0, 0.0], {}
+    for dim, ext, E, n_live in KERNEL_SHAPES:
+        u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+        u7 = append_log_rows(u, GAMMA)
+        o7 = [append_log_rows(o, GAMMA) for o in others]
+        for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
+                                   (False, STAGE_3)):
+            args = (u7, None if share_prev else up, w, o7)
+            kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+            k1 = fused_rk_stage(*args, **kw)
+            k2 = fused_rk_stage(*args, **kw)
+            ref = fused_rk_stage_reference(*args, **kw)
+            torch.cuda.synchronize()
+            _hold(f"fused_rk_stage logs {dim}d ext{ext}", k1, k2, ref,
+                  n_live, errs, stage=True)
+            if (dim, ext) == KERNEL_SHAPES[0][:2] and coeffs != STAGE_3:
+                timing[share_prev] = (
+                    cuda_ms(lambda: fused_rk_stage(*args, **kw), reps=20),
+                    cuda_ms(lambda: fused_rk_stage_reference(*args, **kw),
+                            reps=3, warmup=1)) \
+                    + logs_cost(dim, ext, E, share_prev)
+    return _mixed_row("fused_rk_stage_logs", errs, timing)
+
+
+def _field_inputs(seed, dim, ext, E, n_live):
+    """Stage inputs with the state and the side layers turned into kepes
+    cell-field rows on the card (ops/euler.cell_fields_tuple)."""
+    from t8gpu_tpu_torch.ops.euler import cell_fields_tuple
+    u, up, w, others = stage_inputs(seed, dim, ext, E, n_live)
+    fields = lambda t: torch.stack(cell_fields_tuple(t, GAMMA, "kepes"))
+    return fields(u), up, w, [fields(o) for o in others]
+
+
+def phase_kernel_fields():
+    """The field-input divergence kernel and the field-input stage kernel
+    (three stage-coefficient sets) against their plain versions at the
+    stage kernel's shapes, on the fields of seeded states; timed at the
+    flagship shape."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
+                                             fused_rk_stage_fields,
+                                             fused_rk_stage_fields_reference)
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+
+    errs_d, errs_s, timing = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], {}
+    for i, (dim, ext, E, n_live) in enumerate(KERNEL_SHAPES):
+        q, up, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live)
+        kw = dict(gamma=GAMMA, flux="kepes")
+        k1 = fused_flux(q, w, oq, **kw)
+        k2 = fused_flux(q, w, oq, **kw)
+        ref = fused_flux_reference(q, w, oq, **kw)
+        torch.cuda.synchronize()
+        _hold(f"fused_flux {dim}d ext{ext}", k1, k2, ref, n_live, errs_d)
+        if i == 0:
+            t_flux = (cuda_ms(lambda: fused_flux(q, w, oq, **kw), reps=20),
+                      cuda_ms(lambda: fused_flux_reference(q, w, oq, **kw),
+                              reps=3, warmup=1)) \
+                + fields_cost(dim, ext, E, rk=False, share_prev=True)
+        for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
+                                   (False, STAGE_3)):
+            args = (q, None if share_prev else up, w, oq)
+            kws = dict(kw, coeffs=coeffs)
+            k1 = fused_rk_stage_fields(*args, **kws)
+            k2 = fused_rk_stage_fields(*args, **kws)
+            ref = fused_rk_stage_fields_reference(*args, **kws)
+            torch.cuda.synchronize()
+            _hold(f"fused_rk_stage_fields {dim}d ext{ext}", k1, k2, ref,
+                  n_live, errs_s, stage=True)
+            if i == 0 and coeffs != STAGE_3:
+                timing[share_prev] = (
+                    cuda_ms(lambda: fused_rk_stage_fields(*args, **kws),
+                            reps=20),
+                    cuda_ms(lambda: fused_rk_stage_fields_reference(
+                        *args, **kws), reps=3, warmup=1)) \
+                    + fields_cost(dim, ext, E, rk=True,
+                                  share_prev=share_prev)
+    return (_kernel_row("fused_flux", errs_d, t_flux),
+            _mixed_row("fused_rk_stage_fields", errs_s, timing))
+
+
+def phase_kernel_inner():
+    """The inner-only kernel against its plain version at
+    INNER_KERNEL_SHAPES (seeded states; dead slots with volume 0 get D = 0
+    and add no speed); timed at the first, the ext16 phase's shape."""
+    from tests.torch_port_inputs import GUARD_STATE, random_state
+    from t8gpu_tpu_torch.ops.kernels import (inner_divergence,
+                                             inner_divergence_reference)
+    import numpy as np
+
+    errs = [0.0, 0.0, 0.0]
+    for i, (dim, ext, E, n_live) in enumerate(INNER_KERNEL_SHAPES):
+        rng = np.random.default_rng(dim * 100 + ext)
+        u = random_state(rng, (ext,) * dim + (E,))
+        u[..., n_live:] = GUARD_STATE.reshape((5,) + (1,) * (dim + 1))
+        vol = np.zeros(E, np.float32)
+        vol[:n_live] = rng.uniform(0.5, 1.0, n_live) ** dim
+        u, vol = torch.from_numpy(u).cuda(), torch.from_numpy(vol).cuda()
+        args = (u, vol, GAMMA, "kepes")
+        k1 = inner_divergence(*args)
+        k2 = inner_divergence(*args)
+        ref = inner_divergence_reference(*args)
+        torch.cuda.synchronize()
+        name = f"inner_divergence {dim}d ext{ext}"
+        for a, b in zip(k1, k2):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"{name} is not bit-identical on repeat")
+        if not bool((k1[0][..., n_live:] == 0).all()):
+            raise AssertionError(f"{name}: dead slots have a divergence")
+        for got, want in zip(k1, ref):
+            a, r, t = compare(name, got, want)
+            errs[:] = [max(errs[0], a), max(errs[1], r), max(errs[2], t)]
+        if i == 0:
+            nbytes, ops = inner_cost(dim, ext, E)
+            timing = (cuda_ms(lambda: inner_divergence(*args), reps=20),
+                      cuda_ms(lambda: inner_divergence_reference(*args),
+                              reps=3, warmup=1), nbytes, ops)
+    t_bytes = timing[2] / HBM_BYTES_PER_S * 1e3
+    t_ops = timing[3] / FP32_OPS_PER_S * 1e3
+    return _kernel_row("inner_divergence", errs, timing,
+                       dict(bytes_bound_ms=f"{t_bytes:.4f}",
+                            ops_bound_ms=f"{t_ops:.4f}"))
+
+
 def flagship_solver(level, device=None, config=None):
     from t8gpu_tpu_torch import (EulerConfig, Forest,
                                  SubgridCompressibleEulerSolver, SubgridMesh,
@@ -461,13 +696,25 @@ def kernel_wrappers():
     """Every kernel wrapper of the port, by name."""
     from t8gpu_tpu_torch.ops import kernels
     return {n: getattr(kernels, n) for n in (
-        "fused_rk_stage", "fused_muscl", "fused_mhd_flux", "fused_mhd_muscl")}
+        "fused_rk_stage", "fused_flux", "fused_muscl", "fused_mhd_flux",
+        "fused_mhd_muscl", "fused_rk_stage_fields", "inner_divergence")}
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0 (the stage kernel counts its
+    7-row launches apart)."""
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["fused_rk_stage"].launches_logs = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, the stage kernel's 7-row launches as
+    fused_rk_stage_logs."""
+    counts = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    counts["fused_rk_stage_logs"] = \
+        kernel_wrappers()["fused_rk_stage"].launches_logs
+    return counts
 
 
 def timed_steps(solver, n, dt) -> float:
@@ -580,6 +827,191 @@ def phase_flagship_vs_cpu():
     phase("flagship_vs_cpu", max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}",
           tolerance_used=f"{t:.3f}",
           rtol=RTOL, atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
+
+
+@contextlib.contextmanager
+def stage_inputs_mode(mode):
+    """ops/subgrid.RK_STAGE_INPUTS = mode for a with-block; the old value
+    comes back after it."""
+    from t8gpu_tpu_torch.ops import subgrid
+    old, subgrid.RK_STAGE_INPUTS = subgrid.RK_STAGE_INPUTS, mode
+    try:
+        yield
+    finally:
+        subgrid.RK_STAGE_INPUTS = old
+
+
+def phase_stage_inputs(mode, profile_dir):
+    """The flagship at full size with RK_STAGE_INPUTS = mode: ms/step as
+    the slope of 10 and 110 steps (median of three), mass drift over the
+    first 122 steps, and 3 launches per step of the mode's kernel and none
+    of any other."""
+    name = STAGE_INPUT_KERNELS[mode]
+    solver = flagship_solver(FLAGSHIP_LEVEL)  # device=None: the card
+    n_cells = solver.n_elements * solver.spec.size
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    with stage_inputs_mode(mode):
+        reset_launches()                    # count this path only
+        warm = 2
+        solver.iterate_many(warm, dt)
+        slopes = []
+        for i in range(3):
+            t10 = timed_steps(solver, 10, dt)
+            t110 = timed_steps(solver, 110, dt)
+            slopes.append((t110 - t10) / 100 * 1e3)
+            if i == 0:
+                drift = check_state(mode, solver, m0)
+        steps = warm + 3 * 120
+        counts = launch_counts()
+        want = {n: 3 * steps if n == name else 0 for n in counts}
+        if counts != want:
+            raise AssertionError(f"{mode}: launches {counts} for {steps} "
+                                 f"steps, expected {want}")
+        ms_step = statistics.median(slopes)
+        phase(mode, stage_inputs=mode, kernel=name,
+              elements=solver.n_elements, cells=n_cells, steps=steps,
+              launches=counts[name], launches_per_step=counts[name] / steps,
+              ms_per_step=f"{ms_step:.4f}",
+              ms_per_step_min=f"{min(slopes):.4f}",
+              ms_per_step_max=f"{max(slopes):.4f}",
+              dof_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
+              mass_drift=f"{drift:.3e}", dt=f"{float(dt):.6e}")
+        if profile_dir is not None:
+            key = ("fused_fields_kernel" if mode == "fields"
+                   else "fused_rk_stage_kernel")
+            _profile(solver, dt, ms_step, pathlib.Path(profile_dir), mode,
+                     key)
+    return counts[name]
+
+
+def phase_fields_vs_cpu():
+    """One flagship step in each of the two stage-input modes on the card
+    and on the CPU (plain versions) from the same state."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    for mode in ("fields", "logs"):
+        gpu = flagship_solver(FLAGSHIP_LEVEL)
+        cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu")
+        if not torch.equal(gpu.u.cpu(), cpu.u):
+            raise AssertionError("fields_vs_cpu: initial states differ")
+        dt = gpu.compute_timestep()
+        with stage_inputs_mode(mode):
+            gpu.iterate(dt)
+            t0 = time.perf_counter()
+            cpu.iterate(dt)
+            cpu_s = time.perf_counter() - t0
+        a, r, t = compare(f"fields_vs_cpu {mode}",
+                          torch.from_numpy(gpu.conserved_state()),
+                          torch.from_numpy(cpu.conserved_state()))
+        phase("fields_vs_cpu", stage_inputs=mode, max_abs_err=f"{a:.3e}",
+              max_rel_err=f"{r:.3e}", tolerance_used=f"{t:.3f}", rtol=RTOL,
+              atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
+
+
+def _hold_divergence(name, got, want):
+    """compare() on a divergence (D, 0-d speed) pair; returns the largest
+    share of the tolerance."""
+    used = 0.0
+    for g, w in zip(got, want):
+        used = max(used, compare(name, g.cpu(), w.cpu())[2])
+    return used
+
+
+def phase_divergence():
+    """ops/subgrid.flux_divergence at the flagship's state: one
+    field-input divergence launch per call (use_kernel None), within
+    tolerance of the torch stencil on the card (use_kernel=False) and of
+    the CPU; ms per call, glue included."""
+    from t8gpu_tpu_torch.ops.subgrid import flux_divergence
+    torch.set_num_threads(os.cpu_count() or 1)
+    gpu = flagship_solver(FLAGSHIP_LEVEL)
+    cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu")
+    args = (gpu.u, gpu.volumes, gpu.conn, gpu.spec, GAMMA, "kepes")
+    reset_launches()                        # count this path only
+    n_calls = 10
+    for _ in range(n_calls):
+        got = flux_divergence(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: n_calls if n == "fused_flux" else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"divergence: launches {counts} for {n_calls} "
+                             f"calls, expected {want}")
+    launches = counts["fused_flux"]
+    stencil = flux_divergence(*args, use_kernel=False)
+    on_cpu = flux_divergence(cpu.u, cpu.volumes, cpu.conn, cpu.spec, GAMMA,
+                             "kepes")
+    used_s = _hold_divergence("divergence vs stencil", got, stencil)
+    used_c = _hold_divergence("divergence vs cpu", got, on_cpu)
+    ms = cuda_ms(lambda: flux_divergence(*args), reps=20)
+    ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False), reps=5,
+                   warmup=1)
+    phase("divergence", cells=gpu.n_elements * gpu.spec.size,
+          calls=n_calls, launches=launches,
+          launches_per_call=launches / n_calls, ms_per_call=f"{ms:.4f}",
+          stencil_ms_per_call=f"{ms_s:.4f}",
+          tolerance_used_vs_stencil=f"{used_s:.3f}",
+          tolerance_used_vs_cpu=f"{used_c:.3f}", rtol=RTOL, atol=ATOL)
+    return launches
+
+
+def phase_ext16():
+    """The order-1 solver at Subgrid<16,16,16> on Forest.uniform(3, dim=3)
+    (the flagship's 2.1M cells in 512 elements): it steps on the torch
+    stencil (the stage kernels take extents 4 and 8); ms/step as the slope
+    of 3 and 13 steps, mass drift.  Then flux_divergence(use_kernel=True)
+    there: one inner-only kernel launch per call, within tolerance of
+    use_kernel=False."""
+    from t8gpu_tpu_torch import (EulerConfig, Forest,
+                                 SubgridCompressibleEulerSolver, SubgridMesh,
+                                 SubgridSpec, kh_planar)
+    from t8gpu_tpu_torch.ops.subgrid import flux_divergence
+    mesh = SubgridMesh.from_forest(Forest.uniform(EXT16_LEVEL, dim=3),
+                                   SubgridSpec((16, 16, 16)))
+    solver = SubgridCompressibleEulerSolver(mesh, lambda c: kh_planar(c, 3),
+                                            config=EulerConfig())
+    n_cells = solver.n_elements * solver.spec.size
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    reset_launches()
+    solver.iterate_many(1, dt)
+    t3 = timed_steps(solver, 3, dt)
+    t13 = timed_steps(solver, 13, dt)
+    stepped = launch_counts()
+    if any(stepped.values()):
+        raise AssertionError(f"ext16: the stencil path launched {stepped}")
+    drift = check_state("ext16", solver, m0)
+    ms_step = (t13 - t3) / 10 * 1e3
+
+    args = (solver.u, solver.volumes, solver.conn, solver.spec, GAMMA,
+            "kepes")
+    reset_launches()                        # count this path only
+    n_calls = 5
+    for _ in range(n_calls):
+        got = flux_divergence(*args, use_kernel=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: n_calls if n == "inner_divergence" else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"ext16: launches {counts} for {n_calls} calls, "
+                             f"expected {want}")
+    used = _hold_divergence("ext16 inner kernel vs stencil", got,
+                            flux_divergence(*args, use_kernel=False))
+    ms_k = cuda_ms(lambda: flux_divergence(*args, use_kernel=True), reps=5,
+                   warmup=1)
+    ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False), reps=5,
+                   warmup=1)
+    phase("ext16", elements=solver.n_elements, cells=n_cells,
+          capacity=solver.conn.element_capacity, steps=17,
+          ms_per_step=f"{ms_step:.4f}",
+          dof_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
+          mass_drift=f"{drift:.3e}", calls=n_calls,
+          launches=counts["inner_divergence"],
+          launches_per_call=counts["inner_divergence"] / n_calls,
+          kernel_div_ms_per_call=f"{ms_k:.4f}",
+          stencil_div_ms_per_call=f"{ms_s:.4f}",
+          tolerance_used_vs_stencil=f"{used:.3f}", rtol=RTOL, atol=ATOL)
+    return counts["inner_divergence"]
 
 
 def phase_large():
@@ -728,7 +1160,7 @@ def phase_mhd(order, profile_dir):
         if i == 0:
             drift = check_state(tag, solver, m0)
     steps = warm + 3 * 120
-    counts = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    counts = launch_counts()
     want = {n: 3 * steps if n == name else 0 for n in counts}
     if counts != want:
         raise AssertionError(f"{tag}: launches {counts} for {steps} steps, "
@@ -795,8 +1227,16 @@ def main(argv=None) -> int:
     k_muscl = phase_kernel_muscl()
     k_mhd_flux = phase_kernel_mhd_flux()
     k_mhd_muscl = phase_kernel_mhd_muscl()
+    k_logs = phase_kernel_logs()
+    k_flux, k_fields = phase_kernel_fields()
+    k_inner = phase_kernel_inner()
     stage_launches = phase_flagship(args.profile)
     phase_flagship_vs_cpu()
+    fields_launches = phase_stage_inputs("fields", args.profile)
+    logs_launches = phase_stage_inputs("logs", args.profile)
+    phase_fields_vs_cpu()
+    flux_launches = phase_divergence()
+    inner_launches = phase_ext16()
     phase_large()
     muscl_launches = phase_order2(args.profile)
     phase_order2_prim()
@@ -805,22 +1245,33 @@ def main(argv=None) -> int:
     mhd_muscl_launches = phase_mhd(2, args.profile)
     phase_mhd_vs_cpu()
 
-    def row(name, replaces, launches, k):
+    def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"t8gpu_tpu_torch/csrc/{name}.cu",
+                "source": f"t8gpu_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None}
+    stage = row("fused_rk_stage", "t8gpu_tpu/ops/pallas_kernels.py:1190",
+                stage_launches, k_stage)
+    # the 7-row log input of the same kernel, with its own launch count
+    stage["variants"] = [row("fused_rk_stage_logs",
+                             "t8gpu_tpu/ops/pallas_kernels.py:1190",
+                             logs_launches, k_logs, "fused_rk_stage")]
     print(json.dumps({"kernels": [
-        row("fused_rk_stage", "t8gpu_tpu/ops/pallas_kernels.py:1190",
-            stage_launches, k_stage),
+        stage,
+        row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",
+            flux_launches, k_flux, "fused_fields"),
         row("fused_muscl", "t8gpu_tpu/ops/pallas_kernels.py:848",
             muscl_launches, k_muscl),
         row("fused_mhd_flux", "t8gpu_tpu/ops/pallas_kernels.py:365",
             mhd_launches, k_mhd_flux),
         row("fused_mhd_muscl", "t8gpu_tpu/ops/pallas_kernels.py:777",
-            mhd_muscl_launches, k_mhd_muscl)]}), flush=True)
+            mhd_muscl_launches, k_mhd_muscl),
+        row("fused_rk_stage_fields", "t8gpu_tpu/ops/pallas_kernels.py:1329",
+            fields_launches, k_fields, "fused_fields"),
+        row("inner_divergence", "t8gpu_tpu/ops/pallas_kernels.py:1425",
+            inner_launches, k_inner)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

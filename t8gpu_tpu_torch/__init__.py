@@ -9,10 +9,15 @@ under csrc/, built by nvcc at first use into build/t8gpu_tpu_torch/).
 
 Ported so far: the uniform-mesh subgrid Euler path
 (SubgridCompressibleEulerSolver) at first order, with its RK-stage
-kernel, and at second order (MUSCL), with its divergence kernel; the
-uniform-mesh subgrid GLM-MHD path (SubgridMHDSolver) at first and second
-order, with its two divergence kernels.  Entry points run on CUDA unless
-the caller passes device="cpu".
+kernels for every stage input (ops/subgrid.RK_STAGE_INPUTS: the state,
+the state with its log rows, the cell fields) and the first-order
+divergence (ops/subgrid.flux_divergence, with the field-input and the
+inner-only kernels) that steps the other block extents, and at second
+order (MUSCL), with its divergence kernel; the uniform-mesh subgrid
+GLM-MHD path (SubgridMHDSolver) at first and second order, with its two
+divergence kernels.  Every TPU kernel of the JAX package has its CUDA
+counterpart.  Entry points run on CUDA unless the caller passes
+device="cpu".
 """
 
 from t8gpu_tpu_torch.memory.subgrid import SUBGRID_4x4, SUBGRID_4x4x4, SubgridSpec

@@ -5,8 +5,15 @@ each forest leaf carries a dense [ext]^dim block of cells; the state is
 one tensor [5, *ext, cap] with the element axis minor-most and padded to a
 capacity bucket, the padded slots holding a quiescent guard state.
 
-  order 1: every SSP-RK3 stage is one call of the CUDA stage kernel on the
-           card (ops/kernels.fused_rk_stage);
+  order 1, float32 at extents 4 and 8 (`_fused_path`): every SSP-RK3
+           stage is one call of a CUDA stage kernel on the card
+           (ops/subgrid.ssp_rk3_fused; ops/subgrid.RK_STAGE_INPUTS picks
+           ops/kernels.fused_rk_stage from the state or its log rows, or
+           ops/kernels.fused_rk_stage_fields from the cell fields);
+  order 1 otherwise (extents 2 and 16, float64 on the CPU): every stage
+           is one ops/subgrid.flux_divergence (the field-input divergence
+           kernel at extents 4 and 8, the torch stencil at the others)
+           and a plain torch stage update (ops/rk.ssp_rk3);
   order 2: every stage is one call of the CUDA MUSCL divergence kernel
            (ops/kernels.fused_muscl, via ops/subgrid.flux_divergence_muscl)
            and a plain torch stage update (ops/rk.ssp_rk3).
@@ -14,7 +21,8 @@ On the CPU each kernel's plain PyTorch version runs instead.
 
 The solver runs on CUDA unless the caller passes device="cpu", and raises
 when CUDA is asked for and missing.  The kernels are float32; float64 runs
-only on the CPU.
+only on the CPU.  Viscosity, gravity, farfield boundaries and AMR meshes
+raise NotImplementedError when the solver steps.
 """
 
 from __future__ import annotations
@@ -106,6 +114,7 @@ class SubgridCompressibleEulerSolver:
         self.volumes = torch.as_tensor(vol).to(self.device)
         self.inv_cell_volume = torch.as_tensor(inv).to(self.device)
         self._muscl_w = None      # MUSCL weights, built at first use
+        self._face_w = None       # first-order kernels' mesh weights
         u = u.to(device=self.device, dtype=self.dtype)
         if u.shape[-1] != cap:
             guard = torch.as_tensor(GUARD_STATE, dtype=self.dtype,
@@ -136,20 +145,42 @@ class SubgridCompressibleEulerSolver:
                                              self.volumes)
         return self._muscl_w
 
+    def _face_weights(self) -> torch.Tensor:
+        if self._face_w is None:
+            self._face_w = sg.face_weights(self.conn, self.spec,
+                                           self.volumes)
+        return self._face_w
+
+    def _fused_path(self) -> bool:
+        """Order 1 in float32 at a block extent of the stage kernels (4
+        or 8) steps through ops/subgrid.ssp_rk3_fused; everything else
+        through ops/rk.ssp_rk3 over a divergence."""
+        return (self.config.order == 1 and self.dtype == torch.float32
+                and sg.can_fuse_rk(self.conn, self.spec))
+
     def _step(self, u: torch.Tensor, dt: torch.Tensor):
         c = self.config
         if c.boundary == "farfield":
             raise NotImplementedError("farfield boundaries are not ported yet")
-        if c.order == 1:
+        if self._fused_path():
             return sg.ssp_rk3_fused(u, self.volumes, self.conn, self.spec,
                                     c.gamma, c.flux, dt, self.inv_cell_volume,
                                     mu=float(c.mu),
-                                    gravity=tuple(c.gravity))[0]
+                                    gravity=tuple(c.gravity),
+                                    weights=self._face_weights())[0]
         if float(c.mu) > 0.0:
             raise NotImplementedError("viscous (mu > 0) stepping is not "
                                       "ported yet")
         if any(float(g) != 0.0 for g in c.gravity):
             raise NotImplementedError("the gravity source is not ported yet")
+        if c.order == 1:
+            weights = self._face_weights()
+
+            def flux_fn(v):
+                return sg.flux_divergence(v, self.volumes, self.conn,
+                                          self.spec, c.gamma, c.flux,
+                                          weights=weights)
+            return rk.ssp_rk3(u, flux_fn, dt, self.inv_cell_volume)[0]
         limiter = self._sg_limiter()
         weights = self._muscl_weights()
 

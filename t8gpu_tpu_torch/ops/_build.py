@@ -5,8 +5,8 @@ shared library with a plain C interface, loaded with `ctypes`.  The build
 runs at first use into build/t8gpu_tpu_torch/ beside the package (a
 directory git ignores), from the sources alone; a library's file name
 carries a hash of its source, the shared headers (csrc/*.cuh) and the
-flags, so an edited source is never served by a stale build.  Nothing is compiled when this module is
-imported.
+flags, so an edited source is never served by a stale build.  Nothing is
+compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "t8gpu_tpu_torch"
 
 SOURCES = ("fused_rk_stage", "fused_muscl", "fused_mhd_flux",
-           "fused_mhd_muscl")
+           "fused_mhd_muscl", "fused_fields", "inner_divergence")
 
 # No --use_fast_math: IEEE division, sqrt and logf.  --fmad=false keeps every
 # product rounded on its own, as in the plain PyTorch version (see the note

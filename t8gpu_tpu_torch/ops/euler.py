@@ -1,14 +1,15 @@
 """Compressible-Euler field and flux math on torch tensors.
 
 Counterpart of t8gpu_tpu/ops/euler.py, for the paths ported so far:
-primitives, the axis-summed CFL speed, the per-cell fields formulation
-(`cell_fields_tuple`) and the fields-based interface fluxes (KEPES, HLL,
+primitives, the axis-summed CFL speed, the state-form interface fluxes
+(`ln_mean`, `kepes_es_flux`, `hll_flux`, `hllc_flux`, `numerical_flux`),
+the per-cell fields formulation (`cell_fields_tuple`, optionally from
+precomputed logs) and the fields-based interface fluxes (KEPES, HLL,
 HLLC), the pair-flux formulation of order-2 MUSCL (`kepes_pair_fields`,
 `prim_rows`, `prim_pair_fields`, `kepes_pair_flux`), the wall mirror and
 the axis-aligned face-frame rotations.  The arithmetic is the JAX
 package's, in the same order, so that the two agree to f32 round-off; the
-CUDA kernels (csrc/fused_rk_stage.cu, csrc/fused_muscl.cu) repeat the
-KEPES paths.
+CUDA kernels (csrc/*.cu) repeat the KEPES paths.
 
 A state batch `u` has rows (rho, rho*v1, rho*v2, rho*v3, rho*e) on its
 first axis; 2D problems still carry three momentum components.  Field
@@ -50,9 +51,171 @@ def cfl_sum_speed(u: torch.Tensor, gamma: float, dim: int,
     return s.max()
 
 
-def cell_fields_tuple(u, gamma: float, flux: str = "kepes") -> tuple:
+# -- state-form interface fluxes ------------------------------------------
+# They take face-frame conservative states [5, ...] (row 1 the normal
+# momentum) and evaluate every transcendental per face: the formulation of
+# the inner-only kernel (ops/kernels.inner_divergence).
+
+
+def ln_mean(a_l: torch.Tensor, a_r: torch.Tensor) -> torch.Tensor:
+    """Numerically stable logarithmic mean (a_r - a_l) / log(a_r / a_l),
+    with the 4-term series near a_l == a_r."""
+    xi = a_r / a_l
+    u = (xi * (xi - 2.0) + 1.0) / (xi * (xi + 2.0) + 1.0)
+    series = (a_l + a_r) * 52.5 / (105.0 + u * (35.0 + u * (21.0 + u * 15.0)))
+    near = u < 1.0e-4
+    safe_xi = torch.where(near, 2.0, xi)     # the series branch is taken
+    exact = (a_r - a_l) / torch.log(safe_xi)
+    return torch.where(near, series, exact)
+
+
+def kepes_flux(u_l: torch.Tensor, u_r: torch.Tensor, gamma: float = 1.4):
+    """Kinetic-energy- and entropy-preserving central flux (Chandrashekar)
+    of face-frame states [5, ...].  Returns (F_star [5, ...], (u_hat,
+    v_hat, w_hat, a_hat, rho_hat, h_hat, p1_hat))."""
+    kappa_m1 = gamma - 1.0
+
+    s_rho_l = 1.0 / u_l[0]
+    vel_l = u_l[1:4] * s_rho_l
+    s_rho_r = 1.0 / u_r[0]
+    vel_r = u_r[1:4] * s_rho_r
+
+    vel2s2_l = 0.5 * (vel_l[0] * vel_l[0] + vel_l[1] * vel_l[1]
+                      + vel_l[2] * vel_l[2])
+    vel2s2_r = 0.5 * (vel_r[0] * vel_r[0] + vel_r[1] * vel_r[1]
+                      + vel_r[2] * vel_r[2])
+
+    p_l = kappa_m1 * (u_l[4] - u_l[0] * vel2s2_l)
+    p_r = kappa_m1 * (u_r[4] - u_r[0] * vel2s2_r)
+
+    beta_l = 0.5 * u_l[0] / p_l
+    beta_r = 0.5 * u_r[0] / p_r
+
+    rho_mean = 0.5 * (u_l[0] + u_r[0])
+    rho_hat = ln_mean(u_l[0], u_r[0])
+    beta_mean = 0.5 * (beta_l + beta_r)
+    beta_hat = ln_mean(beta_l, beta_r)
+
+    u_hat = 0.5 * (vel_l[0] + vel_r[0])
+    v_hat = 0.5 * (vel_l[1] + vel_r[1])
+    w_hat = 0.5 * (vel_l[2] + vel_r[2])
+    a_hat = torch.sqrt(gamma * 0.5 * (p_l + p_r) / rho_hat)
+    h_hat = gamma / (2.0 * kappa_m1 * beta_hat) + 0.5 * (
+        vel_l[0] * vel_r[0] + vel_l[1] * vel_r[1] + vel_l[2] * vel_r[2])
+    p1_hat = 0.5 * rho_mean / beta_mean
+    vel2_m = vel2s2_l + vel2s2_r
+
+    f0 = rho_hat * u_hat
+    f1 = f0 * u_hat + p1_hat
+    f2 = f0 * v_hat
+    f3 = f0 * w_hat
+    f4 = (f0 * 0.5 * (1.0 / (kappa_m1 * beta_hat) - vel2_m)
+          + u_hat * f1 + v_hat * f2 + w_hat * f3)
+    return (torch.stack([f0, f1, f2, f3, f4]),
+            (u_hat, v_hat, w_hat, a_hat, rho_hat, h_hat, p1_hat))
+
+
+def _entropy_variables(u: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Entropy variables v(u) of states [5, ...], for the dissipation
+    jump."""
+    kappa_m1 = gamma - 1.0
+    vel, p = primitives(u, gamma)
+    s = torch.log(p) - gamma * torch.log(u[0])
+    rho_p = u[0] / p
+    v0 = (gamma - s) / kappa_m1 - 0.5 * rho_p * (
+        vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2])
+    return torch.stack([v0, rho_p * vel[0], rho_p * vel[1], rho_p * vel[2],
+                        -rho_p])
+
+
+def kepes_es_flux(u_l: torch.Tensor, u_r: torch.Tensor, gamma: float = 1.4):
+    """Entropy-stable KEPES flux of face-frame states: the central part
+    minus 0.5 R diag(D) R^T [[v]].  Returns (flux [5, ...], speed [...])
+    with speed = |u_hat| + a_hat."""
+    f_star, hats = kepes_flux(u_l, u_r, gamma)
+    uh, vh, wh, ah, rhoh, hh, p1h = hats
+
+    d0 = 0.5 * torch.abs(uh - ah) * rhoh / gamma
+    d1 = torch.abs(uh) * ((gamma - 1.0) / gamma) * rhoh
+    d2 = torch.abs(uh) * p1h
+    d3 = d2
+    d4 = 0.5 * torch.abs(uh + ah) * rhoh / gamma
+
+    dv = _entropy_variables(u_r, gamma) - _entropy_variables(u_l, gamma)
+
+    ek = 0.5 * (uh * uh + vh * vh + wh * wh)
+    w0 = (dv[0] + (uh - ah) * dv[1] + vh * dv[2] + wh * dv[3]
+          + (hh - uh * ah) * dv[4])
+    w1 = dv[0] + uh * dv[1] + vh * dv[2] + wh * dv[3] + ek * dv[4]
+    w2 = dv[2] + vh * dv[4]
+    w3 = dv[3] + wh * dv[4]
+    w4 = (dv[0] + (uh + ah) * dv[1] + vh * dv[2] + wh * dv[3]
+          + (hh + uh * ah) * dv[4])
+
+    g0, g1, g2, g3, g4 = d0 * w0, d1 * w1, d2 * w2, d3 * w3, d4 * w4
+
+    diss0 = g0 + g1 + g4
+    diss1 = (uh - ah) * g0 + uh * g1 + (uh + ah) * g4
+    diss2 = vh * g0 + vh * g1 + g2 + vh * g4
+    diss3 = wh * g0 + wh * g1 + g3 + wh * g4
+    diss4 = ((hh - uh * ah) * g0 + ek * g1 + vh * g2 + wh * g3
+             + (hh + uh * ah) * g4)
+    diss = torch.stack([diss0, diss1, diss2, diss3, diss4])
+
+    return f_star - 0.5 * diss, torch.abs(uh) + ah
+
+
+def hll_flux(u_l: torch.Tensor, u_r: torch.Tensor, gamma: float = 1.4):
+    """HLL flux of face-frame states with Roe-averaged wave speeds.
+    Returns (flux [5, ...], speed [...]) with speed = max(|S_l|, |S_r|)."""
+    vel_l, p_l = primitives(u_l, gamma)
+    vel_r, p_r = primitives(u_r, gamma)
+
+    h_l = (u_l[4] + p_l) / u_l[0]
+    h_r = (u_r[4] + p_r) / u_r[0]
+    c_l = torch.sqrt((gamma - 1.0) * (h_l - 0.5 * (
+        vel_l[0] * vel_l[0] + vel_l[1] * vel_l[1] + vel_l[2] * vel_l[2])))
+    c_r = torch.sqrt((gamma - 1.0) * (h_r - 0.5 * (
+        vel_r[0] * vel_r[0] + vel_r[1] * vel_r[1] + vel_r[2] * vel_r[2])))
+
+    sq_l = torch.sqrt(u_l[0])
+    sq_r = torch.sqrt(u_r[0])
+    inv_w = 1.0 / (sq_l + sq_r)
+    v1 = (sq_l * vel_l[0] + sq_r * vel_r[0]) * inv_w
+    v2 = (sq_l * vel_l[1] + sq_r * vel_r[1]) * inv_w
+    v3 = (sq_l * vel_l[2] + sq_r * vel_r[2]) * inv_w
+    h_roe = (sq_l * h_l + sq_r * h_r) * inv_w
+    c_roe = torch.sqrt((gamma - 1.0) * (h_roe - 0.5 * (v1 * v1 + v2 * v2
+                                                        + v3 * v3)))
+
+    s_l = torch.minimum(v1 - c_roe, vel_l[0] - c_l)
+    s_r = torch.maximum(v1 + c_roe, vel_r[0] + c_r)
+
+    f_l = torch.stack([u_l[1], u_l[1] * vel_l[0] + p_l, u_l[1] * vel_l[1],
+                       u_l[1] * vel_l[2], u_l[1] * h_l])
+    f_r = torch.stack([u_r[1], u_r[1] * vel_r[0] + p_r, u_r[1] * vel_r[1],
+                       u_r[1] * vel_r[2], u_r[1] * h_r])
+
+    s_l_c = torch.clamp_max(s_l, 0.0)
+    s_r_c = torch.clamp_min(s_r, 0.0)
+    flux = (((s_r_c * f_l - s_l_c * f_r) + (s_r_c * s_l_c) * (u_r - u_l))
+            / (s_r_c - s_l_c))
+    return flux, torch.maximum(torch.abs(s_l), torch.abs(s_r))
+
+
+def hllc_flux(u_l: torch.Tensor, u_r: torch.Tensor, gamma: float = 1.4):
+    """HLLC flux of face-frame states: the hll-family cell fields of each
+    side through hllc_fields_flux."""
+    return hllc_fields_flux(cell_fields_tuple(u_l, gamma, "hllc"),
+                            cell_fields_tuple(u_r, gamma, "hllc"), gamma)
+
+
+def cell_fields_tuple(u, gamma: float, flux: str = "kepes",
+                      logs=None) -> tuple:
     """Per-cell face-flux ingredients as a tuple of row tensors, each
-    shaped like u[0].  `u` is a [5, ...] tensor or a 5-tuple of rows."""
+    shaped like u[0].  `u` is a [5, ...] tensor or a 5-tuple of rows.
+    `logs`, (log rho, log p) rows computed beforehand (the "logs" stage
+    input, ops/subgrid.append_log_rows), replace the two logs of kepes."""
     kappa_m1 = gamma - 1.0
     rho, m1, m2, m3, e = u
     inv_rho = 1.0 / rho
@@ -61,8 +224,11 @@ def cell_fields_tuple(u, gamma: float, flux: str = "kepes") -> tuple:
     p = kappa_m1 * (e - rho * ke)
     if flux == "kepes":
         rho_p = rho / p
-        log_rho = torch.log(rho)
-        log_p = torch.log(p)
+        if logs is not None:
+            log_rho, log_p = logs
+        else:
+            log_rho = torch.log(rho)
+            log_p = torch.log(p)
         s = log_p - gamma * log_rho
         vent0 = (gamma - s) / kappa_m1 - rho_p * ke
         return (rho, v1, v2, v3, p, rho_p, log_rho, log_p, vent0, ke)
@@ -245,6 +411,22 @@ FIELDS_FLUXES = {
     "hll": hll_fields_flux,
     "hllc": hllc_fields_flux,
 }
+
+
+FLUXES = {
+    "kepes": kepes_es_flux,
+    "hll": hll_flux,
+    "hllc": hllc_flux,
+}
+
+
+def numerical_flux(u_l, u_r, gamma: float = 1.4, flux: str = "kepes"):
+    """Dispatch the state-form flux on the flux family."""
+    try:
+        fn = FLUXES[flux]
+    except KeyError:
+        raise ValueError(f"unknown flux family: {flux}") from None
+    return fn(u_l, u_r, gamma)
 
 
 def fields_flux(q_l, q_r, gamma: float = 1.4, flux: str = "kepes"):

@@ -32,6 +32,26 @@ conductor walls (their ghosts ride in as side layers), and the
 per-element max speed.  Bound on an H100: the bytes it must move, ~128
 MB at the Orszag-Tang shape (38 us at 3.35 TB/s; csrc/fused_mhd_flux.cu).
 
+fused_rk_stage with a 7-row u_stage — the "logs" stage input of the same
+TPU kernel: rows 5-6 carry log rho and log p, computed once per cell
+before the launch (ops/subgrid.append_log_rows), so the kernel derives
+every field log-free.  Counted apart, in `fused_rk_stage.launches_logs`.
+
+fused_flux — replaces fused_flux_pallas
+(t8gpu_tpu/ops/pallas_kernels.py:193): the first-order flux divergence D
+and the per-element max wave speed from precomputed cell-field rows (the
+interior faces, the equal-level mesh faces and the walls, whose mirrored
+field layers ride in as side layers).  fused_rk_stage_fields — replaces
+fused_rk_stage_fields_pallas (:1329): the same divergence, the stage state
+recovered from the field rows, and the stage update.  Both in
+csrc/fused_fields.cu; bound: the bytes, ~202 MB (D) and ~246 MB (stages
+2-3) at the flagship shape (60 and 74 us at 3.35 TB/s).
+
+inner_divergence — replaces inner_divergence_pallas (:1425): the interior
+faces' divergence of a 5-row state through the state-form KEPES flux (six
+logs per face) at extents 2, 4, 8 and 16, and the scalar max wave speed of
+the live elements (csrc/inner_divergence.cu).
+
 fused_mhd_muscl — replaces fused_mhd_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:777): the order-2 GLM-MHD divergence of
 the interior and equal-level faces (per-axis minmod or unlimited slopes,
@@ -50,13 +70,16 @@ import torch
 from t8gpu_tpu_torch.models.mhd import N_ROWS as MHD_ROWS
 from t8gpu_tpu_torch.models.mhd import (_rusanov_rows, axis_rotate9,
                                         axis_unrotate9)
-from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_axis_rotate,
+from t8gpu_tpu_torch.ops.euler import (AXIS_ROTATE, N_FIELDS,
+                                       cell_fields_tuple, fields_axis_rotate,
                                        fields_flux, flux_axis_unrotate,
                                        kepes_pair_fields, kepes_pair_flux,
-                                       prim_pair_fields, prim_rows)
+                                       numerical_flux, prim_pair_fields,
+                                       prim_rows)
 
 KERNEL_DIMS = (2, 3)
 KERNEL_EXTENTS = (4, 8)
+INNER_EXTENTS = (2, 4, 8, 16)     # the inner-only kernel's block extents
 MUSCL_LIMITERS = ("minmod", "none")
 MUSCL_SPACES = ("cons", "prim")
 
@@ -65,16 +88,16 @@ def _stage_tensors(u_stage, u_prev, weights, others) -> list:
     return [u_stage, weights, *others] + ([] if u_prev is None else [u_prev])
 
 
-def _check_block(u: torch.Tensor, name: str):
+def _check_block(u: torch.Tensor, name: str, extents=KERNEL_EXTENTS):
     """(dim, ext, E) of a block state [C, *(ext,)*dim, E]; raises
     ValueError on a shape no kernel takes."""
     dim = u.dim() - 2
-    ext = u.shape[1]
+    ext = u.shape[1] if u.dim() > 1 else 0
     E = u.shape[-1]
-    if dim not in KERNEL_DIMS or ext not in KERNEL_EXTENTS \
+    if dim not in KERNEL_DIMS or ext not in extents \
             or tuple(u.shape[1:-1]) != (ext,) * dim:
         raise ValueError(f"{name} must be [C, *(ext,)*dim, E] with dim in "
-                         f"{KERNEL_DIMS} and ext in {KERNEL_EXTENTS}, got "
+                         f"{KERNEL_DIMS} and ext in {extents}, got "
                          f"{tuple(u.shape)}")
     return dim, ext, E
 
@@ -104,20 +127,25 @@ def _check_one_device_dtype(tensors, what: str):
         raise ValueError(f"{what} inputs have several dtypes: {dtypes}")
 
 
-def _check_stage_shapes(u_stage, u_prev, weights, others, extras):
-    """Raise ValueError on inputs no version of the stage takes.
+def _check_stage_shapes(u_stage, u_prev, weights, others, extras, flux,
+                        rows=(5, 7)):
+    """Raise ValueError on inputs no version of the stage takes: u_stage
+    with `rows` rows (7: the state and its log rho, log p rows, kepes
+    only; a field stage: the flux's field rows), u_prev [5, ...].
     Returns (dim, ext, E)."""
     if extras:
         raise ValueError("hanging-face side extras are not ported yet")
-    if u_stage.shape[0] != 5:
-        raise ValueError(f"u_stage must have 5 state rows, got "
-                         f"{tuple(u_stage.shape)} (the 7-row log input is "
-                         "not ported)")
+    C = u_stage.shape[0] if u_stage.dim() else 0
+    if C not in rows:
+        raise ValueError(f"u_stage must have {' or '.join(map(str, rows))} "
+                         f"rows, got {tuple(u_stage.shape)}")
+    if C == 7 and flux != "kepes":
+        raise ValueError(f"the 7-row log input is kepes only, not {flux!r}")
     dim, ext, E = _check_block(u_stage, "u_stage")
-    if u_prev is not None and u_prev.shape != u_stage.shape:
-        raise ValueError(f"u_prev {tuple(u_prev.shape)} != u_stage "
-                         f"{tuple(u_stage.shape)}")
-    _check_sides(weights, others, 5, dim, ext, E)
+    if u_prev is not None and u_prev.shape != (5,) + u_stage.shape[1:]:
+        raise ValueError(f"u_prev {tuple(u_prev.shape)} must be the "
+                         f"5-row state of u_stage {tuple(u_stage.shape)}")
+    _check_sides(weights, others, C, dim, ext, E)
     _check_one_device_dtype(_stage_tensors(u_stage, u_prev, weights, others),
                             "stage")
     return dim, ext, E
@@ -332,14 +360,17 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
     u_next = a*u_prev + b*u_stage + c*w[7]*D(u_stage) and speed [E] the
     per-element max interface wave speed.
 
-    u_stage, u_prev: [5, *(ext,)*dim, E] (u_prev None means u_stage, the
-    first stage); weights [8, E] (row 0 interior cell-face area, rows
+    u_stage: [5, *(ext,)*dim, E], or [7, ...] with rows 5-6 log rho and
+    log p (the "logs" input, kepes: the fields are then derived
+    log-free); u_prev: [5, ...] (None means the state rows of u_stage,
+    the first stage); weights [8, E] (row 0 interior cell-face area, rows
     1+k side k's face weight, row 7 = dt * inv_cell_volume); others:
-    2*dim side layers [5, *(ext,)*(dim-1), E], side k = 2*axis + (0 hi,
-    1 lo).  CUDA tensors launch the kernel, CPU tensors run
-    fused_rk_stage_reference."""
+    2*dim side layers [5 or 7, *(ext,)*(dim-1), E] (as many rows as
+    u_stage), side k = 2*axis + (0 hi, 1 lo).  CUDA tensors launch the
+    kernel (a 7-row launch counts in `launches_logs`, a 5-row one in
+    `launches`), CPU tensors run fused_rk_stage_reference."""
     dim, ext, E = _check_stage_shapes(u_stage, u_prev, weights, others,
-                                      extras)
+                                      extras, flux)
     dev = u_stage.device
     if dev.type == "cpu":
         return fused_rk_stage_reference(u_stage, u_prev, weights, others,
@@ -348,29 +379,46 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
         raise ValueError(f"no stage kernel for device {dev}")
     _check_kernel_inputs(u_stage, u_prev, weights, others, flux)
 
-    out = torch.empty_like(u_stage)
+    logs = u_stage.shape[0] == 7
+    out = torch.empty((5,) + u_stage.shape[1:], dtype=u_stage.dtype,
+                      device=dev)
     speed = _speed_bits(E, dev)
     a_c, b_c, c_c = (float(x) for x in coeffs)
     _launch(_stage_library(), "t8_fused_rk_stage", dev,
-            [dim, ext, E, u_stage.data_ptr(),
+            [dim, ext, E, int(logs), u_stage.data_ptr(),
              None if u_prev is None else u_prev.data_ptr(),
              weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
              speed.data_ptr(), float(gamma), a_c, b_c, c_c],
             "fused_rk_stage")
-    fused_rk_stage.launches += 1
+    if logs:
+        fused_rk_stage.launches_logs += 1
+    else:
+        fused_rk_stage.launches += 1
     return out, speed.view(torch.float32)
 
 
 fused_rk_stage.launches = 0
+fused_rk_stage.launches_logs = 0
 
 
 def _stage_library() -> ctypes.CDLL:
-    """The stage kernel's library: device, dim, ext, E as int; every
+    """The stage kernel's library: device, dim, ext, E, logs as int; every
     pointer and the stream as c_void_p; gamma double, coefficients float."""
     return _library("fused_rk_stage", "t8_fused_rk_stage",
-                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 11
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
                     + [ctypes.c_double] + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
+
+
+def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
+    """a*u_prev + b*u + c*w[7]*D per state row, in the TPU kernels'
+    operation order; up_rows None means u_rows."""
+    a_c, b_c, c_c = coeffs
+    if up_rows is None:
+        up_rows = u_rows
+    cdt = c_c * weights[7]
+    return torch.stack([a_c * up_rows[i] + b_c * u_rows[i] + cdt * D[i]
+                        for i in range(5)])
 
 
 def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
@@ -378,21 +426,271 @@ def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
                              flux: str, coeffs):
     """Plain PyTorch version of the stage: the tile math of the TPU
     kernel (_fused_rk_kernel / _tile_flux_divergence) over the whole
-    element axis, for kepes, hll and hllc.  Same signature and result as
+    element axis, for kepes, hll and hllc, from a 5-row state or (kepes)
+    a 7-row state with its log rows.  Same signature and result as
     fused_rk_stage; runs on any device and dtype."""
-    dim = u_stage.dim() - 2
-    q = cell_fields_tuple(_rows(u_stage), gamma, flux)
-    others_q = [cell_fields_tuple(_rows(o), gamma, flux) for o in others]
+    dim, _, _ = _check_stage_shapes(u_stage, u_prev, weights, others, (),
+                                    flux)
+    logs7 = u_stage.shape[0] == 7
+
+    def fields(t):
+        return cell_fields_tuple(_rows(t), gamma, flux,
+                                 logs=(t[5], t[6]) if logs7 else None)
 
     def iface(l, r):
         return fields_flux(l, r, gamma=gamma, flux=flux)
-    D, speed = _first_order_divergence(q, others_q, weights, 5,
-                                       fields_axis_rotate,
+    D, speed = _first_order_divergence(fields(u_stage),
+                                       [fields(o) for o in others], weights,
+                                       5, fields_axis_rotate,
                                        flux_axis_unrotate, iface)
-    a_c, b_c, c_c = coeffs
-    up = u_stage if u_prev is None else u_prev
-    u_next = a_c * up + b_c * u_stage + c_c * weights[7] * D
+    u_next = _stage_update(_rows(u_stage),
+                           None if u_prev is None else _rows(u_prev),
+                           weights, D, coeffs)
     return u_next, speed.amax(dim=tuple(range(dim)))
+
+
+# -- the field-input kernels (kernels 2 and 6) -------------------------------
+
+
+def _check_fields_inputs(q, u_prev, weights, others, flux, extras=()):
+    """Raise ValueError on inputs no version of the field-input kernels
+    takes: q [C, ...] with the flux's C field rows.  Returns (dim, ext,
+    E)."""
+    if flux not in N_FIELDS:
+        raise ValueError(f"unknown flux family: {flux}")
+    return _check_stage_shapes(q, u_prev, weights, others, extras, flux,
+                               rows=(N_FIELDS[flux],))
+
+
+def _recover_state_rows(q, gamma: float, flux: str) -> tuple:
+    """Conservative state rows from cell-field rows (exact up to ~1-ulp
+    rounding: the fields are algebraic in the state).  kepes rows [rho,
+    v1, v2, v3, p, rho/p, log rho, log p, vent0, ke]; hll rows [rho, v1,
+    v2, v3, p, h, c, sqrt(rho), ke]."""
+    rho = q[0]
+    m1, m2, m3 = rho * q[1], rho * q[2], rho * q[3]
+    if flux == "kepes":
+        e = q[4] * (1.0 / (gamma - 1.0)) + rho * q[9]
+    else:                                     # hll: h = (e + p) / rho
+        e = rho * q[5] - q[4]
+    return (rho, m1, m2, m3, e)
+
+
+def _fields_divergence(q, weights, others, gamma, flux):
+    """The plain first-order divergence of field rows: (D [5, ...],
+    per-cell speed)."""
+    C = q.shape[0]
+
+    def iface(l, r):
+        return fields_flux(l, r, gamma=gamma, flux=flux)
+    return _first_order_divergence(_rows(q, n=C),
+                                   [_rows(o, n=C) for o in others], weights,
+                                   5, fields_axis_rotate, flux_axis_unrotate,
+                                   iface)
+
+
+def fused_flux(q: torch.Tensor, weights: torch.Tensor, others, gamma: float,
+               flux: str):
+    """First-order flux divergence from cell-field rows: (D [5, *(ext,)*dim,
+    E], speed [E]), speed the per-element max interface wave speed.
+
+    q: [C, *(ext,)*dim, E] stacked cell fields (ops/euler.cell_fields_tuple,
+    C = 10 kepes, 9 hll/hllc); weights [8, E] (row 0 interior cell-face
+    area, rows 1+k side k's face weight with the wall area on wall sides,
+    row 7 unused); others: 2*dim field side layers [C, *(ext,)*(dim-1), E]
+    (the neighbour's facing layer, or the mirrored own layer on a wall
+    side), side k = 2*axis + (0 hi, 1 lo).  CUDA tensors launch the kernel
+    (kepes), CPU tensors run fused_flux_reference."""
+    dim, ext, E = _check_fields_inputs(q, None, weights, others, flux)
+    dev = q.device
+    if dev.type == "cpu":
+        return fused_flux_reference(q, weights, others, gamma=gamma,
+                                    flux=flux)
+    if dev.type != "cuda":
+        raise ValueError(f"no flux kernel for device {dev}")
+    _check_cuda_tensors([q, weights, *others], flux, "flux")
+
+    D = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
+    speed = _speed_bits(E, dev)
+    _launch(_fields_library(), "t8_fused_fields", dev,
+            [dim, ext, E, 0, q.data_ptr(), None, weights.data_ptr(),
+             *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
+             float(gamma), 0.0, 0.0, 0.0], "fused_flux")
+    fused_flux.launches += 1
+    return D, speed.view(torch.float32)
+
+
+fused_flux.launches = 0
+
+
+def fused_flux_reference(q: torch.Tensor, weights: torch.Tensor, others,
+                         gamma: float, flux: str):
+    """Plain PyTorch version of the field-input divergence: the tile math
+    of the TPU kernel (_fused_kernel / _tile_flux_divergence) over the
+    whole element axis, for kepes, hll and hllc.  Same signature and
+    result as fused_flux; runs on any device and dtype."""
+    dim, _, _ = _check_fields_inputs(q, None, weights, others, flux)
+    D, speed = _fields_divergence(q, weights, others, gamma, flux)
+    return D, speed.amax(dim=tuple(range(dim)))
+
+
+def fused_rk_stage_fields(q: torch.Tensor, u_prev, weights: torch.Tensor,
+                          others, gamma: float, flux: str, coeffs,
+                          extras=()):
+    """One SSP-RK stage from cell-field rows: (u_next [5, *(ext,)*dim, E],
+    speed [E]) with u_next = a*u_prev + b*u + c*w[7]*D, where D is
+    fused_flux's divergence and u the state recovered from q.
+
+    q, weights, others as fused_flux, with weight row 7 = dt *
+    inv_cell_volume; u_prev: [5, ...] state, or None (the first stage:
+    the recovered state stands for it).  CUDA tensors launch the kernel
+    (kepes), CPU tensors run fused_rk_stage_fields_reference."""
+    dim, ext, E = _check_fields_inputs(q, u_prev, weights, others, flux,
+                                       extras)
+    dev = q.device
+    if dev.type == "cpu":
+        return fused_rk_stage_fields_reference(q, u_prev, weights, others,
+                                               gamma=gamma, flux=flux,
+                                               coeffs=coeffs)
+    if dev.type != "cuda":
+        raise ValueError(f"no stage kernel for device {dev}")
+    _check_cuda_tensors(_stage_tensors(q, u_prev, weights, others), flux,
+                        "field stage")
+
+    out = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
+    speed = _speed_bits(E, dev)
+    a_c, b_c, c_c = (float(x) for x in coeffs)
+    _launch(_fields_library(), "t8_fused_fields", dev,
+            [dim, ext, E, 1, q.data_ptr(),
+             None if u_prev is None else u_prev.data_ptr(),
+             weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
+             speed.data_ptr(), float(gamma), a_c, b_c, c_c],
+            "fused_rk_stage_fields")
+    fused_rk_stage_fields.launches += 1
+    return out, speed.view(torch.float32)
+
+
+fused_rk_stage_fields.launches = 0
+
+
+def _fields_library() -> ctypes.CDLL:
+    """The field-input kernels' library: device, dim, ext, E, rk as int;
+    every pointer and the stream as c_void_p; gamma double, coefficients
+    float."""
+    return _library("fused_fields", "t8_fused_fields",
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
+                    + [ctypes.c_double] + [ctypes.c_float] * 3
+                    + [ctypes.c_void_p])
+
+
+def fused_rk_stage_fields_reference(q: torch.Tensor, u_prev,
+                                    weights: torch.Tensor, others,
+                                    gamma: float, flux: str, coeffs):
+    """Plain PyTorch version of the field-input stage: the tile math of
+    the TPU kernel (_fused_rk_fields_kernel) over the whole element axis,
+    for kepes, hll and hllc.  Same signature and result as
+    fused_rk_stage_fields; runs on any device and dtype."""
+    dim, _, _ = _check_fields_inputs(q, u_prev, weights, others, flux)
+    D, speed = _fields_divergence(q, weights, others, gamma, flux)
+    C = q.shape[0]
+    u_next = _stage_update(_recover_state_rows(_rows(q, n=C), gamma, flux),
+                           None if u_prev is None else _rows(u_prev),
+                           weights, D, coeffs)
+    return u_next, speed.amax(dim=tuple(range(dim)))
+
+
+# -- the inner-only kernel (kernel 7) ----------------------------------------
+
+
+def _check_inner_inputs(u, volumes):
+    """Raise ValueError on inputs no version of the inner-only divergence
+    takes.  Returns (dim, ext, E)."""
+    _check_rows(u, 5, "u")
+    dim, ext, E = _check_block(u, "u", INNER_EXTENTS)
+    if tuple(volumes.shape) != (E,):
+        raise ValueError(f"volumes must be [{E}], got "
+                         f"{tuple(volumes.shape)}")
+    _check_one_device_dtype([u, volumes], "inner divergence")
+    return dim, ext, E
+
+
+def _state_rotate(u: torch.Tensor, axis: int) -> torch.Tensor:
+    """State rows [rho, m_x, m_y, m_z, e] into the +axis face frame."""
+    return u if axis == 0 else u[list(AXIS_ROTATE[axis])]
+
+
+def interior_surface(volumes: torch.Tensor, dim: int, ext: int):
+    """Per element, the area of one interior cell face: (V^(1/dim) /
+    ext)^(dim-1), 0 on dead slots (volume 0)."""
+    h_cell = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim) / ext
+    return (h_cell ** (dim - 1)) * (volumes > 0)
+
+
+def interior_face_divergence(D: torch.Tensor, f: torch.Tensor, a: int):
+    """D plus the divergence of the ext-1 interior face fluxes f along
+    axis a: D[i] += f[i-1] - f[i], the missing end faces zero."""
+    zero = torch.zeros_like(f.narrow(1 + a, 0, 1))
+    return (D + torch.cat([zero, f], dim=1 + a)
+            - torch.cat([f, zero], dim=1 + a))
+
+
+def inner_divergence(u: torch.Tensor, volumes: torch.Tensor, gamma: float,
+                     flux: str):
+    """Interior-face flux divergence of a block state through the
+    state-form flux (ops/euler.numerical_flux): (D [5, *(ext,)*dim, E],
+    max wave speed over the interior faces of live elements, a 0-d
+    tensor).  u: [5, *(ext,)*dim, E] with ext in 2, 4, 8, 16; volumes
+    [E] (0 on dead slots).  Mesh faces and walls are the caller's.  CUDA
+    tensors launch the kernel (kepes), CPU tensors run
+    inner_divergence_reference."""
+    dim, ext, E = _check_inner_inputs(u, volumes)
+    dev = u.device
+    if dev.type == "cpu":
+        return inner_divergence_reference(u, volumes, gamma=gamma, flux=flux)
+    if dev.type != "cuda":
+        raise ValueError(f"no inner-divergence kernel for device {dev}")
+    surface = interior_surface(volumes, dim, ext)
+    _check_cuda_tensors([u, surface], flux, "inner divergence")
+
+    D = torch.empty_like(u)
+    speed = _speed_bits(1, dev)
+    _launch(_inner_library(), "t8_inner_divergence", dev,
+            [dim, ext, E, u.data_ptr(), surface.data_ptr(), D.data_ptr(),
+             speed.data_ptr(), float(gamma)], "inner_divergence")
+    inner_divergence.launches += 1
+    return D, speed.view(torch.float32)[0]
+
+
+inner_divergence.launches = 0
+
+
+def _inner_library() -> ctypes.CDLL:
+    """The inner-only kernel's library: device, dim, ext, E as int; every
+    pointer and the stream as c_void_p; gamma double."""
+    return _library("inner_divergence", "t8_inner_divergence",
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                    + [ctypes.c_double, ctypes.c_void_p])
+
+
+def inner_divergence_reference(u: torch.Tensor, volumes: torch.Tensor,
+                               gamma: float, flux: str):
+    """Plain PyTorch version of the inner-only divergence: the TPU
+    kernel's math (_kernel, pallas_kernels.py:1394) over the whole element
+    axis, for kepes, hll and hllc.  Same signature and result as
+    inner_divergence; runs on any device and dtype."""
+    dim, ext, E = _check_inner_inputs(u, volumes)
+    surface = interior_surface(volumes, dim, ext)
+    D = torch.zeros_like(u)
+    speed = torch.zeros_like(volumes)
+    for a in range(dim):
+        u_l = u.narrow(1 + a, 0, ext - 1)
+        u_r = u.narrow(1 + a, 1, ext - 1)
+        f, sp = numerical_flux(_state_rotate(u_l, a), _state_rotate(u_r, a),
+                               gamma=gamma, flux=flux)
+        D = interior_face_divergence(D, flux_axis_unrotate(f, a) * surface,
+                                     a)
+        speed = torch.maximum(speed, sp.amax(dim=tuple(range(dim))))
+    return D, (speed * (volumes > 0)).max()
 
 
 # -- the Euler MUSCL kernel ---------------------------------------------------

@@ -1,11 +1,23 @@
 """Stage glue of the subgrid scheme on torch tensors.
 
-Counterpart of t8gpu_tpu/ops/subgrid.py, for the two paths that step the
-uniform flagship:
-  * first order, RK-fused: per RK stage, gather each element side's
-    neighbor facing layer (`_state_side_layers`), then run one stage kernel
-    (`ops/kernels.fused_rk_stage`) that computes the fluxes, the divergence
-    and the stage update in one pass (`ssp_rk3_fused`);
+Counterpart of t8gpu_tpu/ops/subgrid.py, for the paths that step uniform
+meshes:
+  * first order, RK-fused (`ssp_rk3_fused`, extents 4 and 8): per RK
+    stage one call of a stage kernel, with what it reads chosen by the
+    process-level switch RK_STAGE_INPUTS: "state" (the default) gathers
+    each element side's neighbour facing layer (`_state_side_layers`) for
+    ops/kernels.fused_rk_stage, which derives the cell fields itself;
+    "logs" appends the log rho and log p rows first (`append_log_rows`)
+    and feeds the same kernel 7-row states; "fields" computes the cell
+    fields once (ops/euler.cell_fields_tuple), gathers field side layers
+    (`pallas_side_inputs`) and calls ops/kernels.fused_rk_stage_fields;
+  * first order, not fused (`flux_divergence`, stepped by ops/rk.ssp_rk3):
+    at extents 4 and 8 the field-input divergence kernel
+    (ops/kernels.fused_flux) plus the hanging-fine pass
+    (`outer_fine_apply`, nothing on uniform meshes); at other extents the
+    torch stencil (`inner_divergence_fields`, `outer_apply`,
+    `boundary_apply`), or with use_kernel=True the inner-only kernel
+    (ops/kernels.inner_divergence) in place of the interior stencil;
   * second order (MUSCL): per RK stage, gather each side's neighbor facing
     and second layer (`muscl_side_slabs`; the kernel's weights,
     `muscl_weights`, are built once per mesh), run one divergence kernel
@@ -14,8 +26,9 @@ uniform flagship:
     (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
 
 Layout: state is [5, *ext, E] with the element axis minor-most; a side
-layer is [5, *t_ext, E] where t_ext lists the remaining axes in increasing
+layer is [C, *t_ext, E] where t_ext lists the remaining axes in increasing
 order.  Side k = 2*axis + (0 for the +axis side, 1 for the -axis side).
+Coarser and finer neighbours (AMR) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,14 +36,26 @@ from __future__ import annotations
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
-from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_flux,
-                                       fields_mirror)
+from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_axis_rotate,
+                                       fields_flux, fields_mirror)
 # State rows [rho, m_x, m_y, m_z, e] rotate into the +axis face frame like
 # the velocity rows of a fields stack, and a 5-row flux rotates back.
 from t8gpu_tpu_torch.ops.euler import fields_axis_rotate as axis_rotate
 from t8gpu_tpu_torch.ops.euler import flux_axis_unrotate as axis_unrotate
-from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_rk_stage
+from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_muscl,
+                                         fused_rk_stage,
+                                         fused_rk_stage_fields,
+                                         interior_face_divergence,
+                                         interior_surface)
+from t8gpu_tpu_torch.ops.kernels import \
+    inner_divergence as inner_divergence_kernel
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+
+
+def _require_uniform(conn):
+    if any(conn.has_coarse) or any(conn.has_fine):
+        raise NotImplementedError(
+            "meshes with coarser/finer neighbors (AMR) are not ported yet")
 
 
 def _gather_layers(opp_layer: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -51,21 +76,22 @@ def _wall_masks(conn, spec: SubgridSpec, volumes: torch.Tensor):
 
 def _mirror_rows(layer: torch.Tensor, axis: int) -> torch.Tensor:
     """Mirror a facing layer across its wall: negate the normal momentum
-    row (row 1 + axis)."""
+    row (row 1 + axis).  Exact for 5-row states, 7-row states with their
+    log rows and cell-field rows alike: rho, p, their logs and |v|^2 are
+    invariant under the mirror."""
     return torch.cat([layer[: 1 + axis], -layer[1 + axis: 2 + axis],
                       layer[2 + axis:]], dim=0)
 
 
 def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
                        volumes: torch.Tensor) -> tuple:
-    """Per side, the equal-level neighbor's facing layer as 5-row state
-    slabs [5, *t_ext, E]: the +axis side reads the neighbor's cell 0 along
-    the axis, the -axis side its cell ext-1.  Wall sides get the mirrored
-    own facing layer.  Coarser neighbors (the coarse-window resolution)
-    come with the AMR slice."""
-    if any(conn.has_coarse) or any(conn.has_fine):
-        raise NotImplementedError(
-            "side layers of coarser/finer neighbors are not ported yet")
+    """Per side, the equal-level neighbor's facing layer as state slabs
+    [C, *t_ext, E] (C the rows of u: 5, or 7 with the log rows): the
+    +axis side reads the neighbor's cell 0 along the axis, the -axis side
+    its cell ext-1.  Wall sides get the mirrored own facing layer.
+    Coarser neighbors (the coarse-window resolution) come with the AMR
+    slice."""
+    _require_uniform(conn)
     ext = spec.extent
     walls = _wall_masks(conn, spec, volumes)
     others = []
@@ -105,57 +131,129 @@ def face_weight_rows(conn, spec: SubgridSpec, volumes: torch.Tensor) -> list:
     return rows
 
 
+def face_weights(conn, spec: SubgridSpec, volumes: torch.Tensor):
+    """The mesh part of the first-order kernels' weights [8, E]: rows 0-6
+    `face_weight_rows`, row 7 zero.  Callers build it once per mesh and
+    put dt * inv_cell_volume into row 7 per step (`with_dt_row`)."""
+    rows = face_weight_rows(conn, spec, volumes)
+    return torch.stack(rows + [torch.zeros_like(rows[0])])
+
+
+def with_dt_row(weights: torch.Tensor, dt_inv) -> torch.Tensor:
+    """`weights` [8, E] with row 7 replaced by dt_inv [E]."""
+    return torch.cat([weights[:7], dt_inv.reshape(1, -1)])
+
+
 def rk_weights(conn, spec: SubgridSpec, volumes: torch.Tensor, dt,
                inv_cell_volume: torch.Tensor) -> torch.Tensor:
     """Packed per-element weights [8, E] for the RK stage kernel: rows 0-6
     `face_weight_rows`, row 7 = dt * inv_cell_volume."""
-    return torch.stack(face_weight_rows(conn, spec, volumes)
-                       + [dt * inv_cell_volume])
+    return with_dt_row(face_weights(conn, spec, volumes),
+                       dt * inv_cell_volume)
 
 
 def can_fuse_rk(conn, spec: SubgridSpec) -> bool:
-    """Block extents the stage kernel is built for."""
+    """Block extents the stage kernels are built for."""
     return spec.extent in (4, 8)
 
 
-# What the stage kernel reads per stage.  The JAX package also has
-# "fields" and "logs" variants (both measured slower on its TPU); only
-# "state" is ported.
+# What the RK stage kernels read per stage, read when a step starts (a
+# process-level switch, as in the JAX package): "state" derives the cell
+# fields in the kernel from 5-row states and neighbour state layers, so
+# every cell's fields are derived 2*dim+1 times; "logs" computes log rho
+# and log p once per cell in torch (`append_log_rows`) and feeds the same
+# kernel 7-row states, which removes the logs from the repeats; "fields"
+# computes every field row once per cell in torch and feeds the field-input
+# stage kernel (ops/kernels.fused_rk_stage_fields) field layers: no repeat,
+# at twice the bytes read.  The JAX package measured "fields" and "logs"
+# slower than "state" on its TPU; PERF.md has the H100's numbers.
 RK_STAGE_INPUTS = "state"
+STAGE_INPUT_MODES = ("state", "logs", "fields")
+
+
+def append_log_rows(u: torch.Tensor, gamma: float) -> torch.Tensor:
+    """[5, ...] conserved state -> [7, ...] with [log rho, log p] rows
+    appended: the "logs" stage input."""
+    gm1 = gamma - 1.0
+    rho, m1, m2, m3, e = (u[i] for i in range(5))
+    inv_rho = 1.0 / rho
+    ke = 0.5 * (m1 * m1 + m2 * m2 + m3 * m3) * (inv_rho * inv_rho)
+    p = gm1 * (e - rho * ke)
+    return torch.cat([u, torch.log(rho)[None], torch.log(p)[None]], dim=0)
+
+
+def pallas_side_inputs(q, conn, spec: SubgridSpec, volumes: torch.Tensor,
+                       dt_inv=None, ghost_fields=None, weights=None):
+    """Inputs of the field-input kernels (ops/kernels.fused_flux,
+    fused_rk_stage_fields): per side the equal-level neighbour's facing
+    layer of the cell-field rows [C, *t_ext, E] (unrotated; a wall side
+    carries the mirrored own layer), and the packed weights [8, E]: rows
+    0-6 `face_weight_rows` (the wall area on wall sides), row 7 dt_inv
+    (dt * inv_cell_volume, for the stage kernel) or zero.
+
+    q: the cell fields, a stacked [C, *ext, E] tensor or a tuple of rows.
+    weights: `face_weights`, which depends on the mesh only and may be
+    built once by the caller.  Coarser neighbours (AMR) and prescribed
+    exterior fields (`ghost_fields`, farfield) raise NotImplementedError."""
+    _require_uniform(conn)
+    if ghost_fields is not None:
+        raise NotImplementedError("farfield boundaries are not ported yet")
+    if isinstance(q, tuple):
+        q = torch.stack(q)
+    others = _state_side_layers(q, conn, spec, volumes)
+    if weights is None:
+        weights = face_weights(conn, spec, volumes)
+    if dt_inv is not None:
+        weights = with_dt_row(weights, dt_inv)
+    return others, weights
 
 
 def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
                   spec: SubgridSpec, gamma: float, flux: str, dt,
                   inv_cell_volume: torch.Tensor, mu: float = 0.0,
-                  farfield=None, gravity=(0.0, 0.0, 0.0)):
-    """One SSP-RK3 step, every stage one call of the stage kernel; the
-    side layers are regathered between stages.  `dt` may be a 0-d device
-    tensor: it enters only through weight row 7, so the step never waits
-    for the device.  Returns (u_next, max wave speed of stage 1 as a 0-d
-    tensor).
+                  farfield=None, gravity=(0.0, 0.0, 0.0), weights=None):
+    """One SSP-RK3 step, every stage one call of a stage kernel; the side
+    layers are regathered between stages.  RK_STAGE_INPUTS, read here,
+    selects what the stages read: "state", "logs" (kepes; other fluxes
+    take "state") or "fields" (see RK_STAGE_INPUTS).  `dt` may be a 0-d
+    device tensor: it enters only through weight row 7, so the step never
+    waits for the device.  `weights`: `face_weights`, built once per mesh
+    by the caller (or here).  Returns (u_next, max wave speed of stage 1
+    as a 0-d tensor).
 
-    Raises NotImplementedError for what this slice does not port yet:
-    coarser/finer neighbors, viscosity, gravity, farfield boundaries,
-    other stage inputs than the state, other extents than 4 and 8."""
-    if any(conn.has_coarse) or any(conn.has_fine):
-        raise NotImplementedError(
-            "meshes with coarser/finer neighbors (AMR) are not ported yet")
+    Raises ValueError on an unknown RK_STAGE_INPUTS, and
+    NotImplementedError for what the port does not have yet:
+    coarser/finer neighbors (AMR), viscosity, gravity, farfield
+    boundaries, other extents than 4 and 8."""
+    _require_uniform(conn)
     if float(mu) > 0.0:
         raise NotImplementedError("viscous (mu > 0) stages are not ported yet")
     if any(float(c) != 0.0 for c in gravity):
         raise NotImplementedError("the gravity source is not ported yet")
     if farfield is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
-    if RK_STAGE_INPUTS != "state":
-        raise NotImplementedError(
-            f"stage inputs {RK_STAGE_INPUTS!r} are not ported; only 'state'")
+    mode = RK_STAGE_INPUTS
+    if mode not in STAGE_INPUT_MODES:
+        raise ValueError(f"unknown RK_STAGE_INPUTS {mode!r}; expected one "
+                         f"of {STAGE_INPUT_MODES}")
     if not can_fuse_rk(conn, spec):
         raise NotImplementedError(
-            f"the stage kernel takes extents 4 and 8, not {spec.extent}")
-
-    w = rk_weights(conn, spec, volumes, dt, inv_cell_volume)
+            f"the stage kernels take extents 4 and 8, not {spec.extent}")
+    use_logs = mode == "logs" and flux == "kepes"
+    if weights is None:
+        weights = face_weights(conn, spec, volumes)
+    dt_inv = dt * inv_cell_volume
+    w = with_dt_row(weights, dt_inv)
 
     def stage(u_stage, u_prev, coeffs):
+        if mode == "fields":
+            q = torch.stack(cell_fields_tuple(u_stage, gamma, flux))
+            others, w_q = pallas_side_inputs(q, conn, spec, volumes,
+                                             dt_inv=dt_inv, weights=weights)
+            return fused_rk_stage_fields(q, u_prev, w_q, others, gamma=gamma,
+                                         flux=flux, coeffs=coeffs)
+        if use_logs:
+            u_stage = append_log_rows(u_stage, gamma)
         others = _state_side_layers(u_stage, conn, spec, volumes)
         return fused_rk_stage(u_stage, u_prev, w, others, gamma=gamma,
                               flux=flux, coeffs=coeffs)
@@ -255,10 +353,7 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
     Raises NotImplementedError on what is not ported yet: coarser/finer
     neighbors (AMR, whose hanging faces take outer_apply's first-order
     passes), farfield boundaries, extents other than 4 and 8."""
-    if any(conn.has_coarse) or any(conn.has_fine):
-        raise NotImplementedError(
-            "order-2 MUSCL on meshes with coarser/finer neighbors (AMR) is "
-            "not ported yet")
+    _require_uniform(conn)
     if farfield is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
     if spec.extent not in (4, 8):
@@ -278,3 +373,137 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
                                  spec, gamma, flux)
         speed = torch.maximum(speed, sp_b)
     return D, speed
+
+
+# -- the first-order divergence outside the RK-fused path -------------------
+
+
+def inner_divergence(u: torch.Tensor, volumes: torch.Tensor,
+                     spec: SubgridSpec, gamma: float, flux: str):
+    """Interior cell-face flux divergence of a state [5, *ext, E] through
+    its cell fields: (D, max interior wave speed, a 0-d tensor).  The
+    torch stencil; ops/kernels.inner_divergence is the kernel of the same
+    function through the state-form flux."""
+    return inner_divergence_fields(cell_fields_tuple(u, gamma, flux),
+                                   volumes, spec, gamma, flux)
+
+
+def inner_divergence_fields(q: tuple, volumes: torch.Tensor,
+                            spec: SubgridSpec, gamma: float, flux: str):
+    """Interior cell-face flux divergence from cell fields (a tuple of C
+    rows, each [*ext, E]): (D [5, *ext, E], max interior wave speed).  Per
+    axis the ext-1 interior interfaces' fluxes from shifted slices,
+    accumulated as D[i] += f[i-1] - f[i], weighted by the cell face
+    area."""
+    dim = spec.dim
+    ext = spec.extent
+    surface = interior_surface(volumes, dim, ext)
+    D = torch.zeros((5,) + tuple(q[0].shape), dtype=q[0].dtype,
+                    device=q[0].device)
+    speed = torch.zeros((), dtype=q[0].dtype, device=q[0].device)
+    for a in range(dim):
+        q_rot = fields_axis_rotate(q, a)
+        q_l = tuple(r.narrow(a, 0, ext - 1) for r in q_rot)
+        q_r = tuple(r.narrow(a, 1, ext - 1) for r in q_rot)
+        f, sp = fields_flux(q_l, q_r, gamma=gamma, flux=flux)
+        D = interior_face_divergence(D, axis_unrotate(f, a) * surface, a)
+        speed = torch.maximum(speed, (sp * (surface > 0)).max())
+    return D, speed
+
+
+def outer_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
+                volumes: torch.Tensor, gamma: float, flux: str,
+                exclude_equal: bool = False):
+    """Add the mesh faces' fluxes into the block divergence [5, *ext, E]:
+    per element side, gather the neighbour's facing layer of the cell
+    fields `q` (a tuple of C rows), evaluate the faces against the own
+    boundary layer and add them into it.  Returns (D, max speed).
+
+    This is pass 1 of the JAX package's two (the faces at the element's
+    own resolution); on uniform meshes every face is an equal-level one.
+    exclude_equal skips them (what the order-2 closure wants).  The
+    coarse window and the virtual-fine pass of AMR meshes raise
+    NotImplementedError."""
+    _require_uniform(conn)
+    speed = torch.zeros((), dtype=q[0].dtype, device=q[0].device)
+    if exclude_equal:
+        return D, speed              # uniform: every face is equal-level
+    dim = spec.dim
+    ext = spec.extent
+    h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
+    area_t = (h_e / ext) ** (dim - 1)
+    for a in range(dim):
+        q_rot = fields_axis_rotate(q, a)
+        for s_i, hi in ((0, True), (1, False)):
+            k = 2 * a + s_i
+            my_layer = torch.stack([r.select(a, ext - 1 if hi else 0)
+                                    for r in q_rot])
+            opp_layer = torch.stack([r.select(a, 0 if hi else ext - 1)
+                                     for r in q_rot])
+            base = _gather_layers(opp_layer, conn.nbr[k][:, :1])[..., 0]
+            q_l, q_r = (my_layer, base) if hi else (base, my_layer)
+            f, sp = fields_flux(tuple(q_l), tuple(q_r), gamma=gamma,
+                                flux=flux)
+            w1 = conn.mask[k] * area_t * (conn.rel[k] <= 0)
+            f = axis_unrotate(f, a) * w1
+            speed = torch.maximum(speed, (sp * (w1 > 0)).max())
+            D = _slab_add(D, (-f if hi else f).reshape(5, -1), a,
+                          layer_hi=hi, spec=spec)
+    return D, speed
+
+
+def outer_fine_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
+                     volumes: torch.Tensor, gamma: float, flux: str):
+    """The hanging-fine (2:1) faces' pass that the field-input divergence
+    kernel leaves to torch: (D, max speed).  On a uniform mesh there is
+    none (D unchanged, speed 0); finer neighbours raise
+    NotImplementedError (AMR)."""
+    if any(conn.has_fine):
+        raise NotImplementedError(
+            "hanging faces of finer neighbors (AMR) are not ported yet")
+    return D, torch.zeros((), dtype=D.dtype, device=D.device)
+
+
+def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
+                    spec: SubgridSpec, gamma: float, flux: str,
+                    use_kernel=None, farfield=None, weights=None):
+    """First-order surface-flux divergence of the subgrid scheme: interior,
+    mesh and wall faces.  u: [5, *ext, E].  Returns (D, max speed as a
+    0-d tensor).  All the paths share one cell-fields computation.
+
+    `use_kernel` plays the part of the JAX package's `use_pallas`:
+      None or True at extents 4 and 8: the field-input divergence kernel
+        (ops/kernels.fused_flux: interior, equal-level and wall faces in
+        one pass), then `outer_fine_apply`;
+      True at another extent: the inner-only kernel
+        (ops/kernels.inner_divergence), then `outer_apply` and
+        `boundary_apply`;
+      None at another extent, or False: the torch stencil,
+        `inner_divergence_fields`, `outer_apply`, `boundary_apply`.
+    CUDA tensors launch the kernels, CPU tensors run their plain versions.
+    `weights`: `face_weights`, built once per mesh by the caller (or
+    here).  Farfield boundaries and AMR meshes raise
+    NotImplementedError."""
+    if farfield is not None:
+        raise NotImplementedError("farfield boundaries are not ported yet")
+    _require_uniform(conn)
+    q = cell_fields_tuple(u, gamma, flux)
+    if use_kernel in (None, True) and spec.extent in (4, 8):
+        qs = torch.stack(q)
+        others, w = pallas_side_inputs(qs, conn, spec, volumes,
+                                       weights=weights)
+        D, sp_e = fused_flux(qs, w, others, gamma=gamma, flux=flux)
+        sp_i = sp_e.max()
+        D, sp_o = outer_fine_apply(D, q, conn, spec, volumes, gamma, flux)
+    else:
+        if use_kernel:
+            D, sp_i = inner_divergence_kernel(u, volumes, gamma=gamma,
+                                              flux=flux)
+        else:
+            D, sp_i = inner_divergence_fields(q, volumes, spec, gamma, flux)
+        D, sp_o = outer_apply(D, q, conn, spec, volumes, gamma, flux)
+        if conn.b_groups:
+            D, sp_b = boundary_apply(D, tuple(r.reshape(-1) for r in q),
+                                     conn, spec, gamma, flux)
+            sp_o = torch.maximum(sp_o, sp_b)
+    return D, torch.maximum(sp_i, sp_o)

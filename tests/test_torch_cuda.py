@@ -5,11 +5,13 @@ jax nor the JAX package, so it also runs on a GPU machine without JAX:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-The CUDA stage, MUSCL and GLM-MHD kernels against their plain PyTorch
+The CUDA stage (state and log-row inputs), field-input (divergence and
+stage), inner-only, MUSCL and GLM-MHD kernels against their plain PyTorch
 versions on the same card (rtol 2e-5, atol 2e-6, as tests/test_pallas.py)
-and bit-identical on repeat, the MUSCL and MHD kernels in every template
-case; the Euler solver (order 1 and 2) and the GLM-MHD solver (order 1 and
-2) stepped on the card against the same solver on the CPU.
+and bit-identical on repeat, each in every template case; the Euler solver
+(order 1 in each stage-input mode and at extents 2 and 16, order 2) and
+the GLM-MHD solver (order 1 and 2) stepped on the card against the same
+solver on the CPU; flux_divergence's kernel dispatches.
 """
 
 import numpy as np
@@ -22,18 +24,25 @@ from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.models.mhd import orszag_tang
 from t8gpu_tpu_torch.models.subgrid_euler import SubgridCompressibleEulerSolver
 from t8gpu_tpu_torch.models.subgrid_mhd import SubgridMHDSolver
-from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
+from t8gpu_tpu_torch.ops import subgrid as tsg
+from t8gpu_tpu_torch.ops.euler import cell_fields_tuple
+from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
+                                         fused_mhd_flux,
                                          fused_mhd_flux_reference,
                                          fused_mhd_muscl,
                                          fused_mhd_muscl_reference,
                                          fused_muscl, fused_muscl_reference,
                                          fused_rk_stage,
-                                         fused_rk_stage_reference)
+                                         fused_rk_stage_fields,
+                                         fused_rk_stage_fields_reference,
+                                         fused_rk_stage_reference,
+                                         inner_divergence,
+                                         inner_divergence_reference)
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import (GAMMA, MHD_GAMMA, mhd_flux_inputs,
                                      mhd_muscl_inputs, muscl_inputs, noisy_kh,
-                                     stage_inputs)
+                                     random_state, stage_inputs)
 
 RTOL, ATOL = 2e-5, 2e-6
 STAGES = [(True, STAGE_1), (False, STAGE_2), (False, STAGE_3)]
@@ -294,3 +303,222 @@ def test_cuda_mhd_solver_matches_cpu(cuda, dim, level, periodic, order,
     np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
                                rtol=RTOL, atol=ATOL)
     assert abs(gpu.compute_integral() - m0) <= 1e-6 * abs(m0)
+
+
+# -- the log-row stage input, the field-input and the inner-only kernels --
+
+
+def _card_stage_inputs(cuda, seed, dim, ext, E, n_guard):
+    u, up, w, others = stage_inputs(seed, dim, ext, E, n_guard)
+    u, up, w = (torch.from_numpy(a).to(cuda) for a in (u, up, w))
+    return u, up, w, [torch.from_numpy(o).to(cuda) for o in others]
+
+
+def _check_pair(k1, k2, ref, n_guard, guard_d_zero=True):
+    """A kernel's (out, speed) against its repeat, bit for bit, and its
+    plain version; guard slots have speed 0 (and D = 0 for a divergence)."""
+    torch.cuda.synchronize()
+    for a, b in zip(k1, k2):
+        assert _bits_equal(a, b)
+    assert (k1[1][-n_guard:] == 0).all()
+    if guard_d_zero:
+        assert (k1[0][..., -n_guard:] == 0).all()
+    assert bool(torch.isfinite(k1[0]).all())
+    for got, want in zip(k1, ref):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_logs_stage_matches_reference(cuda, dim, ext):
+    """The 7-row input of the stage kernel (state rows and their log rho,
+    log p rows, the side layers too): every stage, counted apart."""
+    E, n_guard = 1000, 37
+    u, up, w, others = _card_stage_inputs(cuda, dim + ext + 1, dim, ext, E,
+                                          n_guard)
+    u7 = tsg.append_log_rows(u, GAMMA)
+    others7 = [tsg.append_log_rows(o, GAMMA) for o in others]
+    for share_prev, coeffs in STAGES:
+        prev = None if share_prev else up
+        kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+        before = (fused_rk_stage.launches, fused_rk_stage.launches_logs)
+        k1 = fused_rk_stage(u7, prev, w, others7, **kw)
+        k2 = fused_rk_stage(u7, prev, w, others7, **kw)
+        assert (fused_rk_stage.launches,
+                fused_rk_stage.launches_logs) == (before[0], before[1] + 2)
+        assert k1[0].shape == u.shape
+        ref = fused_rk_stage_reference(u7, prev, w, others7, **kw)
+        _check_pair(k1, k2, ref, n_guard, guard_d_zero=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_fields_kernels_match_reference(cuda, dim, ext):
+    """The field-input divergence and the field-input stage (every stage,
+    share_prev both ways) on cell fields of seeded states."""
+    E, n_guard = 1000, 37
+    u, up, w, others = _card_stage_inputs(cuda, dim + ext + 2, dim, ext, E,
+                                          n_guard)
+    q = torch.stack(cell_fields_tuple(u, GAMMA, "kepes"))
+    oq = [torch.stack(cell_fields_tuple(o, GAMMA, "kepes")) for o in others]
+    before = fused_flux.launches
+    k1 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
+    k2 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
+    assert fused_flux.launches == before + 2
+    _check_pair(k1, k2, fused_flux_reference(q, w, oq, gamma=GAMMA,
+                                             flux="kepes"), n_guard)
+    for share_prev, coeffs in STAGES:
+        prev = None if share_prev else up
+        kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+        before = fused_rk_stage_fields.launches
+        k1 = fused_rk_stage_fields(q, prev, w, oq, **kw)
+        k2 = fused_rk_stage_fields(q, prev, w, oq, **kw)
+        assert fused_rk_stage_fields.launches == before + 2
+        ref = fused_rk_stage_fields_reference(q, prev, w, oq, **kw)
+        _check_pair(k1, k2, ref, n_guard, guard_d_zero=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [2, 4, 8, 16])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_inner_divergence_matches_reference(cuda, dim, ext):
+    """Every block extent of the inner-only kernel; dead slots (volume 0)
+    get D = 0 and add no speed."""
+    E, n_guard = 200 if (dim, ext) == (3, 16) else 1000, 37
+    rng = np.random.default_rng(dim * 100 + ext)
+    u = torch.from_numpy(random_state(rng, (ext,) * dim + (E,))).to(cuda)
+    vol = rng.uniform(0.5, 1.0, E).astype(np.float32) ** dim
+    vol[-n_guard:] = 0.0
+    vol = torch.from_numpy(vol).to(cuda)
+    before = inner_divergence.launches
+    d1, s1 = inner_divergence(u, vol, GAMMA, "kepes")
+    d2, s2 = inner_divergence(u, vol, GAMMA, "kepes")
+    assert inner_divergence.launches == before + 2
+    rd, rs = inner_divergence_reference(u, vol, GAMMA, "kepes")
+    torch.cuda.synchronize()
+    assert s1.dim() == 0 and _bits_equal(d1, d2) and _bits_equal(s1, s2)
+    assert (d1[..., -n_guard:] == 0).all()
+    np.testing.assert_allclose(d1.cpu().numpy(), rd.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(s1), float(rs), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_reject_unsupported(cuda):
+    u, up, w, others = _card_stage_inputs(cuda, 0, 3, 4, 64, 0)
+    q = torch.stack(cell_fields_tuple(u, GAMMA, "hll"))
+    oq = [torch.stack(cell_fields_tuple(o, GAMMA, "hll")) for o in others]
+    with pytest.raises(ValueError, match="kepes"):
+        fused_flux(q, w, oq, gamma=GAMMA, flux="hll")
+    with pytest.raises(ValueError, match="kepes"):
+        fused_rk_stage_fields(q, up, w, oq, gamma=GAMMA, flux="hll",
+                              coeffs=STAGE_2)
+    with pytest.raises(ValueError, match="kepes"):
+        inner_divergence(u, w[0], GAMMA, "hll")
+    q = torch.stack(cell_fields_tuple(u, GAMMA, "kepes"))
+    oq = [torch.stack(cell_fields_tuple(o, GAMMA, "kepes")) for o in others]
+    with pytest.raises(ValueError, match="float32"):
+        fused_flux(q.double(), w.double(), [o.double() for o in oq],
+                   gamma=GAMMA, flux="kepes")
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rk_stage_fields(q, up.transpose(1, 2), w, oq, gamma=GAMMA,
+                              flux="kepes", coeffs=STAGE_2)
+    with pytest.raises(ValueError, match="float32"):
+        inner_divergence(u.double(), w[0].double(), GAMMA, "kepes")
+    u7 = tsg.append_log_rows(u, GAMMA)
+    with pytest.raises(ValueError, match="float32"):
+        fused_rk_stage(u7.double(), None, w.double(),
+                       [tsg.append_log_rows(o, GAMMA).double()
+                        for o in others], gamma=GAMMA, flux="kepes",
+                       coeffs=STAGE_2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fields", "logs"])
+@pytest.mark.parametrize("dim,level,ext,periodic",
+                         [(3, 2, 8, True), (3, 1, 4, False)])
+def test_cuda_stage_inputs_match_cpu(cuda, mode, dim, level, ext, periodic):
+    """Three steps with RK_STAGE_INPUTS "fields" or "logs" on the card
+    against the CPU; every stage one launch of the mode's kernel."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
+                                                  periodic=periodic),
+                                   SubgridSpec((ext,) * dim))
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 8))
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 8), device="cpu")
+    m0 = gpu.compute_integral()
+    dt = gpu.compute_timestep()
+    counts = lambda: (fused_rk_stage.launches, fused_rk_stage.launches_logs,
+                      fused_rk_stage_fields.launches)
+    before = counts()
+    old = tsg.RK_STAGE_INPUTS
+    try:
+        tsg.RK_STAGE_INPUTS = mode
+        gpu.iterate_many(3, dt)
+        cpu.iterate_many(3, dt)
+    finally:
+        tsg.RK_STAGE_INPUTS = old
+    want = (0, 9, 0) if mode == "logs" else (0, 0, 9)
+    assert tuple(a - b for a, b in zip(counts(), before)) == want
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    assert abs(gpu.compute_integral() - m0) <= 1e-6 * abs(m0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,level,ext,periodic",
+                         [(3, 1, 16, False), (2, 2, 16, True),
+                          (3, 2, 2, False)])
+def test_cuda_other_extents_match_cpu(cuda, dim, level, ext, periodic):
+    """Extents 16 and 2: the solver on the torch stencil, and
+    flux_divergence(use_kernel=True) through the inner-only kernel, on the
+    card against the CPU and the stencil."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
+                                                  periodic=periodic),
+                                   SubgridSpec((ext,) * dim))
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 9))
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 9), device="cpu")
+    args = (gpu.u, gpu.volumes, gpu.conn, gpu.spec, GAMMA, "kepes")
+    before = inner_divergence.launches
+    dk, sk = tsg.flux_divergence(*args, use_kernel=True)
+    assert inner_divergence.launches == before + 1
+    ds, ss = tsg.flux_divergence(*args, use_kernel=False)
+    assert inner_divergence.launches == before + 1
+    np.testing.assert_allclose(dk.cpu().numpy(), ds.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(sk), float(ss), rtol=RTOL)
+    dt = gpu.compute_timestep()
+    gpu.iterate_many(3, dt)
+    cpu.iterate_many(3, dt)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,level,ext,periodic",
+                         [(3, 2, 8, True), (2, 2, 4, False)])
+def test_cuda_flux_divergence_kernel_matches_stencil(cuda, dim, level, ext,
+                                                     periodic):
+    """flux_divergence at extents 4 and 8: one field-input divergence
+    launch per call (use_kernel None or True), within tolerance of the
+    torch stencil (use_kernel=False) on the card and of the CPU."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
+                                                  periodic=periodic),
+                                   SubgridSpec((ext,) * dim))
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 10))
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 10),
+                                         device="cpu")
+    args = (gpu.u, gpu.volumes, gpu.conn, gpu.spec, GAMMA, "kepes")
+    before = fused_flux.launches
+    dn, sn = tsg.flux_divergence(*args)
+    dk, sk = tsg.flux_divergence(*args, use_kernel=True)
+    assert fused_flux.launches == before + 2
+    ds, ss = tsg.flux_divergence(*args, use_kernel=False)
+    assert fused_flux.launches == before + 2
+    dc, sc = tsg.flux_divergence(cpu.u, cpu.volumes, cpu.conn, cpu.spec,
+                                 GAMMA, "kepes")
+    assert _bits_equal(dn, dk)
+    for d, sp in ((ds, ss), (dc, sc)):
+        np.testing.assert_allclose(dk.cpu().numpy(), d.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(float(sk), float(sp), rtol=RTOL)

@@ -86,7 +86,10 @@ def test_wrapper_rejects_unsupported_inputs():
     kw = dict(gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
     with pytest.raises(ValueError, match="extras"):
         fused_rk_stage(ut, upt, wt, ot, extras=(ot[0],), **kw)
-    with pytest.raises(ValueError, match="5 state rows"):
+    with pytest.raises(ValueError, match="5 or 7 rows"):
+        fused_rk_stage(torch.cat([ut, ut[:1]]), None, wt, ot, **kw)
+    # 7 rows (the state and its log rows) need 7-row side layers
+    with pytest.raises(ValueError, match="side layers"):
         fused_rk_stage(torch.cat([ut, ut[:2]]), None, wt, ot, **kw)
     bad_ext = torch.zeros((5, 6, 6, 40))
     with pytest.raises(ValueError, match="ext"):
@@ -140,8 +143,8 @@ def test_stage_library_declares_c_signature(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: fake)
     lib = kernels._stage_library()
     args = lib.t8_fused_rk_stage.argtypes
-    assert args[:4] == [ctypes.c_int] * 4            # device, dim, ext, E
-    assert args[4:15] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
-    assert args[15] is ctypes.c_double and args[16:19] == [ctypes.c_float] * 3
-    assert args[19] is ctypes.c_void_p and len(args) == 20   # the stream
+    assert args[:5] == [ctypes.c_int] * 5            # device, dim, ext, E, logs
+    assert args[5:16] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
+    assert args[16] is ctypes.c_double and args[17:20] == [ctypes.c_float] * 3
+    assert args[20] is ctypes.c_void_p and len(args) == 21   # the stream
     assert lib.t8_cuda_error_string.restype is ctypes.c_char_p
