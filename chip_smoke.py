@@ -5,8 +5,9 @@ Run from the repository root on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
-                                         # flagship, fields, logs, order 2,
-                                         # mhd and mhd_order2 (device time
+                                         # flagship, fields, logs, order 2
+                                         # (cons and prim), mhd and
+                                         # mhd_order2 (device time
                                          # by kernel group, idle share);
                                          # tables and traces to DIR
 
@@ -16,11 +17,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
   kernel           each kernel against its plain PyTorch version on the card
                    (rtol 2e-5, atol 2e-6, and bit-identical on repeat), its
                    time, the plain version's time and the card's bound:
-                   the RK-stage kernel, then the MUSCL kernel, then the two
+                   the RK-stage kernel, then the MUSCL kernel (every
+                   case: kepes in cons and prim, hll and hllc in cons; its
+                   time in cons, prim and hll, and the registers, threads
+                   and shared memory per block), then the two
                    GLM-MHD kernels (at the Orszag-Tang shape and three
                    ragged ones; seeded random states, conductor-wall sides
                    for the flux kernel, every limiter/positivity case for
-                   the MUSCL kernel), then the stage kernel's 7-row log
+                   the MUSCL kernel; its registers and shared memory per
+                   block), then the stage kernel's 7-row log
                    input, the field-input divergence and stage kernels
                    (at the stage kernel's shapes) and the inner-only
                    kernel (Subgrid<16,16,16> with 512 live elements, and
@@ -108,6 +113,17 @@ FIELD_OPS, FLUX_OPS, FACE_OPS, UPDATE_OPS = 22, 198, 17, 26
 # of the field logs), plus the face work above; prim_rows (12) once per
 # cell and side-layer cell in primitive space.
 RECON_OPS, PAIR_OPS, PRIM_OPS = 65, 24, 12
+# hll in conserved space: cell_fields_tuple ("hll", 21 per side),
+# _roe_speeds 33 and hll_fields_flux 57 per interface.
+HLL_OPS = 132
+# the MUSCL kernel's cases: (space, flux); hll and hllc in conserved space
+MUSCL_CASES = (("cons", "kepes"), ("prim", "kepes"), ("cons", "hll"),
+               ("cons", "hllc"))
+# element counts that fill whole waves of the two MUSCL kernels' blocks on
+# an H100 (132 SMs x 8 resident elements x 4 for Euler at 3D extent 8, 132
+# x 32 x 5 for GLM-MHD at 2D extent 8), timed beside the main path's
+# counts, which leave a last partial wave
+MUSCL_WAVE_E, MHD_MUSCL_WAVE_E = 4224, 21120
 
 # The GLM-MHD kernels (models/mhd.py, a divide, sqrt, compare or select
 # counts as one): the interface flux _rusanov_rows, 66 per side's
@@ -142,6 +158,10 @@ MHD_KERNEL_SHAPES = ((2, 8, None, None), (2, 4, 4374, 4096),
 INNER_KERNEL_SHAPES = ((3, 16, 576, 512), (2, 16, 4374, 4096),
                        (3, 2, 279936, 262144), (3, 4, 4374, 4096))
 EXT16_LEVEL = 3
+# what the profiler's name of a path's kernel contains: the MUSCL kernels
+# are muscl_pencil.cuh's walk, named by their physics policy
+PROFILE_KEYS = {"fused_muscl": "Euler", "fused_mhd_flux":
+                "fused_mhd_flux_kernel", "fused_mhd_muscl": "Mhd"}
 # the stage inputs the stage kernels take (ops/subgrid.RK_STAGE_INPUTS)
 STAGE_INPUT_KERNELS = {"fields": "fused_rk_stage_fields",
                        "logs": "fused_rk_stage_logs"}
@@ -183,16 +203,16 @@ def stage_inputs(seed, dim, ext, E, n_live):
     return dev(u), dev(up), dev(w), [dev(o) for o in others]
 
 
-def muscl_inputs(seed, dim, ext, E, n_live):
+def muscl_inputs(seed, dim, ext, E, n_live, **kw):
     """Seeded random MUSCL inputs (tests/torch_port_inputs.py) on the
     card; slots [n_live, E) are guard slots."""
     from tests.torch_port_inputs import muscl_inputs as numpy_inputs
-    u, w, others = numpy_inputs(seed, dim, ext, E, n_guard=E - n_live)
+    u, w, others = numpy_inputs(seed, dim, ext, E, n_guard=E - n_live, **kw)
     dev = lambda a: torch.from_numpy(a).cuda()
     return dev(u), dev(w), [dev(o) for o in others]
 
 
-def muscl_cost(dim, ext, E, space):
+def muscl_cost(dim, ext, E, space, flux="kepes"):
     """(bytes, ops) the MUSCL divergence must move and compute: u, the
     weights and the 10-row side slabs read once, D and the speed written
     once; each cell's reconstruction once per axis, each interface's flux
@@ -200,8 +220,8 @@ def muscl_cost(dim, ext, E, space):
     B, T = ext ** dim, ext ** (dim - 1)
     read = 5 * B * E + 8 * E + 2 * dim * 10 * T * E
     write = 5 * B * E + E
-    ops = E * (dim * B * RECON_OPS
-               + dim * (ext + 1) * T * (FLUX_OPS + PAIR_OPS + FACE_OPS))
+    iface = FLUX_OPS + PAIR_OPS if flux == "kepes" else HLL_OPS
+    ops = E * (dim * B * RECON_OPS + dim * (ext + 1) * T * (iface + FACE_OPS))
     if space == "prim":
         ops += E * (B + 2 * dim * 2 * T) * PRIM_OPS
     return 4 * (read + write), ops
@@ -385,71 +405,95 @@ def phase_kernel():
 
 
 def phase_kernel_muscl():
-    from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_muscl_reference
-
-    max_abs = max_rel = max_used = 0.0
-    timing = {}
+    """The MUSCL kernel against its plain version in every case (MUSCL_CASES
+    x limiter x positivity; rho and p in [0.02, 2] with the guard on, so
+    that it fires) at the stage kernel's shapes; timed at the flagship
+    shape on the order-2 path's inputs (minmod, guard on) in cons, prim
+    and hll; the resources of the timed instantiations."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_muscl,
+                                             fused_muscl_attributes,
+                                             fused_muscl_reference)
+    errs = [0.0, 0.0, 0.0]
     for dim, ext, E, n_live in KERNEL_SHAPES:
-        for space in ("cons", "prim"):
+        for space, flux in MUSCL_CASES:
             for limiter in ("minmod", "none"):
-                u, w, others = muscl_inputs(dim * 10 + ext, dim, ext, E,
-                                            n_live)
-                args = (u, w, others)
-                kw = dict(gamma=GAMMA, flux="kepes", limiter=limiter,
-                          space=space)
-                k1 = fused_muscl(*args, **kw)
-                k2 = fused_muscl(*args, **kw)
-                ref = fused_muscl_reference(*args, **kw)
-                torch.cuda.synchronize()
-                if not (torch.equal(k1[0], k2[0])
-                        and torch.equal(k1[1], k2[1])):
-                    raise AssertionError("fused_muscl is not bit-identical "
-                                         "on repeat")
-                if not bool((k1[1][n_live:] == 0).all()):
-                    raise AssertionError("fused_muscl: guard slots have a "
-                                         "speed")
-                for got, want in ((k1[0], ref[0]), (k1[1], ref[1])):
-                    a, r, t = compare(f"fused_muscl {dim}d ext{ext} {space} "
-                                      f"{limiter}", got, want)
-                    max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-                    max_used = max(max_used, t)
-                if (dim, ext) == KERNEL_SHAPES[0][:2] and limiter == "minmod":
-                    # the order-2 flagship's launches ("bj", "bj-prim")
-                    t_k = cuda_ms(lambda: fused_muscl(*args, **kw), reps=20)
-                    t_p = cuda_ms(lambda: fused_muscl_reference(*args, **kw),
-                                  reps=3, warmup=1)
-                    timing[space] = (t_k, t_p) + muscl_cost(dim, ext, E,
-                                                            space)
-    b_ms, b_by = bound_ms(*timing["cons"][2:])
-    phase("kernel", kernel="fused_muscl", max_abs_err=f"{max_abs:.3e}",
-          max_rel_err=f"{max_rel:.3e}", tolerance_used=f"{max_used:.3f}",
-          rtol=RTOL, atol=ATOL, kernel_ms=f"{timing['cons'][0]:.4f}",
-          plain_ms=f"{timing['cons'][1]:.3f}", bound_ms=f"{b_ms:.4f}",
-          prim_kernel_ms=f"{timing['prim'][0]:.4f}",
-          prim_plain_ms=f"{timing['prim'][1]:.3f}",
-          prim_bound_ms=f"{bound_ms(*timing['prim'][2:])[0]:.4f}",
-          bytes=timing["cons"][2], ops=timing["cons"][3],
-          prim_ops=timing["prim"][3], bound_by=b_by)
-    return dict(max_abs_err=max_abs, ms=timing["cons"][0],
-                plain_ms=timing["cons"][1], bound_ms=b_ms, bound_by=b_by)
+                for pos in (True, False):
+                    args = muscl_inputs(dim * 10 + ext, dim, ext, E, n_live,
+                                        lo=0.02 if pos else 0.5, hi=2.0)
+                    kw = dict(gamma=GAMMA, flux=flux, limiter=limiter,
+                              positivity=pos, space=space)
+                    k1 = fused_muscl(*args, **kw)
+                    k2 = fused_muscl(*args, **kw)
+                    ref = fused_muscl_reference(*args, **kw)
+                    torch.cuda.synchronize()
+                    _hold(f"fused_muscl {dim}d ext{ext} {flux} {space} "
+                          f"{limiter} positivity={pos}", k1, k2, ref, n_live,
+                          errs, finite_only=not pos)
+    timing, res = {}, {}
+    dim, ext, E, n_live = KERNEL_SHAPES[0]
+    args = muscl_inputs(dim * 10 + ext, dim, ext, E, n_live)
+    for space, flux in MUSCL_CASES[:3]:
+        kw = dict(gamma=GAMMA, flux=flux, limiter="minmod", space=space)
+        t_k = cuda_ms(lambda: fused_muscl(*args, **kw), reps=20)
+        t_p = cuda_ms(lambda: fused_muscl_reference(*args, **kw), reps=3,
+                      warmup=1)
+        err = compare(f"fused_muscl {flux} {space}", fused_muscl(*args, **kw)[0],
+                      fused_muscl_reference(*args, **kw)[0])[0]
+        timing[flux if flux != "kepes" else space] = (
+            (t_k, t_p) + muscl_cost(dim, ext, E, space, flux) + (err,))
+        res[flux if flux != "kepes" else space] = fused_muscl_attributes(
+            dim, ext, flux=flux, space=space)
+    wave = muscl_inputs(dim * 10 + ext, dim, ext, MUSCL_WAVE_E, n_live)
+    kw = dict(gamma=GAMMA, flux="kepes", limiter="minmod")
+    extra = {f"E{MUSCL_WAVE_E}_kernel_ms":
+             f"{cuda_ms(lambda: fused_muscl(*wave, **kw), reps=20):.4f}"}
+    for key in ("prim", "hll"):
+        t_k, t_p, nbytes, ops, err = timing[key]
+        extra.update({f"{key}_kernel_ms": f"{t_k:.4f}",
+                      f"{key}_plain_ms": f"{t_p:.3f}",
+                      f"{key}_bound_ms": f"{bound_ms(nbytes, ops)[0]:.4f}",
+                      f"{key}_ops": ops, f"{key}_max_abs_err": f"{err:.3e}"})
+    for key, r in res.items():
+        extra[f"{key}_resources"] = (f"{r['registers']}regs,"
+                                     f"{r['spill_bytes']}Bspill,"
+                                     f"{r['threads']}threads,"
+                                     f"{r['smem_bytes']}Bsmem")
+    return _kernel_row("fused_muscl", errs, timing["cons"][:4], extra)
 
 
-def _hold(name, k1, k2, ref, n_live, errs, stage=False):
+def _hold(name, k1, k2, ref, n_live, errs, stage=False, finite_only=False):
     """Hold one kernel result (D, speed) against its repeat k2 (bit for
     bit) and its plain version ref; guard slots [n_live, E) must come out
     with D = 0 and speed 0 (for a stage's (u_next, speed), finite with
-    speed 0).  errs accumulates (max abs, max rel, share of the
-    tolerance)."""
+    speed 0).  finite_only (a MUSCL case without the positivity guard,
+    whose reconstructions may have p < 0): compare the elements whose
+    plain divergence and speed are finite (a NaN speed must be NaN in
+    both), and skip the guard slots, whose random side slabs may give NaN
+    too.  errs accumulates (max abs, max rel,
+    share of the tolerance)."""
     for a, b in zip(k1, k2):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"{name} is not bit-identical on repeat")
     guard = k1[0][..., n_live:]
-    if not (bool((torch.isfinite(guard) if stage else guard == 0).all())
+    if not finite_only and not (
+            bool((torch.isfinite(guard) if stage else guard == 0).all())
             and bool((k1[1][n_live:] == 0).all())):
         raise AssertionError(f"{name}: guard slots have a divergence or a "
                              f"speed")
+    live = slice(None)
+    if finite_only:
+        live = ref[0].isfinite().all(dim=tuple(range(ref[0].dim() - 1)))
+        if not bool(live[:n_live].float().mean() > 0.5):
+            raise AssertionError(f"{name}: most plain divergences are NaN")
+        # hll/hllc: a NaN wave-speed bound on a branch the flux does not
+        # take leaves D finite and the speed NaN, in both versions
+        nan = ref[1].isnan()
+        if not torch.equal(k1[1].isnan()[live], nan[live]):
+            raise AssertionError(f"{name}: its NaN speeds are not the plain "
+                                 f"version's")
+        live = live & ~nan
     for got, want in zip(k1, ref):
-        a, r, t = compare(name, got, want)
+        a, r, t = compare(name, got[..., live], want[..., live])
         errs[:] = [max(errs[0], a), max(errs[1], r), max(errs[2], t)]
 
 
@@ -506,6 +550,7 @@ def phase_kernel_mhd_muscl():
     guard on, so that it fires); timed at the Orszag-Tang shape with the
     main path's minmod and guard."""
     from t8gpu_tpu_torch.ops.kernels import (fused_mhd_muscl,
+                                             fused_mhd_muscl_attributes,
                                              fused_mhd_muscl_reference)
     errs = [0.0, 0.0, 0.0]
     for i, (dim, ext, E, n_live) in enumerate(mhd_kernel_shapes()):
@@ -526,7 +571,16 @@ def phase_kernel_mhd_muscl():
                               cuda_ms(lambda: fused_mhd_muscl_reference(
                                   *args, **kw), reps=3, warmup=1)) \
                         + mhd_cost(dim, ext, E, 18, recon=True)
-    return _kernel_row("fused_mhd_muscl", errs, timing)
+                    r = fused_mhd_muscl_attributes(dim, ext)
+                    wave = mhd_inputs("muscl", dim * 10 + ext, dim, ext,
+                                      MHD_MUSCL_WAVE_E, MHD_MUSCL_WAVE_E,
+                                      lo=0.02, hi=2.0)
+                    t_wave = cuda_ms(lambda: fused_mhd_muscl(*wave, **kw),
+                                     reps=20)
+    return _kernel_row("fused_mhd_muscl", errs, timing, {
+        "registers": r["registers"], "spill_bytes": r["spill_bytes"],
+        "threads_per_block": r["threads"], "smem_per_block": r["smem_bytes"],
+        f"E{MHD_MUSCL_WAVE_E}_kernel_ms": f"{t_wave:.4f}"})
 
 
 def _mixed_row(name, errs, timing, extra=None):
@@ -1073,11 +1127,11 @@ def phase_order2(profile_dir):
           mass_drift=f"{drift:.3e}", dt=f"{float(dt):.6e}")
     if profile_dir is not None:
         _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "order2",
-                 "fused_muscl_kernel")
+                 PROFILE_KEYS["fused_muscl"])
     return launches
 
 
-def phase_order2_prim():
+def phase_order2_prim(profile_dir):
     """limiter "bj-prim" (primitive-space reconstruction) on the same
     flagship: ms/step as the slope of 5 and 25 steps, mass drift, and 3
     MUSCL launches per step."""
@@ -1099,6 +1153,9 @@ def phase_order2_prim():
     phase("order2_prim", limiter=solver.config.limiter, steps=32,
           launches=fused_muscl.launches, ms_per_step=f"{ms_step:.4f}",
           mass_drift=f"{drift:.3e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir),
+                 "order2_prim", PROFILE_KEYS["fused_muscl"])
 
 
 def phase_order2_vs_cpu():
@@ -1181,7 +1238,7 @@ def phase_mhd(order, profile_dir):
           dt=f"{float(dt):.6e}")
     if profile_dir is not None:
         _profile(solver, dt, ms_step, pathlib.Path(profile_dir), tag,
-                 f"{name}_kernel")
+                 PROFILE_KEYS[name])
     return counts[name]
 
 
@@ -1239,7 +1296,7 @@ def main(argv=None) -> int:
     inner_launches = phase_ext16()
     phase_large()
     muscl_launches = phase_order2(args.profile)
-    phase_order2_prim()
+    phase_order2_prim(args.profile)
     phase_order2_vs_cpu()
     mhd_launches = phase_mhd(1, args.profile)
     mhd_muscl_launches = phase_mhd(2, args.profile)

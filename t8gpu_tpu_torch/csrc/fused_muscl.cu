@@ -3,70 +3,61 @@
 //
 // Replaces the TPU kernel fused_muscl_pallas
 // (t8gpu_tpu/ops/pallas_kernels.py:848, body _fused_muscl_kernel :827 and
-// _tile_muscl_divergence :427) for flux "kepes".  Per element E and cell c
-// of its [EXT]^DIM block, and per axis a:
+// _tile_muscl_divergence :427).  Per element, cell i of a pencil along
+// axis a, in the +a face frame:
 //
-//   slope_i = lim(u_i - u_{i-1}, u_{i+1} - u_i)      (lim: minmod or central)
-//   u_L(i)  = guard(u_i + slope_i / 2, u_i),  u_R(i) = guard(u_i - slope_i / 2, u_i)
-//   F(i|i+1) = KEPES pair flux (kepes_pair_flux of t8gpu_tpu/ops/euler.py)
-//              from u_L(i) to u_R(i+1)
-//   D(c)   += w(c-1|c) F(c-1|c) - w(c|c+1) F(c|c+1)
-//   speed   = per-element max wave speed over the masked interfaces
+//   s_i  = lim(u_i - u_{i-1}, u_{i+1} - u_i)      (lim: minmod or central)
+//   uL_i = guard(u_i + s_i/2, u_i),  uR_i = guard(u_i - s_i/2, u_i)
+//   F(i|i+1) = the interface flux from uL_i to uR_{i+1}: KEPES
+//              (kepes_pair_flux of ops/euler.py, conserved or primitive
+//              reconstruction) or, in conserved space, hll / hllc
+//              (hll_fields_flux / hllc_fields_flux over cell_fields_tuple)
+//   D_i  = (D_i + w(i-1|i) F(i-1|i)) - w(i|i+1) F(i|i+1),  axis 0 first
+//   speed = per-element max wave speed over the masked interfaces
 //
-// At the block edge the outward difference reads the equal-level
-// neighbour's facing layer (rows 0-4 of the side slab) and is multiplied by
-// eq = (w[1+k] > 0), so walls, dead and hanging sides get a one-sided slope
-// (zero for minmod, half for central).  The neighbour's reconstruction
-// toward us is built from the same four layers it sees itself (its facing
-// and second layer, rows 5-9, and our edge layer), so both elements
-// evaluate the identical mesh-face flux and conservation is exact.  The
-// guard keeps the cell's own state where the reconstruction has rho <= 0 or
-// p <= 0 (cons: p recomputed from the reconstruction; prim: two compares).
-// In prim space every state (block and side-layer cells) becomes
-// (rho, v, p) by prim_rows, in the unrotated row order, before the axis
-// rotation.  Interior faces carry w[0]; the +a face of the last cell w[1+2a],
-// the -a face of cell 0 w[2+2a].
-//
-// Layout (element-minor, as in the JAX package): u and D are
-// [5, EXT^DIM, E]; w is [8, E]; side slab k is [10, EXT^(DIM-1), E], side
-// k = 2a + (0 for +a, 1 for -a), tangent axes in increasing order; speed is
-// [E] (float bits).
+// The walk, the block-edge masks and the mesh-face reconstructions are
+// muscl_pencil.cuh's; this file holds the Euler physics.  The guard keeps
+// the cell's own state where the reconstruction has rho <= 0 or p <= 0
+// (cons: p recomputed from the reconstruction; prim: two compares).  In
+// prim space each cell and side-layer cell becomes (rho, v, p) by
+// prim_rows once, in the unrotated row order, as it is staged.
 //
 // Bound on this card: at the flagship shape (DIM 3, EXT 8, E 4374) one
 // launch must read u (44.8 MB), six side slabs (67.2 MB) and the weights,
 // and write D (44.8 MB): ~157 MB, 47 us at 3.35 TB/s.  The necessary
-// arithmetic (one pair flux, ~220 operations with two logs, four divides, a
-// sqrt and a rsqrt, per interface, 7.6M interfaces) is ~1.7 GFLOP, 25 us at
-// the fp32 peak, so the bytes bound it.
+// arithmetic (one pair flux, ~220 operations with two logs, four divides,
+// a sqrt and a rsqrt, per interface, 7.6M interfaces; one reconstruction
+// per cell and axis) is ~1.7 GFLOP, 25 us at the fp32 peak, so the bytes
+// bound it.
 //
-// Design (the simple version that is right first): one thread per
-// (element, cell), elements fastest across threadIdx.x, so a warp's load of
-// one cell row is one coalesced 128-byte line and all threads of a warp
-// share one cell (no divergence at the block edges).  Each thread evaluates
-// its own two interfaces per axis, each from the four states around it
-// (re-read through L1/L2), so every interior interface is evaluated twice,
-// by the same code on the same inputs, and every cell's slope four times:
-// the kernel does ~2.5x the necessary arithmetic and is issue-bound, not
-// byte-bound.  Staging a tile in shared memory so each interface is
-// evaluated once is later perf work.  The ragged element edge is masked,
-// not padded.  The per-element speed max is a shared-memory max over the
-// block's cells and one atomicMax on the non-negative float's bits: max is
-// order-free, so the result is bit-reproducible; no float atomics.
+// Design: a block owns TE elements and stages their states into shared
+// memory once, converted once; one thread per pencil and axis walks
+// positions -2..EXT+1 with a window of three states in registers,
+// computing each slope and each guarded reconstruction once and each of
+// the EXT+1 interfaces once.  D lives in a shared tile between axes, each
+// cell touched by one thread per axis, and goes to device memory on the
+// last axis.  No atomics: a block owns its elements, so each one's speed
+// max is one store.  At 3D extent 8 a block holds 4 elements: 256
+// threads, 93,184 bytes of shared memory, so that two blocks share an SM;
+// 95 registers in conserved space, 90 in primitive space, no spills
+// (sm_90a, CUDA 12.8).  8 elements (one 32-byte sector per cell row) fit
+// one block per SM and ran slower, 2 and 3 elements slower still.  Every
+// instantiation's resources: t8_fused_muscl_attributes (chip_smoke.py
+// prints the timed ones).
 //
 // Built without --use_fast_math and with --fmad=false (IEEE division and
-// sqrt, no contraction): the two threads of an interface get bit-identical
-// fluxes, and the kernel follows its plain PyTorch version to a few ulp.
+// sqrt, no contraction), so the kernel can follow its plain PyTorch
+// version bit for bit.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "muscl_pencil.cuh"
+
 namespace {
 
-constexpr int TILE_E = 32;  // elements per block (threadIdx.x)
-constexpr int TILE_C = 8;   // cells per block (threadIdx.y)
-
-__host__ __device__ constexpr int ipow(int b, int n) {
-  return n == 0 ? 1 : b * ipow(b, n - 1);
-}
+enum Flux { KEPES = 0, HLL = 1, HLLC = 2 };
 
 // gamma-derived constants, rounded from double to float once on the host
 // (the JAX code combines gamma in Python doubles and rounds to f32).
@@ -80,84 +71,19 @@ struct Consts {
   float km1_over_g;   // (gamma - 1) / gamma
 };
 
-struct Sides {
-  const float* p[6];
-};
-
-// Face frame of a +A normal: normal component A, tangents the other two axes
-// in increasing order (AXIS_ROTATE / AXIS_UNROTATE of ops/euler.py).
-template <int A>
-struct Frame {
-  static constexpr int n = A;
-  static constexpr int t1 = (A == 0) ? 1 : 0;
-  static constexpr int t2 = (A == 2) ? 1 : 2;
-};
-
-// One state in the +A frame: rows (rho, m_n, m_t1, m_t2, e) in cons space,
-// (rho, v_n, v_t1, v_t2, p) in prim space.  prim_rows runs on the unrotated
-// rows, as in the JAX kernel.
-template <int A, bool PRIM>
-__device__ __forceinline__ void load_state(const float* __restrict__ base,
-                                           long long rs, long long off,
-                                           const Consts& k, float s[5]) {
-  using Fr = Frame<A>;
-  float r[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) r[i] = __ldg(base + off + i * rs);
-  if (PRIM) {
-    const float inv_rho = 1.0f / r[0];
-    const float v1 = r[1] * inv_rho, v2 = r[2] * inv_rho, v3 = r[3] * inv_rho;
-    const float p = k.km1 * (r[4] - 0.5f * ((r[1] * v1 + r[2] * v2) + r[3] * v3));
-    r[1] = v1;
-    r[2] = v2;
-    r[3] = v3;
-    r[4] = p;
-  }
-  s[0] = r[0];
-  s[1] = r[1 + Fr::n];
-  s[2] = r[1 + Fr::t1];
-  s[3] = r[1 + Fr::t2];
-  s[4] = r[4];
-}
-
-template <bool MINMOD>
-__device__ __forceinline__ float limit(float a, float b) {
-  if (MINMOD) return (a * b > 0.0f) ? copysignf(fminf(fabsf(a), fabsf(b)), a) : 0.0f;
-  return 0.5f * (a + b);
-}
-
-// rec = guard(rec, base): keep base where rec has rho <= 0 or p <= 0.
-template <bool PRIM, bool POS>
-__device__ __forceinline__ void guard(float rec[5], const float base[5],
-                                      const Consts& k) {
-  if (!POS) return;
-  bool ok;
-  if (PRIM) {
-    ok = (rec[0] > 0.0f) & (rec[4] > 0.0f);
-  } else {
-    const float s_rho = 1.0f / rec[0];
-    const float kinetic =
-        0.5f * ((rec[1] * rec[1] + rec[2] * rec[2]) + rec[3] * rec[3]) * s_rho;
-    const float p = k.km1 * (rec[4] - kinetic);
-    ok = (rec[0] > 0.0f) & (p > 0.0f);
-  }
-  if (!ok) {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) rec[i] = base[i];
-  }
-}
-
 // kepes_pair_fields / prim_pair_fields: (rho, v[3], p, rho/p, 1/rho, 1/p, ke)
 struct Pair {
   float rho, v[3], p, rhop, irho, ip, ke;
 };
 
+// inv_rho: 1 / s[0]
 template <bool PRIM>
-__device__ __forceinline__ Pair pair_fields(const float s[5], const Consts& k) {
+__device__ __forceinline__ Pair pair_fields(const float s[5], float inv_rho,
+                                            const Consts& k) {
   Pair q;
   q.rho = s[0];
   if (PRIM) {
-    q.irho = 1.0f / s[0];
+    q.irho = inv_rho;
     q.ip = 1.0f / s[4];
     q.rhop = s[0] * q.ip;
     q.v[0] = s[1];
@@ -166,7 +92,7 @@ __device__ __forceinline__ Pair pair_fields(const float s[5], const Consts& k) {
     q.ke = 0.5f * ((s[1] * s[1] + s[2] * s[2]) + s[3] * s[3]);
     q.p = s[4];
   } else {
-    q.irho = 1.0f / s[0];
+    q.irho = inv_rho;
     q.v[0] = s[1] * q.irho;
     q.v[1] = s[2] * q.irho;
     q.v[2] = s[3] * q.irho;
@@ -265,264 +191,271 @@ __device__ __forceinline__ float kepes_pair_flux(const Pair& L, const Pair& R,
   return fabsf(u_hat) + a_hat;
 }
 
-// Where one thread's cell sits: its element, its cell index with the axis
-// coordinate zeroed per axis, and the strides.
-struct Site {
-  int e;
-  long long Es;  // element count (stride of one cell)
-  long long rs;  // row stride of a block state
-  long long ls;  // row stride of a side slab
+// cell_fields_tuple(..., "hll"/"hllc") of a face-frame state:
+// (rho, v[3], p, h, c, sqrt(rho), ke).
+struct HllFields {
+  float rho, u, v, w, p, h, c, sq, ke;
 };
 
-// The state at position q in [-2, EXT+1] along axis A on the thread's line:
-// block cells 0..EXT-1, then the hi side's facing (EXT) and second (EXT+1)
-// layer, the lo side's facing (-1) and second (-2) layer.
-template <int DIM, int EXT, int A, bool PRIM>
-__device__ __forceinline__ void fetch(int q, const float* __restrict__ u,
-                                      const Sides& sides, int c0, int t,
-                                      const Site& st, const Consts& k,
-                                      float s[5]) {
-  constexpr int stride = ipow(EXT, DIM - 1 - A);  // cell stride along A
-  const long long toff = (long long)t * st.Es + st.e;
-  if (q >= 0 && q < EXT)
-    load_state<A, PRIM>(u, st.rs, (long long)(c0 + q * stride) * st.Es + st.e, k, s);
-  else if (q >= EXT)
-    load_state<A, PRIM>(sides.p[2 * A] + (q - EXT) * 5 * st.ls, st.ls, toff, k, s);
+// inv_rho: 1 / s[0]
+__device__ __forceinline__ HllFields hll_fields(const float s[5], float inv_rho,
+                                                const Consts& k) {
+  HllFields q;
+  q.rho = s[0];
+  q.u = s[1] * inv_rho;
+  q.v = s[2] * inv_rho;
+  q.w = s[3] * inv_rho;
+  q.ke = 0.5f * ((q.u * q.u + q.v * q.v) + q.w * q.w);
+  q.p = k.km1 * (s[4] - s[0] * q.ke);
+  q.h = (s[4] + q.p) * inv_rho;
+  q.c = sqrtf(k.km1 * (q.h - q.ke));
+  q.sq = sqrtf(s[0]);
+  return q;
+}
+
+// _roe_speeds: the Roe-averaged wave-speed bounds (s_l, s_r).  Here and
+// in the two fluxes min, max and clamp propagate NaN, as torch's do, so
+// that a reconstruction with p < 0 (positivity off) takes the plain
+// version's branch.
+__device__ __forceinline__ void roe_speeds(const HllFields& L, const HllFields& R,
+                                           const Consts& k, float& s_l, float& s_r) {
+  const float inv_w = 1.0f / (L.sq + R.sq);
+  const float v1 = (L.sq * L.u + R.sq * R.u) * inv_w;
+  const float v2 = (L.sq * L.v + R.sq * R.v) * inv_w;
+  const float v3 = (L.sq * L.w + R.sq * R.w) * inv_w;
+  const float h_roe = (L.sq * L.h + R.sq * R.h) * inv_w;
+  const float c_roe = sqrtf(k.km1 * (h_roe - 0.5f * ((v1 * v1 + v2 * v2) + v3 * v3)));
+  s_l = t8pencil::nan_min(v1 - c_roe, L.u - L.c);
+  s_r = t8pencil::nan_max(v1 + c_roe, R.u + R.c);
+}
+
+// hll_fields_flux: returns max(|s_l|, |s_r|).
+__device__ __forceinline__ float hll_flux(const HllFields& L, const HllFields& R,
+                                          const Consts& k, float f[5]) {
+  float s_l, s_r;
+  roe_speeds(L, R, k, s_l, s_r);
+  const float m_l = L.rho * L.u, m_r = R.rho * R.u;
+  const float e_l = L.rho * L.h - L.p, e_r = R.rho * R.h - R.p;
+  const float fl[5] = {m_l, m_l * L.u + L.p, m_l * L.v, m_l * L.w, m_l * L.h};
+  const float fr[5] = {m_r, m_r * R.u + R.p, m_r * R.v, m_r * R.w, m_r * R.h};
+  const float du[5] = {R.rho - L.rho, m_r - m_l, R.rho * R.v - L.rho * L.v,
+                       R.rho * R.w - L.rho * L.w, e_r - e_l};
+  const float slc = t8pencil::nan_min(s_l, 0.0f), src = t8pencil::nan_max(s_r, 0.0f);
+  const float ss = src * slc, den = src - slc;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) f[i] = ((src * fl[i] - slc * fr[i]) + ss * du[i]) / den;
+  return t8pencil::nan_max(fabsf(s_l), fabsf(s_r));
+}
+
+// One side of hllc_fields_flux: its flux f_k, and f_k + s_k (U*_k - U_k)
+// when `star`.
+__device__ __forceinline__ void hllc_side(const HllFields& q, float s_k, float s_m,
+                                          bool star, float f[5]) {
+  constexpr float tiny = 1e-30f;
+  const float m = q.rho * q.u;
+  const float e = q.rho * q.h - q.p;  // total energy E
+  f[0] = m;
+  f[1] = m * q.u + q.p;
+  f[2] = m * q.v;
+  f[3] = m * q.w;
+  f[4] = q.u * (e + q.p);
+  if (!star) return;
+  const float gap = s_k - s_m;
+  const float gap_s = fabsf(gap) > tiny ? gap : tiny;
+  const float ugap = s_k - q.u;
+  const float r_star = q.rho * ugap / gap_s;
+  const float ugap_s = fabsf(ugap) > tiny ? ugap : tiny;
+  const float e_star = r_star * (e / q.rho + (s_m - q.u) * (s_m + q.p / (q.rho * ugap_s)));
+  const float u_vec[5] = {q.rho, m, q.rho * q.v, q.rho * q.w, e};
+  const float u_star[5] = {r_star, r_star * s_m, r_star * q.v, r_star * q.w, e_star};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) f[i] = f[i] + s_k * (u_star[i] - u_vec[i]);
+}
+
+// hllc_fields_flux: HLL's fan plus the contact wave s_m; returns
+// max(|s_l|, |s_r|).
+__device__ __forceinline__ float hllc_flux(const HllFields& L, const HllFields& R,
+                                           const Consts& k, float f[5]) {
+  constexpr float tiny = 1e-30f;
+  float s_l, s_r;
+  roe_speeds(L, R, k, s_l, s_r);
+  const float m_l = L.rho * L.u, m_r = R.rho * R.u;
+  const float num = ((R.p - L.p) + m_l * (s_l - L.u)) - m_r * (s_r - R.u);
+  const float den = L.rho * (s_l - L.u) - R.rho * (s_r - R.u);
+  const float s_m = num / (fabsf(den) > tiny ? den : -tiny);
+  if (s_l >= 0.0f)
+    hllc_side(L, s_l, s_m, false, f);
+  else if (s_m >= 0.0f)
+    hllc_side(L, s_l, s_m, true, f);
+  else if (s_r >= 0.0f)
+    hllc_side(R, s_r, s_m, true, f);
   else
-    load_state<A, PRIM>(sides.p[2 * A + 1] + (-1 - q) * 5 * st.ls, st.ls, toff, k, s);
+    hllc_side(R, s_r, s_m, false, f);
+  return t8pencil::nan_max(fabsf(s_l), fabsf(s_r));
 }
 
-// The flux across the interface between positions p and p+1 along axis A,
-// p in [-1, EXT-1], in frame rows; returns its wave speed.
-template <int DIM, int EXT, int A, bool PRIM, bool MINMOD, bool POS>
-__device__ __forceinline__ float interface_flux(
-    int p, const float* __restrict__ u, const Sides& sides, int c0, int t,
-    const Site& st, float eq_hi, float eq_lo, const Consts& k, float f[5]) {
-  float x0[5], x1[5], x2[5], x3[5];  // positions p-1, p, p+1, p+2
-  fetch<DIM, EXT, A, PRIM>(p - 1, u, sides, c0, t, st, k, x0);
-  fetch<DIM, EXT, A, PRIM>(p, u, sides, c0, t, st, k, x1);
-  fetch<DIM, EXT, A, PRIM>(p + 1, u, sides, c0, t, st, k, x2);
-  fetch<DIM, EXT, A, PRIM>(p + 2, u, sides, c0, t, st, k, x3);
+// The Euler physics of the pencil walk (muscl_pencil.cuh).
+template <bool PRIM, bool POS, int FLUX>
+struct Euler {
+  static constexpr int R = 5;
+  using Params = Consts;
+  // a guarded reconstruction and its 1 / rho
+  struct Face {
+    float s[5];
+    float inv_rho;
+  };
 
-  float sl[5], sr[5];
-  if (p == -1) {
-    // lo neighbour's facing cell, from its second layer, facing layer and
-    // our cell 0: s = lim(l0 - l1, m - l0), lo_sub = l0 + s/2
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      sl[i] = x1[i] + 0.5f * limit<MINMOD>(x1[i] - x0[i], x2[i] - x1[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      float dl = x1[i] - x0[i];
-      if (p == 0) dl = dl * eq_lo;
-      float dh = x2[i] - x1[i];
-      if (p == EXT - 1) dh = dh * eq_hi;
-      sl[i] = x1[i] + 0.5f * limit<MINMOD>(dl, dh);
-    }
+  // prim_rows on the unrotated rows in prim space; nothing in cons space
+  __device__ static __forceinline__ void convert(float r[5], const Consts& k) {
+    if (!PRIM) return;
+    const float inv_rho = 1.0f / r[0];
+    const float v1 = r[1] * inv_rho, v2 = r[2] * inv_rho, v3 = r[3] * inv_rho;
+    const float p = k.km1 * (r[4] - 0.5f * ((r[1] * v1 + r[2] * v2) + r[3] * v3));
+    r[1] = v1;
+    r[2] = v2;
+    r[3] = v3;
+    r[4] = p;
   }
-  if (p + 1 == EXT) {
-    // hi neighbour's facing cell, from our last cell, its facing and second
-    // layer: s = lim(h0 - m, h1 - h0), hi_sub = h0 - s/2
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      sr[i] = x2[i] - 0.5f * limit<MINMOD>(x2[i] - x1[i], x3[i] - x2[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      float dl = x2[i] - x1[i];
-      if (p + 1 == 0) dl = dl * eq_lo;
-      float dh = x3[i] - x2[i];
-      if (p + 1 == EXT - 1) dh = dh * eq_hi;
-      sr[i] = x2[i] - 0.5f * limit<MINMOD>(dl, dh);
+
+  // guard(rec, base): keep base where rec has rho <= 0 or p <= 0.  In cons
+  // space the guard's 1/rho is the flux fields' 1/rho of an admissible rec
+  // (the same division), so it rides along.
+  __device__ static __forceinline__ Face face(float rec[5], const float base[5],
+                                              const Consts& k) {
+    Face q;
+    bool have_inv = false;
+    bool ok = true;
+    if (POS) {
+      if (PRIM) {
+        ok = (rec[0] > 0.0f) & (rec[4] > 0.0f);
+      } else {
+        q.inv_rho = 1.0f / rec[0];
+        const float kinetic =
+            0.5f * ((rec[1] * rec[1] + rec[2] * rec[2]) + rec[3] * rec[3]) * q.inv_rho;
+        const float p = k.km1 * (rec[4] - kinetic);
+        ok = (rec[0] > 0.0f) & (p > 0.0f);
+        have_inv = ok;
+      }
     }
-  }
-  guard<PRIM, POS>(sl, x1, k);
-  guard<PRIM, POS>(sr, x2, k);
-  return kepes_pair_flux(pair_fields<PRIM>(sl, k), pair_fields<PRIM>(sr, k), k, f);
-}
-
-// The two interfaces of the thread's cell along axis A:
-// D += w_lo F(ia-1 | ia) - w_hi F(ia | ia+1).
-template <int DIM, int EXT, int A, bool PRIM, bool MINMOD, bool POS>
-__device__ __forceinline__ void axis_update(
-    const float* __restrict__ u, const Sides& sides, const float* __restrict__ w,
-    const int idx[3], int c, const Site& st, float surface, float interior_ok,
-    const Consts& k, float D[5], float& spd) {
-  using Fr = Frame<A>;
-  constexpr int stride = ipow(EXT, DIM - 1 - A);
-  const int ia = idx[A];
-  const int c0 = c - ia * stride;
-  int t = 0;  // cell index within the side slab
 #pragma unroll
-  for (int b = 0; b < DIM; ++b)
-    if (b != A) t = t * EXT + idx[b];
-  const float w_hi = __ldg(w + (1 + 2 * A) * st.Es + st.e);
-  const float w_lo = __ldg(w + (2 + 2 * A) * st.Es + st.e);
-  const float eq_hi = w_hi > 0.0f ? 1.0f : 0.0f;
-  const float eq_lo = w_lo > 0.0f ? 1.0f : 0.0f;
+    for (int i = 0; i < 5; ++i) q.s[i] = ok ? rec[i] : base[i];
+    if (!have_inv) q.inv_rho = 1.0f / q.s[0];
+    return q;
+  }
 
-#pragma unroll 1
-  for (int h = 0; h < 2; ++h) {  // h = 0: the -A face, h = 1: the +A face
-    const int p = ia - 1 + h;
-    float f[5];
-    const float sp = interface_flux<DIM, EXT, A, PRIM, MINMOD, POS>(
-        p, u, sides, c0, t, st, eq_hi, eq_lo, k, f);
-    float wgt;
-    if (h == 0) {
-      wgt = ia == 0 ? w_lo : surface;
-      if (ia == 0) spd = fmaxf(spd, sp * eq_lo);
+  __device__ static __forceinline__ float flux(const Face& L, const Face& Rf,
+                                               float, const Consts& k, float f[5]) {
+    if constexpr (FLUX == KEPES) {
+      return kepes_pair_flux(pair_fields<PRIM>(L.s, L.inv_rho, k),
+                             pair_fields<PRIM>(Rf.s, Rf.inv_rho, k), k, f);
     } else {
-      wgt = ia == EXT - 1 ? w_hi : surface;
-      spd = fmaxf(spd, sp * (ia == EXT - 1 ? eq_hi : interior_ok));
-    }
-    // frame rows back to x, y, z rows, weighted
-    float fw[5];
-    fw[0] = f[0] * wgt;
-    fw[1 + Fr::n] = f[1] * wgt;
-    fw[1 + Fr::t1] = f[2] * wgt;
-    fw[1 + Fr::t2] = f[3] * wgt;
-    fw[4] = f[4] * wgt;
-    if (h == 0) {
-#pragma unroll
-      for (int r = 0; r < 5; ++r) D[r] = D[r] + fw[r];
-    } else {
-#pragma unroll
-      for (int r = 0; r < 5; ++r) D[r] = D[r] - fw[r];
+      const HllFields a = hll_fields(L.s, L.inv_rho, k), b = hll_fields(Rf.s, Rf.inv_rho, k);
+      return FLUX == HLL ? hll_flux(a, b, k, f) : hllc_flux(a, b, k, f);
     }
   }
-}
-
-template <int DIM, int EXT, bool PRIM, bool MINMOD, bool POS>
-__global__ void __launch_bounds__(TILE_E* TILE_C)
-    fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ w,
-                       Sides sides, float* __restrict__ D_out,
-                       unsigned int* __restrict__ speed, int E, Consts k) {
-  constexpr int B = ipow(EXT, DIM);
-  constexpr int T = B / EXT;
-  static_assert(B % TILE_C == 0, "cells per block must divide the block");
-  __shared__ float red[TILE_C][TILE_E];
-
-  const int e = blockIdx.x * TILE_E + threadIdx.x;
-  const int c = blockIdx.y * TILE_C + threadIdx.y;
-  const bool live = e < E;
-  float spd = 0.0f;
-  if (live) {
-    Site st;
-    st.e = e;
-    st.Es = E;
-    st.rs = (long long)B * st.Es;
-    st.ls = (long long)T * st.Es;
-    int idx[3] = {0, 0, 0};
-    int rem = c;
-#pragma unroll
-    for (int a = DIM - 1; a >= 0; --a) {
-      idx[a] = rem % EXT;
-      rem /= EXT;
-    }
-    const float surface = __ldg(w + e);
-    const float interior_ok = surface > 0.0f ? 1.0f : 0.0f;
-    float D[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    axis_update<DIM, EXT, 0, PRIM, MINMOD, POS>(u, sides, w, idx, c, st,
-                                                 surface, interior_ok, k, D, spd);
-    axis_update<DIM, EXT, 1, PRIM, MINMOD, POS>(u, sides, w, idx, c, st,
-                                                 surface, interior_ok, k, D, spd);
-    if constexpr (DIM == 3)
-      axis_update<DIM, EXT, 2, PRIM, MINMOD, POS>(u, sides, w, idx, c, st,
-                                                   surface, interior_ok, k, D, spd);
-    const long long off = (long long)c * st.Es + e;
-#pragma unroll
-    for (int r = 0; r < 5; ++r) D_out[r * st.rs + off] = D[r];
-  }
-
-  red[threadIdx.y][threadIdx.x] = spd;
-  __syncthreads();
-  if (threadIdx.y == 0 && live) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int j = 1; j < TILE_C; ++j) m = fmaxf(m, red[j][threadIdx.x]);
-    m = m > 0.0f ? m : 0.0f;  // +0 for zero and NaN: the bits order as floats
-    atomicMax(speed + e, __float_as_uint(m));
-  }
-}
-
-struct Launch {
-  dim3 grid, block;
-  cudaStream_t stream;
-  const float* u;
-  const float* w;
-  Sides sides;
-  float* D;
-  unsigned int* speed;
-  int E;
-  Consts k;
 };
 
-template <int DIM, int EXT, bool PRIM, bool MINMOD, bool POS>
-void launch(const Launch& l) {
-  fused_muscl_kernel<DIM, EXT, PRIM, MINMOD, POS>
-      <<<l.grid, l.block, 0, l.stream>>>(l.u, l.w, l.sides, l.D, l.speed, l.E, l.k);
+// Elements per block: one pencil slot per tangent index, 256 threads.
+__host__ __device__ constexpr int tile_elements(int dim, int ext) {
+  return dim == 3 ? (ext == 8 ? 4 : 16) : (ext == 8 ? 32 : 64);
 }
 
-template <int DIM, int EXT>
-void dispatch(bool prim, bool minmod, bool pos, const Launch& l) {
-  if (prim) {
-    if (minmod)
-      pos ? launch<DIM, EXT, true, true, true>(l) : launch<DIM, EXT, true, true, false>(l);
-    else
-      pos ? launch<DIM, EXT, true, false, true>(l) : launch<DIM, EXT, true, false, false>(l);
-  } else {
-    if (minmod)
-      pos ? launch<DIM, EXT, false, true, true>(l) : launch<DIM, EXT, false, true, false>(l);
-    else
-      pos ? launch<DIM, EXT, false, false, true>(l) : launch<DIM, EXT, false, false, false>(l);
+// Call fn.template run<Physics, DIM, EXT, Block, MINMOD>() for the
+// instantiation of the case; cudaErrorInvalidValue for a case none takes.
+template <class Fn>
+int with_case(int dim, int ext, int flux, bool prim, bool minmod, bool pos, const Fn& fn) {
+  auto by_shape = [&](auto physics) -> int {
+    using P = decltype(physics);
+    auto by_lim = [&](auto d, auto x) -> int {
+      constexpr int D = decltype(d)::value, X = decltype(x)::value;
+      using Blk = t8pencil::Block<tile_elements(D, X), 1, 1>;
+      return minmod ? fn.template run<P, D, X, Blk, true>()
+                    : fn.template run<P, D, X, Blk, false>();
+    };
+    using I3 = std::integral_constant<int, 3>;
+    using I2 = std::integral_constant<int, 2>;
+    using I8 = std::integral_constant<int, 8>;
+    using I4 = std::integral_constant<int, 4>;
+    if (dim == 3 && ext == 8) return by_lim(I3{}, I8{});
+    if (dim == 3 && ext == 4) return by_lim(I3{}, I4{});
+    if (dim == 2 && ext == 8) return by_lim(I2{}, I8{});
+    if (dim == 2 && ext == 4) return by_lim(I2{}, I4{});
+    return (int)cudaErrorInvalidValue;
+  };
+  if (flux == KEPES) {
+    if (prim)
+      return pos ? by_shape(Euler<true, true, KEPES>{}) : by_shape(Euler<true, false, KEPES>{});
+    return pos ? by_shape(Euler<false, true, KEPES>{}) : by_shape(Euler<false, false, KEPES>{});
   }
+  if (prim) return (int)cudaErrorInvalidValue;  // hll/hllc: conserved space only
+  if (flux == HLL)
+    return pos ? by_shape(Euler<false, true, HLL>{}) : by_shape(Euler<false, false, HLL>{});
+  if (flux == HLLC)
+    return pos ? by_shape(Euler<false, true, HLLC>{}) : by_shape(Euler<false, false, HLLC>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Launcher {
+  int device;
+  const t8pencil::Args& g;
+  const Consts& k;
+  cudaStream_t stream;
+  template <class P, int DIM, int EXT, class Blk, bool MINMOD>
+  int run() const {
+    return t8pencil::launch<P, DIM, EXT, Blk, MINMOD>(device, g, k, stream);
+  }
+};
+
+struct Attributes {
+  int* out;
+  template <class P, int DIM, int EXT, class Blk, bool MINMOD>
+  int run() const {
+    return t8pencil::attributes<P, DIM, EXT, Blk, MINMOD>(out);
+  }
+};
+
+Consts make_consts(double gamma) {
+  return {(float)gamma,
+          (float)(gamma - 1.0),
+          (float)(gamma * 0.5),
+          (float)(gamma / (2.0 * (gamma - 1.0))),
+          (float)(1.0 / (gamma - 1.0)),
+          (float)(0.5 / gamma),
+          (float)((gamma - 1.0) / gamma)};
 }
 
 }  // namespace
 
-// Launch one MUSCL divergence on `stream`.  speed must be zero-filled [E]
-// (uint32 bits of the float max).  prim / minmod / positivity are 0 or 1.
-// Returns the cudaError_t of the launch (0 on success); never synchronizes.
-extern "C" int t8_fused_muscl(int device, int dim, int ext, int E, int prim,
-                              int minmod, int positivity, const float* u,
-                              const float* w, const float* o0, const float* o1,
-                              const float* o2, const float* o3,
-                              const float* o4, const float* o5, float* D,
-                              unsigned int* speed, double gamma, void* stream) {
+// Launch one MUSCL divergence on `stream`; speed [E] receives the uint32
+// bits of each element's float max.  flux is 0 kepes, 1 hll, 2 hllc (hll and
+// hllc with prim 0 only); prim / minmod / positivity are 0 or 1.  Returns
+// the cudaError_t of the launch (0 on success); never synchronizes.
+extern "C" int t8_fused_muscl(int device, int dim, int ext, int E, int flux,
+                              int prim, int minmod, int positivity,
+                              const float* u, const float* w, const float* o0,
+                              const float* o1, const float* o2,
+                              const float* o3, const float* o4,
+                              const float* o5, float* D, unsigned int* speed,
+                              double gamma, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return (int)cudaErrorInvalidValue;
-  const int B = ext == 8 ? (dim == 3 ? 512 : 64) : (dim == 3 ? 64 : 16);
-  Launch l;
-  l.block = dim3(TILE_E, TILE_C);
-  l.grid = dim3((E + TILE_E - 1) / TILE_E, B / TILE_C);
-  l.stream = static_cast<cudaStream_t>(stream);
-  l.u = u;
-  l.w = w;
-  l.sides = {{o0, o1, o2, o3, o4, o5}};
-  l.D = D;
-  l.speed = speed;
-  l.E = E;
-  l.k = {(float)gamma,
-         (float)(gamma - 1.0),
-         (float)(gamma * 0.5),
-         (float)(gamma / (2.0 * (gamma - 1.0))),
-         (float)(1.0 / (gamma - 1.0)),
-         (float)(0.5 / gamma),
-         (float)((gamma - 1.0) / gamma)};
-  const bool pr = prim != 0, mm = minmod != 0, pos = positivity != 0;
-  if (dim == 3 && ext == 8)
-    dispatch<3, 8>(pr, mm, pos, l);
-  else if (dim == 3 && ext == 4)
-    dispatch<3, 4>(pr, mm, pos, l);
-  else if (dim == 2 && ext == 8)
-    dispatch<2, 8>(pr, mm, pos, l);
-  else if (dim == 2 && ext == 4)
-    dispatch<2, 4>(pr, mm, pos, l);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const t8pencil::Args g{u, w, {o0, o1, o2, o3, o4, o5}, D, speed, E};
+  const Consts k = make_consts(gamma);
+  return with_case(dim, ext, flux, prim != 0, minmod != 0, positivity != 0,
+                   Launcher{device, g, k, static_cast<cudaStream_t>(stream)});
+}
+
+// Registers, spilled (local) bytes per thread, threads per block and
+// shared memory per block of the case's kernel, into out[0..3].  Returns
+// a cudaError_t.
+extern "C" int t8_fused_muscl_attributes(int device, int dim, int ext, int flux,
+                                         int prim, int minmod, int positivity,
+                                         int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return with_case(dim, ext, flux, prim != 0, minmod != 0, positivity != 0,
+                   Attributes{out});
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

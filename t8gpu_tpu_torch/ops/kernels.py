@@ -19,10 +19,11 @@ fused_muscl — replaces fused_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:848): the order-2 MUSCL flux divergence
 of the interior and equal-level mesh faces (per-axis minmod or unlimited
 slopes, positivity guard, conserved or primitive reconstruction, KEPES
-pair flux) and the per-element max wave speed.  Bound on an H100: the
-bytes it must move, ~157 MB at the flagship shape (47 us at 3.35 TB/s).
-The kernel is the simple one-thread-per-cell design that evaluates every
-interface twice (csrc/fused_muscl.cu).
+pair flux, or hll/hllc in conserved space) and the per-element max wave
+speed.  Bound on an H100: the bytes it must move, ~157 MB at the flagship
+shape (47 us at 3.35 TB/s).  The kernel stages a tile of elements in
+shared memory and walks each pencil once per axis, so that every
+interface is evaluated once (csrc/muscl_pencil.cuh, csrc/fused_muscl.cu).
 
 fused_mhd_flux — replaces fused_mhd_flux_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:365): the first-order GLM-MHD flux
@@ -57,8 +58,9 @@ fused_mhd_muscl — replaces fused_mhd_muscl_pallas
 the interior and equal-level faces (per-axis minmod or unlimited slopes,
 the thermal-pressure positivity guard, the same Rusanov/GLM flux).  Bound:
 the bytes, ~154 MB at the Orszag-Tang shape (46 us;
-csrc/fused_mhd_muscl.cu).  Both are the one-thread-per-cell design of the
-Euler kernels.
+csrc/fused_mhd_muscl.cu): the pencil walk of fused_muscl on 9 rows.  The
+first-order MHD kernel is the one-thread-per-cell design of the Euler
+stage kernels.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ KERNEL_EXTENTS = (4, 8)
 INNER_EXTENTS = (2, 4, 8, 16)     # the inner-only kernel's block extents
 MUSCL_LIMITERS = ("minmod", "none")
 MUSCL_SPACES = ("cons", "prim")
+MUSCL_CUDA_FLUXES = ("kepes", "hll", "hllc")   # hll/hllc: "cons" only
 
 
 def _stage_tensors(u_stage, u_prev, weights, others) -> list:
@@ -161,12 +164,13 @@ def _check_f32_contiguous(tensors, what: str):
             raise ValueError(f"the {what} kernel takes contiguous tensors")
 
 
-def _check_cuda_tensors(tensors, flux: str, what: str):
-    """Raise ValueError on what an Euler CUDA kernel does not take: another
-    flux than kepes, another dtype than float32, strided tensors."""
-    if flux != "kepes":
-        raise ValueError(f"the {what} kernel computes the kepes flux, not "
-                         f"{flux!r}")
+def _check_cuda_tensors(tensors, flux: str, what: str, fluxes=("kepes",)):
+    """Raise ValueError on what an Euler CUDA kernel does not take: a flux
+    outside `fluxes` (kepes alone, but for the MUSCL kernel), another dtype
+    than float32, strided tensors."""
+    if flux not in fluxes:
+        raise ValueError(f"the {what} kernel computes the "
+                         f"{'/'.join(fluxes)} flux, not {flux!r}")
     _check_f32_contiguous(tensors, what)
 
 
@@ -203,10 +207,13 @@ def _side_pointers(others) -> list:
     return [o.data_ptr() for o in others] + [None] * (6 - len(others))
 
 
-def _speed_bits(E: int, dev) -> torch.Tensor:
-    """Zero-filled [E] buffer for a kernel's per-element speed max, which
-    it takes by atomicMax on the bits of non-negative floats."""
-    return torch.zeros(E, dtype=torch.int32, device=dev)
+def _speed_bits(E: int, dev, zero: bool = True) -> torch.Tensor:
+    """[E] buffer for a kernel's per-element speed max: zero-filled for the
+    kernels that take it by atomicMax on the bits of non-negative floats,
+    uninitialised (zero=False) for the MUSCL kernels, whose blocks own
+    their elements and store each max once."""
+    make = torch.zeros if zero else torch.empty
+    return make(E, dtype=torch.int32, device=dev)
 
 
 def _launch(lib, entry: str, dev, args, what: str):
@@ -743,15 +750,16 @@ def fused_muscl(u: torch.Tensor, weights: torch.Tensor, others, gamma: float,
                                      positivity=positivity, space=space)
     if dev.type != "cuda":
         raise ValueError(f"no MUSCL kernel for device {dev}")
-    _check_cuda_tensors([u, weights, *others], flux, "MUSCL")
+    _check_cuda_tensors([u, weights, *others], flux, "MUSCL",
+                        MUSCL_CUDA_FLUXES)
 
     D = torch.empty_like(u)
-    speed = _speed_bits(E, dev)
+    speed = _speed_bits(E, dev, zero=False)
     _launch(_muscl_library(), "t8_fused_muscl", dev,
-            [dim, ext, E, int(space == "prim"), int(limiter == "minmod"),
-             int(bool(positivity)), u.data_ptr(), weights.data_ptr(),
-             *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
-             float(gamma)], "fused_muscl")
+            [dim, ext, E, MUSCL_CUDA_FLUXES.index(flux), int(space == "prim"),
+             int(limiter == "minmod"), int(bool(positivity)), u.data_ptr(),
+             weights.data_ptr(), *_side_pointers(others), D.data_ptr(),
+             speed.data_ptr(), float(gamma)], "fused_muscl")
     fused_muscl.launches += 1
     return D, speed.view(torch.float32)
 
@@ -760,12 +768,39 @@ fused_muscl.launches = 0
 
 
 def _muscl_library() -> ctypes.CDLL:
-    """The MUSCL kernel's library: device, dim, ext, E, prim, minmod,
-    positivity as int; every pointer and the stream as c_void_p; gamma
-    double."""
+    """The MUSCL kernel's library: device, dim, ext, E, flux (the index in
+    MUSCL_CUDA_FLUXES), prim, minmod, positivity as int; every pointer and
+    the stream as c_void_p; gamma double."""
     return _library("fused_muscl", "t8_fused_muscl",
-                    [ctypes.c_int] * 7 + [ctypes.c_void_p] * 10
+                    [ctypes.c_int] * 8 + [ctypes.c_void_p] * 10
                     + [ctypes.c_double, ctypes.c_void_p])
+
+
+def _attributes(lib, entry: str, device: int, case) -> dict:
+    """Registers, spilled bytes per thread, threads and shared memory per
+    block of the kernel instantiation that `case` (the int arguments after
+    the device) selects."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * (1 + len(case))
+                       + [ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _raise_on_error(lib, fn(device, *case, out), entry)
+    return dict(zip(("registers", "spill_bytes", "threads", "smem_bytes"),
+                    out))
+
+
+def fused_muscl_attributes(dim: int, ext: int, flux: str = "kepes",
+                           space: str = "cons", limiter: str = "minmod",
+                           positivity: bool = True, device: int = 0) -> dict:
+    """The resources of the MUSCL kernel of one case on a card (builds the
+    library): registers and spilled bytes per thread, threads and shared
+    memory (bytes) per block."""
+    return _attributes(_muscl_library(), "t8_fused_muscl_attributes", device,
+                       [dim, ext, MUSCL_CUDA_FLUXES.index(flux),
+                        int(space == "prim"), int(limiter == "minmod"),
+                        int(bool(positivity))])
 
 
 def _minmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -944,7 +979,7 @@ def fused_mhd_muscl(u: torch.Tensor, weights: torch.Tensor, others,
     _check_f32_contiguous([u, weights, *others], "MHD MUSCL")
 
     D = torch.empty_like(u)
-    speed = _speed_bits(E, dev)
+    speed = _speed_bits(E, dev, zero=False)
     _launch(_mhd_muscl_library(), "t8_fused_mhd_muscl", dev,
             [dim, ext, E, int(limiter == "minmod"), int(bool(positivity)),
              u.data_ptr(), weights.data_ptr(), *_side_pointers(others),
@@ -964,6 +999,16 @@ def _mhd_muscl_library() -> ctypes.CDLL:
     return _library("fused_mhd_muscl", "t8_fused_mhd_muscl",
                     [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
                     + [ctypes.c_double, ctypes.c_void_p])
+
+
+def fused_mhd_muscl_attributes(dim: int, ext: int, limiter: str = "minmod",
+                               positivity: bool = True,
+                               device: int = 0) -> dict:
+    """The resources of the MHD MUSCL kernel of one case on a card, as
+    fused_muscl_attributes."""
+    return _attributes(_mhd_muscl_library(), "t8_fused_mhd_muscl_attributes",
+                       device, [dim, ext, int(limiter == "minmod"),
+                                int(bool(positivity))])
 
 
 def fused_mhd_muscl_reference(u: torch.Tensor, weights: torch.Tensor, others,

@@ -8,7 +8,9 @@ jax nor the JAX package, so it also runs on a GPU machine without JAX:
 The CUDA stage (state and log-row inputs), field-input (divergence and
 stage), inner-only, MUSCL and GLM-MHD kernels against their plain PyTorch
 versions on the same card (rtol 2e-5, atol 2e-6, as tests/test_pallas.py)
-and bit-identical on repeat, each in every template case; the Euler solver
+and bit-identical on repeat, each in every template case; the two MUSCL
+kernels on the real side slabs of a periodic mesh (mesh-face
+conservation); the Euler solver
 (order 1 in each stage-input mode and at extents 2 and 16, order 2) and
 the GLM-MHD solver (order 1 and 2) stepped on the card against the same
 solver on the CPU; flux_divergence's kernel dispatches.
@@ -21,7 +23,7 @@ import torch
 from t8gpu_tpu_torch.mesh.forest import Forest
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
-from t8gpu_tpu_torch.models.mhd import orszag_tang
+from t8gpu_tpu_torch.models.mhd import mhd_state, orszag_tang
 from t8gpu_tpu_torch.models.subgrid_euler import SubgridCompressibleEulerSolver
 from t8gpu_tpu_torch.models.subgrid_mhd import SubgridMHDSolver
 from t8gpu_tpu_torch.ops import subgrid as tsg
@@ -120,18 +122,20 @@ def test_cuda_solver_matches_cpu(cuda, dim, level, ext, periodic):
 @pytest.mark.cuda
 @pytest.mark.parametrize("positivity", [True, False])
 @pytest.mark.parametrize("limiter", ["minmod", "none"])
-@pytest.mark.parametrize("space", ["cons", "prim"])
+@pytest.mark.parametrize("space,flux", [("cons", "kepes"), ("prim", "kepes"),
+                                        ("cons", "hll"), ("cons", "hllc")])
 @pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
-def test_cuda_muscl_matches_reference(cuda, dim, ext, space, limiter,
+def test_cuda_muscl_matches_reference(cuda, dim, ext, space, flux, limiter,
                                       positivity):
-    """Every template case of the MUSCL kernel; rho and p in [0.02, 2] so
-    that the unlimited reconstructions trip the positivity guard."""
+    """Every template case of the MUSCL kernel (hll and hllc in conserved
+    space); rho and p in [0.02, 2] so that the unlimited reconstructions
+    trip the positivity guard."""
     E, n_guard = 1000, 37                        # E not a multiple of 32
     u, w, others = muscl_inputs(dim + ext, dim, ext, E, n_guard,
                                 lo=0.02 if positivity else 0.5, hi=2.0)
     u, w = (torch.from_numpy(a).to(cuda) for a in (u, w))
     others = [torch.from_numpy(o).to(cuda) for o in others]
-    kw = dict(gamma=GAMMA, flux="kepes", limiter=limiter,
+    kw = dict(gamma=GAMMA, flux=flux, limiter=limiter,
               positivity=positivity, space=space)
     before = fused_muscl.launches
     kd, ksp = fused_muscl(u, w, others, **kw)
@@ -159,7 +163,7 @@ def test_cuda_muscl_rejects_unsupported(cuda):
     u, w = (torch.from_numpy(a).to(cuda) for a in (u, w))
     others = [torch.from_numpy(o).to(cuda) for o in others]
     with pytest.raises(ValueError, match="kepes"):
-        fused_muscl(u, w, others, gamma=GAMMA, flux="hll")
+        fused_muscl(u, w, others, gamma=GAMMA, flux="hll", space="prim")
     with pytest.raises(ValueError, match="float32"):
         fused_muscl(u.double(), w.double(), [o.double() for o in others],
                     gamma=GAMMA, flux="kepes")
@@ -168,14 +172,16 @@ def test_cuda_muscl_rejects_unsupported(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,level,ext,periodic,limiter",
-                         [(3, 2, 8, True, "bj"), (2, 3, 4, False, "bj-prim")])
+@pytest.mark.parametrize("dim,level,ext,periodic,limiter,flux",
+                         [(3, 2, 8, True, "bj", "kepes"),
+                          (2, 3, 4, False, "bj-prim", "kepes"),
+                          (3, 1, 4, False, "bj", "hllc")])
 def test_cuda_order2_solver_matches_cpu(cuda, dim, level, ext, periodic,
-                                        limiter):
+                                        limiter, flux):
     mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
                                                   periodic=periodic),
                                    SubgridSpec((ext,) * dim))
-    config = EulerConfig(order=2, limiter=limiter)
+    config = EulerConfig(order=2, limiter=limiter, flux=flux)
     gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 6), config=config)
     cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 6), config=config,
                                          device="cpu")
@@ -193,12 +199,74 @@ def test_cuda_order2_solver_matches_cpu(cuda, dim, level, ext, periodic,
 
 @pytest.mark.cuda
 def test_cuda_order2_hll_raises(cuda):
+    """hll reconstructs in conserved space only: "bj-prim" raises."""
     mesh = SubgridMesh.from_forest(Forest.uniform(1, dim=3),
                                    SubgridSpec((4, 4, 4)))
     s = SubgridCompressibleEulerSolver(
-        mesh, noisy_kh(3, 7), config=EulerConfig(order=2, flux="hll"))
+        mesh, noisy_kh(3, 7),
+        config=EulerConfig(order=2, flux="hll", limiter="bj-prim"))
     with pytest.raises(ValueError, match="kepes"):
         s.iterate(1e-4)
+
+
+def _smooth_ic(dim, seed, mhd):
+    """A smooth periodic state: each primitive a seeded sum of one sine
+    wave per axis."""
+    def ic(centers):
+        x = np.asarray(centers, np.float64)
+        ph = np.random.default_rng(seed).uniform(0.0, 2 * np.pi, (9, dim))
+        wave = [sum(np.sin(2 * np.pi * x[:, d] + ph[j, d])
+                    for d in range(dim)) / dim for j in range(9)]
+        rho, p = 1.0 + 0.2 * wave[0], 1.0 + 0.2 * wave[1]
+        v = [0.3 * wave[2 + d] for d in range(3)]
+        if mhd:
+            return mhd_state(rho, v, p, [0.3 * wave[5 + d] for d in range(3)],
+                             psi=0.05 * wave[8], gamma=MHD_GAMMA)
+        e = p / (GAMMA - 1.0) + 0.5 * rho * sum(c * c for c in v)
+        return np.stack([rho, rho * v[0], rho * v[1], rho * v[2],
+                         e]).astype(np.float32)
+    return ic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,flux,space",
+                         [("euler", "kepes", "cons"), ("euler", "kepes", "prim"),
+                          ("euler", "hllc", "cons"), ("mhd", None, None)])
+@pytest.mark.parametrize("ext", [4, 8])
+def test_cuda_muscl_conserves_mesh_faces(cuda, ext, kernel, flux, space):
+    """A periodic Forest.uniform(2) in 3D with the real side slabs
+    (muscl_side_slabs) of a smooth seeded state: both elements of every
+    mesh face evaluate the same flux, so the sum of D over all cells (each
+    of the same volume) vanishes per row to float32 round-off; and D is
+    the plain version's within tolerance."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=3, periodic=True),
+                                   SubgridSpec((ext,) * 3))
+    mhd = kernel == "mhd"
+    ic = _smooth_ic(3, 11 + ext, mhd)
+    s = (SubgridMHDSolver(mesh, ic, order=2) if mhd
+         else SubgridCompressibleEulerSolver(mesh, ic))
+    w = tsg.muscl_weights(s.conn, s.spec, s.volumes)
+    others = tsg.muscl_side_slabs(s.u, s.conn, s.spec)
+    if mhd:
+        w[7] = 2.0                                # the cleaning speed c_h
+        kw = dict(gamma=MHD_GAMMA)
+        fn, ref = fused_mhd_muscl, fused_mhd_muscl_reference
+    else:
+        kw = dict(gamma=GAMMA, flux=flux, space=space)
+        fn, ref = fused_muscl, fused_muscl_reference
+    before = fn.launches
+    kd, ksp = fn(s.u, w, others, **kw)
+    assert fn.launches == before + 1
+    rd, rsp = ref(s.u, w, others, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kd).all())
+    d = kd.double().reshape(kd.shape[0], -1)
+    total, scale = d.sum(dim=1).abs(), d.abs().sum(dim=1)
+    assert bool((total <= 1e-6 * scale).all()), (total, scale)
+    np.testing.assert_allclose(kd.cpu().numpy(), rd.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ksp.cpu().numpy(), rsp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
 
 
 def _bits_equal(a, b):

@@ -223,6 +223,9 @@ def test_wrapper_rejects_unsupported_inputs():
     check([ut, wt, *ot], "kepes", "MUSCL")
     with pytest.raises(ValueError, match="kepes"):
         check([ut, wt, *ot], "hll", "MUSCL")
+    check([ut, wt, *ot], "hllc", "MUSCL", kernels.MUSCL_CUDA_FLUXES)
+    with pytest.raises(ValueError, match="hllc flux, not 'roe'"):
+        check([ut, wt, *ot], "roe", "MUSCL", kernels.MUSCL_CUDA_FLUXES)
     with pytest.raises(ValueError, match="float32"):
         check([ut.double()], "kepes", "MUSCL")
     with pytest.raises(ValueError, match="contiguous"):
@@ -240,11 +243,51 @@ def test_muscl_library_declares_c_signature(monkeypatch):
     fake = types.SimpleNamespace(t8_fused_muscl=fn(), t8_cuda_error_string=fn())
     monkeypatch.setattr(_build, "load", lambda name: fake)
     args = kernels._muscl_library().t8_fused_muscl.argtypes
-    assert args[:7] == [ctypes.c_int] * 7     # device dim ext E prim minmod pos
-    assert args[7:17] == [ctypes.c_void_p] * 10   # u, w, 6 sides, D, speed
-    assert args[17] is ctypes.c_double and args[18] is ctypes.c_void_p
-    assert len(args) == 19
+    # device dim ext E flux prim minmod pos
+    assert args[:8] == [ctypes.c_int] * 8
+    assert args[8:18] == [ctypes.c_void_p] * 10   # u, w, 6 sides, D, speed
+    assert args[18] is ctypes.c_double and args[19] is ctypes.c_void_p
+    assert len(args) == 20
     assert "fused_muscl" in _build.SOURCES
+
+
+class _FakeAttributes:
+    """A C attributes entry point: records its arguments and fills out."""
+    argtypes = restype = None
+
+    def __call__(self, *args):
+        self.args = args
+        args[-1][:] = [96, 0, 512, 186368]
+        return 0
+
+
+@pytest.mark.parametrize("mhd", [False, True], ids=["euler", "mhd"])
+def test_muscl_attributes_declare_c_signature(monkeypatch, mhd):
+    """The attributes entry points take the device and the case as int and
+    an int[4] out; the wrapper names the four numbers."""
+    import ctypes
+
+    from t8gpu_tpu_torch.ops import _build
+
+    def fn():
+        return types.SimpleNamespace(argtypes=None, restype=ctypes.c_int)
+    entry = _FakeAttributes()
+    fake = types.SimpleNamespace(t8_fused_muscl=fn(), t8_fused_mhd_muscl=fn(),
+                                 t8_cuda_error_string=fn(),
+                                 t8_fused_muscl_attributes=entry,
+                                 t8_fused_mhd_muscl_attributes=entry)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    if mhd:
+        got = kernels.fused_mhd_muscl_attributes(2, 8, limiter="none")
+        case = (0, 2, 8, 0, 1)                   # device dim ext minmod pos
+    else:
+        got = kernels.fused_muscl_attributes(3, 8, flux="hllc")
+        case = (0, 3, 8, 2, 0, 1, 1)     # device dim ext flux prim minmod pos
+    assert got == dict(registers=96, spill_bytes=0, threads=512,
+                       smem_bytes=186368)
+    assert entry.args[:-1] == case
+    assert entry.argtypes == ([ctypes.c_int] * len(case)
+                              + [ctypes.POINTER(ctypes.c_int)])
 
 
 # -- (c) the divergence against the JAX package's XLA path -------------------
