@@ -17,7 +17,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
   kernel           each kernel against its plain PyTorch version on the card
                    (rtol 2e-5, atol 2e-6, and bit-identical on repeat), its
                    time, the plain version's time and the card's bound:
-                   the RK-stage kernel, then the MUSCL kernel (every
+                   the RK-stage kernel (kepes, hll and hllc, one line each,
+                   with the registers, spills and shared memory per block
+                   and a time at a count of whole waves of blocks), then
+                   the MUSCL kernel (every
                    case: kepes in cons and prim, hll and hllc in cons; its
                    time in cons, prim and hll, and the registers, threads
                    and shared memory per block), then the two
@@ -29,7 +32,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    input, the field-input divergence and stage kernels
                    (at the stage kernel's shapes) and the inner-only
                    kernel (Subgrid<16,16,16> with 512 live elements, and
-                   2D extent 16, 3D extents 2 and 4)
+                   2D extent 16, 3D extents 2 and 4; its resources and a
+                   whole-wave time)
   flagship         the main path: 3D KH, Forest.uniform(4), Subgrid<8,8,8>
                    (4096 elements, 2.1M cells), KEPES, SSP-RK3, stepped by
                    SubgridCompressibleEulerSolver.iterate_many on the card;
@@ -55,6 +59,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    flux_divergence(use_kernel=True) there, one inner-only
                    kernel launch per call, against use_kernel=False
   large            the same at Forest.uniform(5): 32768 elements, 16.8M cells
+  hll, hllc        the flagship at order 1 with EulerConfig(flux="hll" /
+                   "hllc"): every stage one stage-kernel launch; ms/step (slope
+                   of 5 and 25 steps), mass drift, launches (3 per step, no
+                   other kernel), and one step on the card against the CPU
   order2           the order-2 path: the flagship with EulerConfig(order=2)
                    (MUSCL, minmod, conserved space), every RK stage one
                    launch of the MUSCL kernel; ms/step, mass drift, launches
@@ -69,8 +77,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    none of the others), mass drift, max |div B|
   mhd_order2       the same at order 2 (minmod): 3 fused_mhd_muscl per step
   mhd_vs_cpu       one step on the card and one on the CPU, order 1 and 2
-Then one JSON line with the seven kernels (the stage kernel's log input
-as a variant of its row) and, last, the device line
+Then one JSON line with the seven kernels (the stage kernel's log input,
+hll and hllc as variants of its row) and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -115,7 +123,15 @@ FIELD_OPS, FLUX_OPS, FACE_OPS, UPDATE_OPS = 22, 198, 17, 26
 RECON_OPS, PAIR_OPS, PRIM_OPS = 65, 24, 12
 # hll in conserved space: cell_fields_tuple ("hll", 21 per side),
 # _roe_speeds 33 and hll_fields_flux 57 per interface.
-HLL_OPS = 132
+HLL_FIELD_OPS = 21
+HLL_OPS = 2 * HLL_FIELD_OPS + 33 + 57
+# the stage kernel's interface flux on cell fields, by flux: kepes as
+# above; hll _roe_speeds and hll_fields_flux; hllc _roe_speeds 33, the
+# contact speed 22, 45 per side's flux and star state, 18 selects and
+# the speed 3
+STAGE_FLUX_OPS = {"kepes": FLUX_OPS, "hll": 33 + 57, "hllc": 166}
+STAGE_FIELD_OPS = {"kepes": FIELD_OPS, "hll": HLL_FIELD_OPS,
+                   "hllc": HLL_FIELD_OPS}
 # the MUSCL kernel's cases: (space, flux); hll and hllc in conserved space
 MUSCL_CASES = (("cons", "kepes"), ("prim", "kepes"), ("cons", "hll"),
                ("cons", "hllc"))
@@ -147,6 +163,14 @@ INNER_FLUX_OPS, INNER_FACE_OPS = 295, 16
 # Sizes of the phases: the kernel shapes (dim, ext, E, live elements), the
 # flagship's and the large case's forest levels, the Orszag-Tang level.
 KERNEL_SHAPES = ((3, 8, 4374, 4096), (3, 4, 4374, 4096), (2, 8, 4374, 4096))
+# the stage kernel's fluxes
+STAGE_FLUXES = ("kepes", "hll", "hllc")
+# element counts that fill whole waves of blocks on an H100 (132 SMs): the
+# stage kernel's at 3D extent 8 (two blocks per SM, each 16 elements'
+# slab of 2 of their 8 planes: 1056 elements a wave, x 4 waves) and the
+# inner-only kernel's at 3D extent 16 (one block per SM, each 8 elements'
+# slab of 2 of their 16 planes: 132 elements a wave, x 4 waves)
+STAGE_WAVE_E, INNER_WAVE_E = 4224, 528
 FLAGSHIP_LEVEL, LARGE_LEVEL = 4, 5
 MHD_LEVEL = 7
 # the MHD kernels at the Orszag-Tang shape (E its capacity, filled in by
@@ -227,7 +251,7 @@ def muscl_cost(dim, ext, E, space, flux="kepes"):
     return 4 * (read + write), ops
 
 
-def stage_cost(dim, ext, E, share_prev):
+def stage_cost(dim, ext, E, share_prev, flux="kepes"):
     """(bytes, ops) the stage must move and compute: each input read once,
     each output written once; fields once per cell and side-layer cell,
     each interface's flux once."""
@@ -235,8 +259,8 @@ def stage_cost(dim, ext, E, share_prev):
     n_state = 5 * B * E
     read = n_state * (1 if share_prev else 2) + 8 * E + 2 * dim * 5 * T * E
     write = n_state + E
-    ops = E * ((B + 2 * dim * T) * FIELD_OPS
-               + dim * (ext + 1) * T * (FLUX_OPS + FACE_OPS)
+    ops = E * ((B + 2 * dim * T) * STAGE_FIELD_OPS[flux]
+               + dim * (ext + 1) * T * (STAGE_FLUX_OPS[flux] + FACE_OPS)
                + B * UPDATE_OPS)
     return 4 * (read + write), ops
 
@@ -352,56 +376,61 @@ def phase_build():
     phase("build", seconds=f"{secs:.1f}", ptxas=json.dumps(regs))
 
 
+def _resources(r) -> str:
+    """A kernel's resources (ops/kernels.*_attributes) on one line."""
+    return (f"{r['registers']}regs,{r['spill_bytes']}Bspill,"
+            f"{r['threads']}threads,{r['smem_bytes']}Bsmem")
+
+
 def phase_kernel():
+    """The stage kernel against its plain version at KERNEL_SHAPES in each
+    flux (kepes, hll, hllc) and stage; timed per flux at the flagship shape
+    (stage 1 and stages 2-3), with the resources of those instantiations
+    and, in kepes, a time at STAGE_WAVE_E elements (whole waves of
+    blocks).  Returns {flux: kernel-row fields}."""
     from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
+                                             fused_rk_stage_attributes,
                                              fused_rk_stage_reference)
     from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 
-    max_abs = max_rel = max_used = 0.0
-    timing = {}
-    # (dim, ext, E, live): the flagship's shape first (4096 live of 4374)
-    for dim, ext, E, n_live in KERNEL_SHAPES:
-        for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
-                                   (False, STAGE_3)):
-            u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E,
-                                            n_live)
-            prev = None if share_prev else up
-            args = (u, prev, w, others)
-            kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
-            k1 = fused_rk_stage(*args, **kw)
-            k2 = fused_rk_stage(*args, **kw)
-            ref = fused_rk_stage_reference(*args, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])):
-                raise AssertionError("fused_rk_stage is not bit-identical "
-                                     "on repeat")
-            for got, want in ((k1[0], ref[0]), (k1[1], ref[1])):
-                a, r, t = compare("fused_rk_stage", got, want)
-                max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-                max_used = max(max_used, t)
-            if (dim, ext) == (3, 8) and coeffs != STAGE_3:
-                t_k = cuda_ms(lambda: fused_rk_stage(*args, **kw), reps=20)
-                t_p = cuda_ms(lambda: fused_rk_stage_reference(*args, **kw),
-                              reps=3, warmup=1)
-                nbytes, ops = stage_cost(dim, ext, E, share_prev)
-                timing[share_prev] = (t_k, t_p, nbytes, ops)
-    # per launch, averaged over a step's three stages (one shares u_prev)
-    mix = lambda i: (timing[True][i] + 2 * timing[False][i]) / 3
-    b_ms, b_by = bound_ms(mix(2), mix(3))
-    phase("kernel", kernel="fused_rk_stage", max_abs_err=f"{max_abs:.3e}",
-          max_rel_err=f"{max_rel:.3e}", tolerance_used=f"{max_used:.3f}",
-          rtol=RTOL, atol=ATOL,
-          kernel_ms=f"{mix(0):.4f}", plain_ms=f"{mix(1):.3f}",
-          bound_ms=f"{b_ms:.4f}", stage1_ms=f"{timing[True][0]:.4f}",
-          stage23_ms=f"{timing[False][0]:.4f}",
-          plain_stage1_ms=f"{timing[True][1]:.3f}",
-          plain_stage23_ms=f"{timing[False][1]:.3f}",
-          bound_stage1_ms=f"{bound_ms(*timing[True][2:])[0]:.4f}",
-          bound_stage23_ms=f"{bound_ms(*timing[False][2:])[0]:.4f}",
-          bytes_stage1=timing[True][2], bytes_stage23=timing[False][2],
-          ops_stage23=timing[False][3], bound_by=b_by)
-    return dict(max_abs_err=max_abs, ms=mix(0), plain_ms=mix(1),
-                bound_ms=b_ms, bound_by=b_by)
+    stages = ((True, STAGE_1), (False, STAGE_2), (False, STAGE_3))
+    rows = {}
+    for flux in STAGE_FLUXES:
+        errs, timing = [0.0, 0.0, 0.0], {}
+        # (dim, ext, E, live): the flagship's shape first (4096 live of 4374)
+        for dim, ext, E, n_live in KERNEL_SHAPES:
+            for share_prev, coeffs in stages:
+                u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E,
+                                                n_live)
+                args = (u, None if share_prev else up, w, others)
+                kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs)
+                k1 = fused_rk_stage(*args, **kw)
+                k2 = fused_rk_stage(*args, **kw)
+                ref = fused_rk_stage_reference(*args, **kw)
+                torch.cuda.synchronize()
+                _hold(f"fused_rk_stage {flux} {dim}d ext{ext}", k1, k2, ref,
+                      n_live, errs, stage=True)
+                if (dim, ext) == KERNEL_SHAPES[0][:2] and coeffs != STAGE_3:
+                    timing[share_prev] = (
+                        cuda_ms(lambda: fused_rk_stage(*args, **kw), reps=20),
+                        cuda_ms(lambda: fused_rk_stage_reference(*args, **kw),
+                                reps=3, warmup=1)) \
+                        + stage_cost(dim, ext, E, share_prev, flux)
+        dim, ext = KERNEL_SHAPES[0][:2]
+        extra = {"bit_identical": errs[0] == 0.0}
+        for share_prev in (True, False):
+            extra[f"resources_stage{1 if share_prev else 23}"] = _resources(
+                fused_rk_stage_attributes(dim, ext, flux=flux,
+                                          share_prev=share_prev))
+        if flux == "kepes":
+            wave = stage_inputs(dim * 10 + ext, dim, ext, STAGE_WAVE_E,
+                                STAGE_WAVE_E)
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=STAGE_1)
+            extra[f"E{STAGE_WAVE_E}_stage1_ms"] = (
+                f"{cuda_ms(lambda: fused_rk_stage(wave[0], None, *wave[2:], **kw), reps=20):.4f}")
+        name = "fused_rk_stage" + ("" if flux == "kepes" else f"_{flux}")
+        rows[flux] = _mixed_row(name, errs, timing, extra)
+    return rows
 
 
 def phase_kernel_muscl():
@@ -609,6 +638,7 @@ def phase_kernel_logs():
     layers with their log rows too) against its plain version at the
     stage kernel's shapes and coefficients; timed at the flagship shape."""
     from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
+                                             fused_rk_stage_attributes,
                                              fused_rk_stage_reference)
     from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
     from t8gpu_tpu_torch.ops.subgrid import append_log_rows
@@ -634,7 +664,13 @@ def phase_kernel_logs():
                     cuda_ms(lambda: fused_rk_stage_reference(*args, **kw),
                             reps=3, warmup=1)) \
                     + logs_cost(dim, ext, E, share_prev)
-    return _mixed_row("fused_rk_stage_logs", errs, timing)
+    dim, ext = KERNEL_SHAPES[0][:2]
+    extra = {"bit_identical": errs[0] == 0.0}
+    for share_prev in (True, False):
+        extra[f"resources_stage{1 if share_prev else 23}"] = _resources(
+            fused_rk_stage_attributes(dim, ext, logs=True,
+                                      share_prev=share_prev))
+    return _mixed_row("fused_rk_stage_logs", errs, timing, extra)
 
 
 def _field_inputs(seed, dim, ext, E, n_live):
@@ -698,6 +734,7 @@ def phase_kernel_inner():
     and add no speed); timed at the first, the ext16 phase's shape."""
     from tests.torch_port_inputs import GUARD_STATE, random_state
     from t8gpu_tpu_torch.ops.kernels import (inner_divergence,
+                                             inner_divergence_attributes,
                                              inner_divergence_reference)
     import numpy as np
 
@@ -728,11 +765,16 @@ def phase_kernel_inner():
             timing = (cuda_ms(lambda: inner_divergence(*args), reps=20),
                       cuda_ms(lambda: inner_divergence_reference(*args),
                               reps=3, warmup=1), nbytes, ops)
+            res = _resources(inner_divergence_attributes(dim, ext))
+            wave = (u[..., :INNER_WAVE_E].contiguous(),
+                    vol[:INNER_WAVE_E].contiguous(), GAMMA, "kepes")
+            t_wave = cuda_ms(lambda: inner_divergence(*wave), reps=20)
     t_bytes = timing[2] / HBM_BYTES_PER_S * 1e3
     t_ops = timing[3] / FP32_OPS_PER_S * 1e3
     return _kernel_row("inner_divergence", errs, timing,
                        dict(bytes_bound_ms=f"{t_bytes:.4f}",
-                            ops_bound_ms=f"{t_ops:.4f}"))
+                            ops_bound_ms=f"{t_ops:.4f}", resources=res,
+                            **{f"E{INNER_WAVE_E}_kernel_ms": f"{t_wave:.4f}"}))
 
 
 def flagship_solver(level, device=None, config=None):
@@ -1090,6 +1132,48 @@ def phase_large():
           mass_drift=f"{drift:.3e}")
 
 
+def phase_flux_order1(flux):
+    """The flagship at order 1 with EulerConfig(flux=flux) (hll, hllc): the
+    stage kernel in that flux, ms/step as the slope of 5 and 25 steps, mass
+    drift, 3 stage-kernel launches per step and none of any other kernel;
+    then one step on the card against the CPU from the same state."""
+    from t8gpu_tpu_torch import EulerConfig
+    config = EulerConfig(flux=flux)
+    solver = flagship_solver(FLAGSHIP_LEVEL, config=config)
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    reset_launches()                        # count this path only
+    solver.iterate_many(2, dt)
+    t5 = timed_steps(solver, 5, dt)
+    t25 = timed_steps(solver, 25, dt)
+    counts = launch_counts()
+    want = {n: 3 * 32 if n == "fused_rk_stage" else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"{flux}: launches {counts} for 32 steps, "
+                             f"expected {want}")
+    drift = check_state(flux, solver, m0)
+    ms_step = (t25 - t5) / 20 * 1e3
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    gpu = flagship_solver(FLAGSHIP_LEVEL, config=config)
+    cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu", config=config)
+    if not torch.equal(gpu.u.cpu(), cpu.u):
+        raise AssertionError(f"{flux}_vs_cpu: initial states differ")
+    dt = gpu.compute_timestep()
+    gpu.iterate(dt)
+    cpu.iterate(dt)
+    a, r, t = compare(f"{flux}_vs_cpu",
+                      torch.from_numpy(gpu.conserved_state()),
+                      torch.from_numpy(cpu.conserved_state()))
+    phase(flux, flux=flux, order=1, steps=32,
+          launches=counts["fused_rk_stage"],
+          launches_per_step=counts["fused_rk_stage"] / 32,
+          ms_per_step=f"{ms_step:.4f}", mass_drift=f"{drift:.3e}",
+          vs_cpu_max_abs_err=f"{a:.3e}", vs_cpu_tolerance_used=f"{t:.3f}",
+          rtol=RTOL, atol=ATOL)
+    return counts["fused_rk_stage"]
+
+
 def phase_order2(profile_dir):
     """The order-2 path at the flagship's size: ms/step as the slope of 10
     and 110 steps (median of three), mass drift over the first 122 steps,
@@ -1280,7 +1364,7 @@ def main(argv=None) -> int:
 
     phase_gpu()
     phase_build()
-    k_stage = phase_kernel()
+    k_stages = phase_kernel()
     k_muscl = phase_kernel_muscl()
     k_mhd_flux = phase_kernel_mhd_flux()
     k_mhd_muscl = phase_kernel_mhd_muscl()
@@ -1295,6 +1379,7 @@ def main(argv=None) -> int:
     flux_launches = phase_divergence()
     inner_launches = phase_ext16()
     phase_large()
+    stage_flux_launches = {f: phase_flux_order1(f) for f in ("hll", "hllc")}
     muscl_launches = phase_order2(args.profile)
     phase_order2_prim(args.profile)
     phase_order2_vs_cpu()
@@ -1310,11 +1395,15 @@ def main(argv=None) -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None}
     stage = row("fused_rk_stage", "t8gpu_tpu/ops/pallas_kernels.py:1190",
-                stage_launches, k_stage)
-    # the 7-row log input of the same kernel, with its own launch count
+                stage_launches, k_stages["kepes"])
+    # the 7-row log input and the hll and hllc fluxes of the same kernel,
+    # each with the launches of its own path
     stage["variants"] = [row("fused_rk_stage_logs",
                              "t8gpu_tpu/ops/pallas_kernels.py:1190",
-                             logs_launches, k_logs, "fused_rk_stage")]
+                             logs_launches, k_logs, "fused_rk_stage")] + [
+        row(f"fused_rk_stage_{f}", "t8gpu_tpu/ops/pallas_kernels.py:1190",
+            stage_flux_launches[f], k_stages[f], "fused_rk_stage")
+        for f in ("hll", "hllc")]
     print(json.dumps({"kernels": [
         stage,
         row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",

@@ -1,32 +1,17 @@
 // Device code shared by the first-order Euler kernels (fused_rk_stage.cu,
-// fused_fields.cu): the KEPES interface flux on per-cell fields, the
-// face-frame rotation, the per-cell divergence of a block and the
-// per-element speed max.  The arithmetic is that of kepes_fields_flux in
+// fused_fields.cu, inner_divergence.cu) and the MUSCL kernel
+// (fused_muscl.cu, through euler_hll.cuh): the gamma constants, the kepes
+// cell fields, the face-frame rotation and the KEPES interface flux on
+// per-cell fields.  The arithmetic is that of kepes_fields_flux in
 // t8gpu_tpu_torch/ops/euler.py, in the same order; built with
-// --fmad=false, so the two threads that evaluate one interface get
-// bit-identical fluxes and the kernels follow their plain PyTorch
-// versions to a few ulp.
-//
-// Layout (element-minor, as in the JAX package): a block tensor is
-// [C, EXT^DIM, E] (row stride EXT^DIM * E), a side layer [C, EXT^(DIM-1),
-// E] with the tangent axes in increasing order; side k = 2*axis + (0 hi,
-// 1 lo).  One thread per (element, cell), elements fastest across
-// threadIdx.x, so a warp's load of one cell row is one coalesced 128-byte
-// line and a neighbour cell along any axis sits at a fixed stride of E
-// floats.
+// --fmad=false, the kernels follow their plain PyTorch versions bit for
+// bit.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int TILE_E = 32;  // elements per block (threadIdx.x)
-constexpr int TILE_C = 8;   // cells per block (threadIdx.y)
-
-__host__ __device__ constexpr int ipow(int b, int n) {
-  return n == 0 ? 1 : b * ipow(b, n - 1);
-}
 
 // gamma-derived constants, rounded from double to float once on the host
 // (the JAX code combines gamma in Python doubles and rounds to f32).
@@ -51,10 +36,6 @@ inline Consts make_consts(double gamma) {
           (float)((gamma - 1.0) / gamma),
           (float)(2.0 * (gamma - 1.0))};
 }
-
-struct Sides {
-  const float* p[6];
-};
 
 // kepes cell fields: [rho, v, p, rho/p, log rho, log p, vent0, ke]
 struct Fields {
@@ -153,112 +134,6 @@ __device__ __forceinline__ float kepes_flux(const Fields& L, const Fields& R,
   f[1 + Fr::t2] = f3 - 0.5f * diss3;
   f[4] = f4 - 0.5f * diss4;
   return fabsf(u_hat) + a_hat;
-}
-
-// The two interfaces of cell idx along axis A: D += w_lo F(lo) - w_hi F(hi).
-// load(base, row_stride, offset) gives the fields of one cell of a block
-// tensor or a side layer.
-template <int DIM, int EXT, int A, class Load>
-__device__ __forceinline__ void axis_update(
-    const float* __restrict__ u, const Sides& sides, const float* __restrict__ w,
-    const Fields& q, const int idx[3], int c, int e, long long Es, long long rs,
-    long long ls, float surface, float interior_ok, const Consts& k,
-    const Load& load, float D[5], float& spd) {
-  constexpr int stride = ipow(EXT, DIM - 1 - A);  // cell stride along A
-  const int ia = idx[A];
-  int t = 0;  // cell index within the side layer
-#pragma unroll
-  for (int b = 0; b < DIM; ++b)
-    if (b != A) t = t * EXT + idx[b];
-  const float w_hi = __ldg(w + (1 + 2 * A) * Es + e);
-  const float w_lo = __ldg(w + (2 + 2 * A) * Es + e);
-
-  float f[5], fhi[5];
-  // +A face: the next cell, or the hi side layer after the last cell
-  Fields qn;
-  float wgt, ok;
-  if (ia < EXT - 1) {
-    qn = load(u, rs, (long long)(c + stride) * Es + e);
-    wgt = surface;
-    ok = interior_ok;
-  } else {
-    qn = load(sides.p[2 * A], ls, (long long)t * Es + e);
-    wgt = w_hi;
-    ok = w_hi > 0.0f ? 1.0f : 0.0f;
-  }
-  float sp = kepes_flux<A>(q, qn, k, f);
-  spd = fmaxf(spd, sp * ok);
-#pragma unroll
-  for (int r = 0; r < 5; ++r) fhi[r] = f[r] * wgt;
-
-  // -A face: the previous cell, or the lo side layer before cell 0
-  Fields qp;
-  if (ia > 0) {
-    qp = load(u, rs, (long long)(c - stride) * Es + e);
-    wgt = surface;
-  } else {
-    qp = load(sides.p[2 * A + 1], ls, (long long)t * Es + e);
-    wgt = w_lo;
-  }
-  sp = kepes_flux<A>(qp, q, k, f);
-  if (ia == 0) spd = fmaxf(spd, sp * (w_lo > 0.0f ? 1.0f : 0.0f));
-#pragma unroll
-  for (int r = 0; r < 5; ++r) D[r] = (D[r] + f[r] * wgt) - fhi[r];
-}
-
-// The first-order divergence D of cell c of element e (interior faces with
-// weight w[0], the block's end faces against the side layers with weights
-// w[1 + k]) and the cell's max interface speed.  Returns the cell's own
-// fields.
-template <int DIM, int EXT, class Load>
-__device__ __forceinline__ Fields tile_divergence(
-    const float* __restrict__ u, const Sides& sides,
-    const float* __restrict__ w, int c, int e, long long Es, long long rs,
-    long long ls, const Consts& k, const Load& load, float D[5], float& spd) {
-  int idx[3] = {0, 0, 0};
-  int rem = c;
-#pragma unroll
-  for (int a = DIM - 1; a >= 0; --a) {
-    idx[a] = rem % EXT;
-    rem /= EXT;
-  }
-  const Fields q = load(u, rs, (long long)c * Es + e);
-  const float surface = __ldg(w + e);
-  const float interior_ok = surface > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-  for (int r = 0; r < 5; ++r) D[r] = 0.0f;
-  axis_update<DIM, EXT, 0>(u, sides, w, q, idx, c, e, Es, rs, ls, surface,
-                           interior_ok, k, load, D, spd);
-  axis_update<DIM, EXT, 1>(u, sides, w, q, idx, c, e, Es, rs, ls, surface,
-                           interior_ok, k, load, D, spd);
-  if constexpr (DIM == 3)
-    axis_update<DIM, EXT, 2>(u, sides, w, q, idx, c, e, Es, rs, ls, surface,
-                             interior_ok, k, load, D, spd);
-  return q;
-}
-
-// Per-element speed max: a shared-memory max over the block's cells, then
-// one atomicMax on the float's bits per element and block.  max does not
-// depend on order, so the result is bit-reproducible.  Every thread of the
-// block calls it.
-__device__ __forceinline__ void element_speed_max(float (*red)[TILE_E],
-                                                  float spd, bool live,
-                                                  unsigned int* speed, int e) {
-  red[threadIdx.y][threadIdx.x] = spd;
-  __syncthreads();
-  if (threadIdx.y == 0 && live) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int j = 1; j < TILE_C; ++j) m = fmaxf(m, red[j][threadIdx.x]);
-    m = m > 0.0f ? m : 0.0f;  // +0 for zero and NaN: the bits order as floats
-    atomicMax(speed + e, __float_as_uint(m));
-  }
-}
-
-// Cells in a block of extent EXT in DIM dimensions, for the 2x2 supported
-// shapes of the block kernels.
-inline int block_cells(int dim, int ext) {
-  return ext == 8 ? (dim == 3 ? 512 : 64) : (dim == 3 ? 64 : 16);
 }
 
 }  // namespace

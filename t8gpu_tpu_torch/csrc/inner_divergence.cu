@@ -14,7 +14,8 @@
 // flux (kepes_es_flux of t8gpu_tpu_torch/ops/euler.py, the same arithmetic
 // in the same order): per face two logarithmic means with one log each and
 // the entropy variables of both states with two logs each, evaluated per
-// face as the TPU kernel does.
+// face as the TPU kernel does (the rotation into the face frame reorders
+// the kinetic-energy sum, so they cannot be taken per cell).
 //
 // Layout (element-minor): u and D are [5, EXT^DIM, E]; surface [E]; speed
 // one uint32 (float bits).
@@ -23,19 +24,30 @@
 // moves ~94 MB (u 47.2 read, D 47.2 written): 28 us at 3.35 TB/s; its
 // arithmetic, ~290 operations per interface with 6 logs and 8 divides over
 // 6.6M interfaces (1.9 GFLOP), takes ~29 us at the 67 TFLOP/s fp32 peak.
-// The two bounds meet; this simple kernel, which evaluates every interior
-// face twice (once from each cell), is held by the operations.
+// The two bounds meet.
 //
-// Design: one thread per (element, cell), elements fastest across
-// threadIdx.x (a warp's load of one cell row is one coalesced line, a
-// neighbour cell at a fixed stride of E floats).  Each thread evaluates the
-// faces on both sides of its cell along every axis; both threads of a face
-// compute it from the same two states with the same code (--fmad=false),
-// so the divergence telescopes exactly.  A block of 32 elements x up to 8
-// cells reduces its speed in shared memory and adds it by one atomicMax on
-// non-negative float bits: order-free, so the scalar is bit-reproducible.
+// Design: the first-order pencil walk of muscl_pencil.cuh (walk1) over the
+// interior faces: a block loads its elements' states into shared memory
+// (all of a thread's loads in flight at once) and walks each pencil along
+// each axis in two segments, evaluating each interior face once (the face
+// between two segments by both, the same bits); D goes out in one pass
+// over the tile, elements fastest.  At extent 16 in 3D an element's state
+// and D take 174 KB, so a block takes a slab of 2 of its 16 planes along
+// axis 0 of 8 elements (512 threads, 176,128 bytes of shared memory, one
+// block per SM; 8 elements give whole 32-byte sectors of each cell row);
+// its axis-0 pencils read the planes beyond the slab in device memory, so
+// the face between two slabs is evaluated by both, by the same code from
+// the same two states (the same bits).  The slabs of an element group are
+// neighbours in the launch order, so those reads find L2.  The other
+// shapes take whole elements, 512 threads per block.  The speed is a block
+// max and one atomicMax on non-negative float bits per block: order-free,
+// so the scalar is bit-reproducible.  Every instantiation's resources:
+// t8_inner_divergence_attributes.
+
+#include <cuda_runtime.h>
 
 #include "euler_kepes.cuh"
+#include "muscl_pencil.cuh"
 
 namespace {
 
@@ -136,128 +148,198 @@ __device__ __forceinline__ float kepes_es_flux(const float L[5],
   return fabsf(uh) + ah;
 }
 
-// The state of one cell in the +A face frame.
-template <int A>
-__device__ __forceinline__ void load_rotated(const float* __restrict__ u,
-                                             long long rs, long long off,
-                                             float s[5]) {
-  using Fr = Frame<A>;
-  s[0] = __ldg(u + off);
-  s[1] = __ldg(u + off + (1 + Fr::n) * rs);
-  s[2] = __ldg(u + off + (1 + Fr::t1) * rs);
-  s[3] = __ldg(u + off + (1 + Fr::t2) * rs);
-  s[4] = __ldg(u + off + 4 * rs);
-}
+// The state-form flux on staged states: a cell's five state rows, rotated
+// into the +A face frame for each face.
+struct StateForm {
+  static constexpr int RIN = 5, RS = 5;
+  using Params = Consts;
+  struct Cell {
+    float s[5];
+  };
 
-// The face flux between the cells at offsets lo and hi along +A, back in
-// x, y, z rows and times the face area; returns the face's wave speed.
-template <int A>
-__device__ __forceinline__ float face(const float* __restrict__ u,
-                                      long long rs, long long lo,
-                                      long long hi, float surface,
-                                      const Consts& k, float out[5]) {
-  using Fr = Frame<A>;
-  float L[5], R[5], f[5];
-  load_rotated<A>(u, rs, lo, L);
-  load_rotated<A>(u, rs, hi, R);
-  const float sp = kepes_es_flux(L, R, k, f);
-  out[0] = f[0] * surface;
-  out[1 + Fr::n] = f[1] * surface;
-  out[1 + Fr::t1] = f[2] * surface;
-  out[1 + Fr::t2] = f[3] * surface;
-  out[4] = f[4] * surface;
-  return sp;
-}
-
-// Cell c's two faces along axis A, where they lie inside the block:
-// D = (D + s F(lo)) - s F(hi), as the zero-padded shifts of the TPU kernel.
-template <int DIM, int EXT, int A>
-__device__ __forceinline__ void axis_inner(const float* __restrict__ u,
-                                           const int idx[3], long long off,
-                                           long long Es, long long rs,
-                                           float surface, const Consts& k,
-                                           float D[5], float& spd) {
-  constexpr long long stride = ipow(EXT, DIM - 1 - A);
-  const int ia = idx[A];
-  float flo[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float fhi[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (ia < EXT - 1)
-    spd = fmaxf(spd, face<A>(u, rs, off, off + stride * Es, surface, k, fhi));
-  if (ia > 0) face<A>(u, rs, off - stride * Es, off, surface, k, flo);
+  __device__ static __forceinline__ void convert(const float* r, float s[5],
+                                                 const Consts&) {
 #pragma unroll
-  for (int r = 0; r < 5; ++r) D[r] = (D[r] + flo[r]) - fhi[r];
+    for (int i = 0; i < 5; ++i) s[i] = r[i];
+  }
+
+  template <int A>
+  __device__ static __forceinline__ Cell cell(const float s[5], const Consts&) {
+    Cell q;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) q.s[i] = s[t8pencil::frame_row(A, i)];
+    return q;
+  }
+
+  template <int A>
+  __device__ static __forceinline__ float flux(const Cell& L, const Cell& R,
+                                               const Consts& k, float f[5]) {
+    float fr[5];
+    const float sp = kepes_es_flux(L.s, R.s, k, fr);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
+    return sp;
+  }
+};
+
+// A block: 512 threads, two per pencil (each pencil walked in two
+// segments), of a slab of PL planes along axis 0 (2 at 3D extent 16, else
+// the whole element) of as many elements as that leaves (8 at 3D extent
+// 16); one block per SM.
+__host__ __device__ constexpr int slab_planes(int dim, int ext) {
+  return dim == 3 && ext == 16 ? 2 : ext;
 }
 
 template <int DIM, int EXT>
-__global__ void __launch_bounds__(TILE_E* TILE_C)
+using InnerBlock = t8pencil::Block<
+    256 * EXT / (slab_planes(DIM, EXT) * t8pencil::ipow(EXT, DIM - 1)), 2, 1>;
+
+template <int DIM, int EXT>
+using InnerTile = t8pencil::Tile<5, DIM, EXT, InnerBlock<DIM, EXT>,
+                                 slab_planes(DIM, EXT), 5>;
+
+template <int DIM, int EXT>
+__global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
+                                  InnerBlock<DIM, EXT>::MIN_BLOCKS)
     inner_divergence_kernel(const float* __restrict__ u,
                             const float* __restrict__ surf,
                             float* __restrict__ D_out,
                             unsigned int* __restrict__ speed, int E,
                             Consts k) {
-  constexpr int B = ipow(EXT, DIM);
-  constexpr int TC = B < TILE_C ? B : TILE_C;  // cells per block
-  static_assert(B % TC == 0, "cells per block must divide the block");
-  __shared__ float red[TC * TILE_E];
+  using Tl = InnerTile<DIM, EXT>;
+  using t8pencil::End;
+  constexpr int TE = Tl::TE;
+  constexpr int NSLAB = EXT / slab_planes(DIM, EXT);
+  constexpr int T0 = t8pencil::ipow(EXT, DIM - 1);  // cells of a plane
+  static_assert(Tl::THREADS % 32 == 0, "whole warps");
+  extern __shared__ float smem[];
+  float* st = smem;             // staged states
+  float* sd = st + Tl::TILE;    // divergence
+  float* red = sd + Tl::DTILE;  // per-warp speeds
 
-  const int e = blockIdx.x * TILE_E + threadIdx.x;
-  const int c = blockIdx.y * TC + threadIdx.y;
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int slab = blockIdx.x % NSLAB;
+  const int e0 = (blockIdx.x / NSLAB) * TE;
+  const int e = e0 + x;
+  const bool live = e < E;
+  const long long Es = E;
+  const long long rs = (long long)t8pencil::ipow(EXT, DIM) * Es;
+  const int cbase = slab * Tl::B;  // the slab's first cell in the element
+
+  t8pencil::load_cells<Tl, Tl::B, 5>(
+      e0, E,
+      [&](int c, int ee, float* v) {
+#pragma unroll
+        for (int r = 0; r < 5; ++r) v[r] = __ldg(u + r * rs + (long long)(cbase + c) * Es + ee);
+      },
+      [&](int c, int, int cx, const float* v) {
+#pragma unroll
+        for (int r = 0; r < 5; ++r) st[Tl::at(r, c, cx)] = v[r];
+      });
+  __syncthreads();
+
   float spd = 0.0f;
-  if (e < E) {
-    const long long Es = E;
-    const long long rs = (long long)B * Es;
-    const long long off = (long long)c * Es + e;
-    int idx[3] = {0, 0, 0};
-    int rem = c;
-#pragma unroll
-    for (int a = DIM - 1; a >= 0; --a) {
-      idx[a] = rem % EXT;
-      rem /= EXT;
-    }
-    const float surface = __ldg(surf + e);
-    float D[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    axis_inner<DIM, EXT, 0>(u, idx, off, Es, rs, surface, k, D, spd);
-    axis_inner<DIM, EXT, 1>(u, idx, off, Es, rs, surface, k, D, spd);
-    if constexpr (DIM == 3)
-      axis_inner<DIM, EXT, 2>(u, idx, off, Es, rs, surface, k, D, spd);
-#pragma unroll
-    for (int r = 0; r < 5; ++r) D_out[r * rs + off] = D[r];
-    spd = surface > 0.0f ? spd : 0.0f;  // live elements only
+  const float surface = live ? __ldg(surf + e) : 0.0f;
+  // axis 0: pencil t is cell t of each plane of the slab; its neighbours
+  // are the planes beyond the slab's ends, where the element has them
+  auto planes = [&](int t, End& lo, End& hi) {
+    const float* cell = u + (long long)(cbase + t) * Es + e;
+    lo = slab > 0 ? End{cell - T0 * Es, rs, surface, 1.0f} : End{nullptr, 0, 0.0f, 0.0f};
+    hi = slab < NSLAB - 1 ? End{cell + Tl::B * Es, rs, surface, 1.0f}
+                          : End{nullptr, 0, 0.0f, 0.0f};
+  };
+  auto none = [](int, End& lo, End& hi) { lo = hi = End{nullptr, 0, 0.0f, 0.0f}; };
+  if (live)
+    t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 0>(st, sd, x, y, planes, surface,
+                                                     1.0f, k, spd);
+  __syncthreads();
+  if (live)
+    t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 1>(st, sd, x, y, none, surface,
+                                                     1.0f, k, spd);
+  if constexpr (DIM == 3) {
+    __syncthreads();
+    if (live)
+      t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 2>(st, sd, x, y, none, surface,
+                                                       1.0f, k, spd);
   }
-  const int tid = threadIdx.y * TILE_E + threadIdx.x;
-  red[tid] = spd;
+  __syncthreads();
+  t8pencil::for_cells<Tl, Tl::B>(e0, E, [&](int c, int ee, int cx) {
+    const long long off = (long long)(cbase + c) * Es + ee;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) D_out[r * rs + off] = sd[Tl::at(r, c, cx)];
+  });
+
+  // the block's max over its live elements: a max across each warp, then
+  // one atomicMax on the bits of a non-negative float (order-free); a NaN
+  // propagates
+  float m = surface > 0.0f ? spd : 0.0f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = t8pencil::nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const int tid = y * TE + x;
+  if (tid % 32 == 0) red[tid / 32] = m;
   __syncthreads();
   if (tid == 0) {
-    float m = red[0];
-    for (int j = 1; j < TC * TILE_E; ++j) m = fmaxf(m, red[j]);
-    m = m > 0.0f ? m : 0.0f;  // +0 for zero and NaN: the bits order as floats
+    for (int j = 1; j < Tl::THREADS / 32; ++j) m = t8pencil::nan_max(m, red[j]);
+    m = (m > 0.0f || m != m) ? m : 0.0f;  // +0 for zero and -0
     atomicMax(speed, __float_as_uint(m));
   }
 }
 
-template <int DIM, int EXT>
-int launch(cudaStream_t s, const float* u, const float* surf, float* D,
-           unsigned int* speed, int E, const Consts& k) {
-  constexpr int B = ipow(EXT, DIM);
-  constexpr int TC = B < TILE_C ? B : TILE_C;
-  const dim3 block(TILE_E, TC);
-  const dim3 grid((E + TILE_E - 1) / TILE_E, B / TC);
-  inner_divergence_kernel<DIM, EXT><<<grid, block, 0, s>>>(u, surf, D, speed,
-                                                          E, k);
-  return (int)cudaGetLastError();
+// Call fn.template run<DIM, EXT>() for the case; cudaErrorInvalidValue
+// for a case none takes.
+template <class Fn>
+int with_case(int dim, int ext, const Fn& fn) {
+  if (dim == 3) {
+    switch (ext) {
+      case 2: return fn.template run<3, 2>();
+      case 4: return fn.template run<3, 4>();
+      case 8: return fn.template run<3, 8>();
+      case 16: return fn.template run<3, 16>();
+    }
+  } else if (dim == 2) {
+    switch (ext) {
+      case 2: return fn.template run<2, 2>();
+      case 4: return fn.template run<2, 4>();
+      case 8: return fn.template run<2, 8>();
+      case 16: return fn.template run<2, 16>();
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int DIM>
-int launch_ext(int ext, cudaStream_t s, const float* u, const float* surf,
-               float* D, unsigned int* speed, int E, const Consts& k) {
-  switch (ext) {
-    case 2: return launch<DIM, 2>(s, u, surf, D, speed, E, k);
-    case 4: return launch<DIM, 4>(s, u, surf, D, speed, E, k);
-    case 8: return launch<DIM, 8>(s, u, surf, D, speed, E, k);
-    case 16: return launch<DIM, 16>(s, u, surf, D, speed, E, k);
-    default: return (int)cudaErrorInvalidValue;
+struct Launcher {
+  int device;
+  const float* u;
+  const float* surf;
+  float* D;
+  unsigned int* speed;
+  int E;
+  const Consts& k;
+  cudaStream_t stream;
+  template <int DIM, int EXT>
+  int run() const {
+    using Tl = InnerTile<DIM, EXT>;
+    auto kern = inner_divergence_kernel<DIM, EXT>;
+    static bool raised[64] = {};
+    const int err = t8pencil::raise_smem((const void*)kern, Tl::SMEM, device, raised);
+    if (err != 0) return err;
+    const dim3 block(Tl::TE, Tl::SLOTS);
+    const dim3 grid((E + Tl::TE - 1) / Tl::TE * (EXT / slab_planes(DIM, EXT)));
+    kern<<<grid, block, Tl::SMEM, stream>>>(u, surf, D, speed, E, k);
+    return (int)cudaGetLastError();
   }
-}
+};
+
+struct Attributes {
+  int* out;
+  template <int DIM, int EXT>
+  int run() const {
+    using Tl = InnerTile<DIM, EXT>;
+    return t8pencil::kernel_attributes((const void*)inner_divergence_kernel<DIM, EXT>,
+                                       Tl::THREADS, Tl::SMEM, out);
+  }
+};
 
 }  // namespace
 
@@ -272,10 +354,18 @@ extern "C" int t8_inner_divergence(int device, int dim, int ext, int E,
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(gamma);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 3) return launch_ext<3>(ext, s, u, surface, D, speed, E, k);
-  if (dim == 2) return launch_ext<2>(ext, s, u, surface, D, speed, E, k);
-  return (int)cudaErrorInvalidValue;
+  return with_case(dim, ext, Launcher{device, u, surface, D, speed, E, k,
+                                      static_cast<cudaStream_t>(stream)});
+}
+
+// Registers, spilled (local) bytes per thread, threads per block and
+// shared memory per block of the case's kernel, into out[0..3].  Returns
+// a cudaError_t.
+extern "C" int t8_inner_divergence_attributes(int device, int dim, int ext,
+                                              int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return with_case(dim, ext, Attributes{out});
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

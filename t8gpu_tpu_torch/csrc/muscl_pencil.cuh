@@ -47,6 +47,31 @@
 // [R][cells][TE] with one pad cell after every EXT cells (so that the
 // slots of a warp hit distinct banks on every axis), and [SLOTS][TE]
 // floats for the speed reduction.
+//
+// The first-order kernels (fused_rk_stage.cu, inner_divergence.cu) take
+// the sibling walk `walk1` over the same tile: no slopes, one neighbour
+// cell beyond each end of a pencil, each interface F(i-1|i) once from the
+// two cells' staged rows,
+//
+//   D_i  = (D_i + w(i-1|i) F(i-1|i)) - w(i|i+1) F(i|i+1),  axis 0 first,
+//
+// the operation order of the plain versions (ops/kernels.
+// _first_order_divergence, inner_divergence_reference).  Their policy P:
+//
+//   P::RIN, P::RS              rows of a cell in device memory, and
+//                              staged in shared memory
+//   P::convert(r, s, k)        a cell's RIN rows r into its RS staged rows
+//   P::Cell, P::cell<A>(s, k)  what the flux of a +A face needs of a cell,
+//                              from its staged rows s
+//   P::flux<A>(L, R, k, f)     the +A interface flux in x, y, z rows;
+//                              returns its wave speed
+//
+// Their tile may be a slab of PL planes along axis 0 (PL < EXT: the stage
+// kernel at 3D extent 8, the inner-only kernel at 3D extent 16), whose
+// axis-0 pencils reach the planes beyond the slab in device memory.  The kernels load their tiles with
+// every load of a thread in flight at once (load_cells) and write their
+// results in one pass over the tile (for_cells, elements fastest), D of
+// the last axis too.
 
 #pragma once
 
@@ -99,23 +124,127 @@ struct Block {
   static constexpr int TE = TE_, SPLIT = SPLIT_, MIN_BLOCKS = MIN_BLOCKS_;
 };
 
-// Tile geometry of a block: TE elements of EXT^DIM cells, each pencil
-// walked in SPLIT segments of EXT / SPLIT cells by as many threads.
-template <int R, int DIM, int EXT, class Blk>
+// Tile geometry of a block: TE elements, each a slab of PL planes along
+// axis 0 (PL = EXT: the whole element), each pencil walked in SPLIT
+// segments of EXT / SPLIT cells by as many threads; R staged rows and RD
+// rows of divergence per cell.
+template <int R, int DIM, int EXT, class Blk, int PL = EXT, int RD = R>
 struct Tile {
   static constexpr int TE = Blk::TE, SPLIT = Blk::SPLIT;
   static_assert(EXT % SPLIT == 0, "segments must divide the pencil");
-  static constexpr int B = ipow(EXT, DIM);  // cells per element
-  static constexpr int T = B / EXT;         // pencils per element and axis
+  static_assert(EXT % PL == 0, "slabs must divide the element");
+  static constexpr int B = PL * ipow(EXT, DIM - 1);  // cells per element
+  static constexpr int T = B / EXT;         // pencils per element, axes > 0
   static constexpr int BP = B + B / EXT;    // cell slots with the padding
   static constexpr int SLOTS = T * SPLIT;   // threadIdx.y
   static constexpr int THREADS = TE * SLOTS;
-  static constexpr int TILE = R * BP * TE;  // floats of one [R][BP][TE] tile
-  static constexpr size_t SMEM = (2 * (size_t)TILE + SLOTS * TE) * sizeof(float);
+  static constexpr int TILE = R * BP * TE;   // floats of the staged tile
+  static constexpr int DTILE = RD * BP * TE; // floats of the divergence tile
+  static constexpr size_t SMEM = ((size_t)TILE + DTILE + SLOTS * TE) * sizeof(float);
+  // float index of row r of cell c of element slot x in either tile
   __device__ static int at(int r, int c, int x) {
     return (r * BP + c + c / EXT) * TE + x;
   }
 };
+
+// The tile cell at position 0 of pencil t along axis A: t enumerates the
+// other axes' indices, the last axis fastest (the tangent order of the
+// side layers); axis 0 has PL planes in the tile.
+template <int DIM, int EXT, int A, int PL = EXT>
+__device__ __forceinline__ int pencil_start(int t) {
+  int c0 = 0, rem = t;
+#pragma unroll
+  for (int b = DIM - 1; b >= 0; --b) {
+    if (b == A) continue;
+    const int n = b == 0 ? PL : EXT;
+    c0 += (rem % n) * ipow(EXT, DIM - 1 - b);
+    rem /= n;
+  }
+  return c0;
+}
+
+// Stage the tile's cells of elements e0 .. e0 + TE - 1 (those below E):
+// load(c, ee, s) gives the Tl-tile rows s of cell c of element ee, each
+// cell loaded once, elements fastest; all of a thread's loads issued
+// before its first store.
+template <class Tl, int RS, class Load>
+__device__ __forceinline__ void stage_tile(float* st, int e0, int E,
+                                           const Load& load) {
+  constexpr int TE = Tl::TE, N = Tl::B * TE;
+  constexpr int ITERS = (N + Tl::THREADS - 1) / Tl::THREADS;
+  const int tid = threadIdx.y * TE + threadIdx.x;
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int j = it * Tl::THREADS + tid;
+    const int cx = j % TE, c = j / TE;
+    const int ee = e0 + cx;
+    if (j < N && ee < E) {
+      float s[RS];
+      load(c, ee, s);
+#pragma unroll
+      for (int i = 0; i < RS; ++i) st[Tl::at(i, c, cx)] = s[i];
+    }
+  }
+}
+
+// Call fn(c, ee, x) for every cell c < N of element slot x of the block
+// (element ee = e0 + x, those below E), elements fastest across the
+// block's threads.
+template <class Tl, int N, class Fn>
+__device__ __forceinline__ void for_cells(int e0, int E, const Fn& fn) {
+  constexpr int TE = Tl::TE;
+  for (int j = threadIdx.y * TE + threadIdx.x; j < N * TE; j += Tl::THREADS) {
+    const int x = j % TE, c = j / TE;
+    if (e0 + x < E) fn(c, e0 + x, x);
+  }
+}
+
+// Every thread loads the R values of each of its items (cell c < N of
+// element slot x, elements fastest, those below E) with load(c, ee, v),
+// all of them before the first store(c, ee, x, v): all of a block's loads
+// in flight together.
+template <class Tl, int N, int R, class Load, class Store>
+__device__ __forceinline__ void load_cells(int e0, int E, const Load& load,
+                                           const Store& store) {
+  constexpr int TE = Tl::TE;
+  static_assert(N * TE % Tl::THREADS == 0, "whole rounds of the block");
+  constexpr int IT = N * TE / Tl::THREADS;
+  const int tid = threadIdx.y * TE + threadIdx.x;
+  float v[IT][R];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int j = it * Tl::THREADS + tid, x = j % TE;
+    if (e0 + x < E) load(j / TE, e0 + x, v[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int j = it * Tl::THREADS + tid, x = j % TE;
+    if (e0 + x < E) store(j / TE, e0 + x, x, v[it]);
+  }
+}
+
+// Per-element max of the block's pencil slots' speeds spd into speed[e]:
+// one plain store where the block owns its elements (ATOMIC false), else
+// one atomicMax on the bits of the non-negative float into a zero-filled
+// speed (an element's slabs in several blocks).  Either way order-free,
+// bit-reproducible; a NaN speed propagates, as in the plain versions.
+// Every thread of the block calls it.
+template <class Tl, bool ATOMIC = false>
+__device__ __forceinline__ void element_speed(float* red, float spd, bool live,
+                                              unsigned int* speed, int e) {
+  const int x = threadIdx.x, y = threadIdx.y;
+  red[y * Tl::TE + x] = spd;
+  __syncthreads();
+  if (y == 0 && live) {
+    float m = red[x];
+    for (int j = 1; j < Tl::SLOTS; ++j) m = nan_max(m, red[j * Tl::TE + x]);
+    m = (m > 0.0f || m != m) ? m : 0.0f;  // +0 for zero and -0
+    if constexpr (ATOMIC)
+      atomicMax(speed + e, __float_as_uint(m));
+    else
+      speed[e] = __float_as_uint(m);
+  }
+}
 
 // One side-slab layer (0 facing, 1 second) of the pencil, converted and
 // rotated into the +A frame.
@@ -156,16 +285,7 @@ __device__ __forceinline__ void walk(const float* su, float* sd,
   constexpr bool FIRST = A == 0, LAST = A == DIM - 1;
   const long long Es = g.E;
 
-  int c0 = 0;  // the pencil's cell at position 0
-  {
-    int rem = t;
-#pragma unroll
-    for (int b = DIM - 1; b >= 0; --b) {
-      if (b == A) continue;
-      c0 += (rem % EXT) * ipow(EXT, DIM - 1 - b);
-      rem /= EXT;
-    }
-  }
+  const int c0 = pencil_start<DIM, EXT, A>(t);  // the pencil's position 0
   const float surface = __ldg(g.w + e);
   const float w_hi = __ldg(g.w + (1 + 2 * A) * Es + e);
   const float w_lo = __ldg(g.w + (2 + 2 * A) * Es + e);
@@ -272,7 +392,7 @@ __global__ void __launch_bounds__(Tile<P::R, DIM, EXT, Blk>::THREADS, Blk::MIN_B
   extern __shared__ float smem[];
   float* su = smem;                   // staged states
   float* sd = su + Tl::TILE;          // partial divergence
-  float* red = sd + Tl::TILE;         // [SLOTS][TE] speeds
+  float* red = sd + Tl::DTILE;        // [SLOTS][TE] speeds
 
   const int x = threadIdx.x, y = threadIdx.y;
   const int t = y % Tl::T, seg = y / Tl::T;  // pencil and its segment
@@ -281,23 +401,12 @@ __global__ void __launch_bounds__(Tile<P::R, DIM, EXT, Blk>::THREADS, Blk::MIN_B
   const bool live = e < g.E;
   const long long Es = g.E;
 
-  // stage: each cell read once, converted once, elements fastest; all of
-  // a thread's loads issued before its first store
-  constexpr int ITERS = (Tl::B * TE + Tl::THREADS - 1) / Tl::THREADS;
+  // stage: each cell read once, converted once
+  stage_tile<Tl, R>(su, e0, g.E, [&](int c, int ee, float r[R]) {
 #pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int j = it * Tl::THREADS + y * TE + x;
-    const int cx = j % TE, c = j / TE;
-    const int ee = e0 + cx;
-    if (j < Tl::B * TE && ee < g.E) {
-      float r[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) r[i] = __ldg(g.u + (i * (long long)Tl::B + c) * Es + ee);
-      P::convert(r, k);
-#pragma unroll
-      for (int i = 0; i < R; ++i) su[Tl::at(i, c, cx)] = r[i];
-    }
-  }
+    for (int i = 0; i < R; ++i) r[i] = __ldg(g.u + (i * (long long)Tl::B + c) * Es + ee);
+    P::convert(r, k);
+  });
   __syncthreads();
 
   float spd = 0.0f;
@@ -309,17 +418,36 @@ __global__ void __launch_bounds__(Tile<P::R, DIM, EXT, Blk>::THREADS, Blk::MIN_B
     if (live) walk<P, DIM, EXT, Blk, MINMOD, 2>(su, sd, g, x, e, t, seg, k, spd);
   }
 
-  // per-element max over the block's pencil segments.  The block owns its
-  // elements, so one plain store each: order-free, bit-reproducible.  A
-  // NaN speed propagates, as in the plain version.
-  red[y * TE + x] = spd;
-  __syncthreads();
-  if (y == 0 && live) {
-    float m = red[x];
-    for (int j = 1; j < Tl::SLOTS; ++j) m = nan_max(m, red[j * TE + x]);
-    m = (m > 0.0f || m != m) ? m : 0.0f;  // +0 for zero and -0
-    g.speed[e] = __float_as_uint(m);
+  element_speed<Tl>(red, spd, live, g.speed, e);
+}
+
+// Raise kern's dynamic shared-memory limit to smem bytes on `device`,
+// once per device (raised: that kernel's flags).  Returns a cudaError_t.
+inline int raise_smem(const void* kern, size_t smem, int device,
+                      bool raised[64]) {
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    raised[device] = true;
   }
+  return 0;
+}
+
+// Registers, spilled bytes per thread, threads and shared memory per block
+// of kern launched with `threads` threads and smem dynamic bytes, into
+// out[0..3].  Returns a cudaError_t.
+inline int kernel_attributes(const void* kern, int threads, size_t smem,
+                             int out[4]) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = threads;
+  out[3] = (int)(a.sharedSizeBytes + smem);
+  return 0;
 }
 
 // Launch one instantiation on device `device`'s `stream`: raises the
@@ -329,17 +457,11 @@ template <class P, int DIM, int EXT, class Blk, bool MINMOD>
 int launch(int device, const Args& g, const typename P::Params& k,
            cudaStream_t stream) {
   using Tl = Tile<P::R, DIM, EXT, Blk>;
-  constexpr int TE = Blk::TE;
   auto kern = muscl_kernel<P, DIM, EXT, Blk, MINMOD>;
   static bool raised[64] = {};
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!raised[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    raised[device] = true;
-  }
-  const dim3 block(TE, Tl::SLOTS), grid((g.E + TE - 1) / TE);
+  const int err = raise_smem((const void*)kern, Tl::SMEM, device, raised);
+  if (err != 0) return err;
+  const dim3 block(Blk::TE, Tl::SLOTS), grid((g.E + Blk::TE - 1) / Blk::TE);
   kern<<<grid, block, Tl::SMEM, stream>>>(g, k);
   return (int)cudaGetLastError();
 }
@@ -349,14 +471,118 @@ int launch(int device, const Args& g, const typename P::Params& k,
 template <class P, int DIM, int EXT, class Blk, bool MINMOD>
 int attributes(int out[4]) {
   using Tl = Tile<P::R, DIM, EXT, Blk>;
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, muscl_kernel<P, DIM, EXT, Blk, MINMOD>);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = Tl::THREADS;
-  out[3] = (int)(a.sharedSizeBytes + Tl::SMEM);
-  return 0;
+  return kernel_attributes((const void*)muscl_kernel<P, DIM, EXT, Blk, MINMOD>,
+                           Tl::THREADS, Tl::SMEM, out);
+}
+
+// The first-order walk's neighbour beyond one end of a pencil: nb its row
+// 0 in device memory (P::RIN rows rs apart), or nullptr where the pencil
+// has no face there (a zero flux: the inner-only kernel's element edges);
+// w the face weight and ok its speed mask.
+struct End {
+  const float* nb;
+  long long rs;
+  float w, ok;
+};
+
+// Walk segment seg of pencil t along axis A of element slot x over the Tl
+// tile st (P::RS rows): its Ls = L / SPLIT cells [seg Ls, (seg + 1) Ls)
+// of the pencil's L, each interface of theirs once, the one before the
+// first cell from the previous tile cell or lo's cell, the one after the
+// last from the next tile cell or hi's cell (an interface between two
+// segments is evaluated by both: the same bits); the flux weighted by
+// surface inside the tile; D of each cell once into the tile sd (axis 0
+// first); the masked interface speeds into spd.
+template <class P, class Tl, int DIM, int EXT, int A>
+__device__ __forceinline__ void walk1(const float* st, float* sd, int x, int t,
+                                      int seg, const End& lo, const End& hi,
+                                      float surface, float interior_ok,
+                                      const typename P::Params& k, float& spd) {
+  using Cell = typename P::Cell;
+  constexpr int RS = P::RS, TE = Tl::TE;
+  constexpr int PL = Tl::B / ipow(EXT, DIM - 1);  // planes along axis 0
+  constexpr int L = A == 0 ? PL : EXT;
+  constexpr int Ls = L / Tl::SPLIT;               // cells of a segment
+  static_assert(L % Tl::SPLIT == 0, "segments must divide the pencil");
+  constexpr int stride = ipow(EXT, DIM - 1 - A);  // cell stride along A
+  constexpr int pstride = stride + stride / EXT;  // slot stride, as walk's
+  constexpr int RSTR = Tl::BP * TE;               // row stride of a tile
+  constexpr bool FIRST = A == 0;
+
+  const int c0 = pencil_start<DIM, EXT, A, PL>(t);
+  const float* pu = st + Tl::at(0, c0, x);
+  float* pd = sd + Tl::at(0, c0, x);
+
+  auto tile_cell = [&](int q) {
+    const float* p = pu + q * pstride * TE;
+    float s[RS];
+#pragma unroll
+    for (int i = 0; i < RS; ++i) s[i] = p[i * RSTR];
+    return P::template cell<A>(s, k);
+  };
+  auto end_cell = [&](const End& n) {
+    float r[P::RIN], s[RS];
+#pragma unroll
+    for (int i = 0; i < P::RIN; ++i) r[i] = __ldg(n.nb + i * n.rs);
+    P::convert(r, s, k);
+    return P::template cell<A>(s, k);
+  };
+
+  const int q0 = seg * Ls;  // the faces (q0-1|q0) .. (q0+Ls-1|q0+Ls)
+  const bool has_lo = q0 == 0 && lo.nb != nullptr;
+  const bool has_hi = q0 + Ls == L && hi.nb != nullptr;
+  Cell cl = has_lo ? end_cell(lo) : tile_cell(q0 == 0 ? 0 : q0 - 1);  // at q-1
+  float fl[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // weighted F(q-2|q-1)
+
+#pragma unroll 2
+  for (int j = 0; j <= Ls; ++j) {
+    const int q = q0 + j;
+    float* du = pd + (q - 1) * pstride * TE;  // cell q-1 in sd
+    float dold[5];                            // its D from the earlier axes
+    if (!FIRST && j > 0) {
+#pragma unroll
+      for (int r = 0; r < 5; ++r) dold[r] = du[r * RSTR];
+    }
+    float fw[5];  // weighted F(q-1|q); zero where the pencil has no face
+    if ((q == 0 && !has_lo) || (q == L && !has_hi)) {
+#pragma unroll
+      for (int r = 0; r < 5; ++r) fw[r] = 0.0f;
+    } else {
+      const Cell cr = q == L ? end_cell(hi) : tile_cell(q);
+      float f[5];
+      const float sp = P::template flux<A>(cl, cr, k, f);
+      const float wgt = q == 0 ? lo.w : (q == L ? hi.w : surface);
+      spd = nan_max(spd, sp * (q == 0 ? lo.ok : (q == L ? hi.ok : interior_ok)));
+#pragma unroll
+      for (int r = 0; r < 5; ++r) fw[r] = f[r] * wgt;
+      cl = cr;
+    }
+    if (j > 0) {  // both faces of cell q-1 known
+#pragma unroll
+      for (int r = 0; r < 5; ++r) du[r * RSTR] = ((FIRST ? 0.0f : dold[r]) + fl[r]) - fw[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 5; ++r) fl[r] = fw[r];
+  }
+}
+
+// Walk every (pencil, segment) of axis A of element slot x, the threads'
+// slots y striding over them (pencils fastest); ends(t) gives pencil t's
+// (lo, hi) neighbours.
+template <class P, class Tl, int DIM, int EXT, int A, class Ends>
+__device__ __forceinline__ void walk1_axis(const float* st, float* sd, int x,
+                                           int y, const Ends& ends,
+                                           float surface, float interior_ok,
+                                           const typename P::Params& k,
+                                           float& spd) {
+  constexpr int PENCILS = A == 0 ? ipow(EXT, DIM - 1) : Tl::T;
+  for (int i = y; i < PENCILS * Tl::SPLIT; i += Tl::SLOTS) {
+    const int t = i % PENCILS, seg = i / PENCILS;
+    End lo, hi;
+    ends(t, lo, hi);
+    walk1<P, Tl, DIM, EXT, A>(st, sd, x, t, seg, lo, hi, surface, interior_ok,
+                              k, spd);
+  }
 }
 
 }  // namespace t8pencil

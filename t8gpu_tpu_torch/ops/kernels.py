@@ -8,12 +8,15 @@ plain integer attribute (`fused_rk_stage.launches`).
 
 fused_rk_stage — replaces fused_rk_stage_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:1190): one whole SSP-RK stage per
-element (cell fields, KEPES interface fluxes, weighted divergence, stage
-update, per-element max wave speed) in one pass over the state.  Bound on
-an H100: the bytes it must move, ~123 MB for stage 1 and ~168 MB for
-stages 2-3 at the flagship shape (37-50 us at 3.35 TB/s).  The kernel is
-the simple one-thread-per-cell design that evaluates every interface
-twice (csrc/fused_rk_stage.cu has the details and PERF.md its times).
+element (cell fields, kepes, hll or hllc interface fluxes, weighted
+divergence, stage update, per-element max wave speed) in one pass over
+the state.  Bound on an H100: the bytes it must move, ~123 MB for stage 1
+and ~168 MB for stages 2-3 at the flagship shape (37-50 us at 3.35
+TB/s).  The kernel is the first-order pencil walk of
+csrc/muscl_pencil.cuh over slabs of elements in shared memory: each
+cell's fields derived once, each interface evaluated once (once more at
+a slab boundary; csrc/fused_rk_stage.cu has the details and PERF.md its
+times).
 
 fused_muscl — replaces fused_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:848): the order-2 MUSCL flux divergence
@@ -51,7 +54,9 @@ csrc/fused_fields.cu; bound: the bytes, ~202 MB (D) and ~246 MB (stages
 inner_divergence — replaces inner_divergence_pallas (:1425): the interior
 faces' divergence of a 5-row state through the state-form KEPES flux (six
 logs per face) at extents 2, 4, 8 and 16, and the scalar max wave speed of
-the live elements (csrc/inner_divergence.cu).
+the live elements: the same pencil walk over the interior faces, each
+evaluated once, in slabs of 2 planes at 3D extent 16
+(csrc/inner_divergence.cu).
 
 fused_mhd_muscl — replaces fused_mhd_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:777): the order-2 GLM-MHD divergence of
@@ -59,8 +64,8 @@ the interior and equal-level faces (per-axis minmod or unlimited slopes,
 the thermal-pressure positivity guard, the same Rusanov/GLM flux).  Bound:
 the bytes, ~154 MB at the Orszag-Tang shape (46 us;
 csrc/fused_mhd_muscl.cu): the pencil walk of fused_muscl on 9 rows.  The
-first-order MHD kernel is the one-thread-per-cell design of the Euler
-stage kernels.
+first-order MHD kernel is a one-thread-per-cell design, as the
+field-input kernels.
 """
 
 from __future__ import annotations
@@ -84,7 +89,9 @@ KERNEL_EXTENTS = (4, 8)
 INNER_EXTENTS = (2, 4, 8, 16)     # the inner-only kernel's block extents
 MUSCL_LIMITERS = ("minmod", "none")
 MUSCL_SPACES = ("cons", "prim")
-MUSCL_CUDA_FLUXES = ("kepes", "hll", "hllc")   # hll/hllc: "cons" only
+# the fluxes of the stage and MUSCL kernels, by their index in the C entry
+# points (MUSCL: hll/hllc in "cons" only; stage: the 7-row input kepes only)
+CUDA_FLUXES = ("kepes", "hll", "hllc")
 
 
 def _stage_tensors(u_stage, u_prev, weights, others) -> list:
@@ -177,7 +184,7 @@ def _check_cuda_tensors(tensors, flux: str, what: str, fluxes=("kepes",)):
 def _check_kernel_inputs(u_stage, u_prev, weights, others, flux: str):
     """Raise ValueError on what the CUDA stage kernel does not take."""
     _check_cuda_tensors(_stage_tensors(u_stage, u_prev, weights, others),
-                        flux, "stage")
+                        flux, "stage", CUDA_FLUXES)
 
 
 def _library(name: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -209,8 +216,9 @@ def _side_pointers(others) -> list:
 
 def _speed_bits(E: int, dev, zero: bool = True) -> torch.Tensor:
     """[E] buffer for a kernel's per-element speed max: zero-filled for the
-    kernels that take it by atomicMax on the bits of non-negative floats,
-    uninitialised (zero=False) for the MUSCL kernels, whose blocks own
+    kernels that take it by atomicMax on the bits of non-negative floats
+    (the stage kernel's blocks each hold a slab of an element at 3D extent
+    8), uninitialised (zero=False) for the MUSCL kernels, whose blocks own
     their elements and store each max once."""
     make = torch.zeros if zero else torch.empty
     return make(E, dtype=torch.int32, device=dev)
@@ -369,9 +377,10 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
 
     u_stage: [5, *(ext,)*dim, E], or [7, ...] with rows 5-6 log rho and
     log p (the "logs" input, kepes: the fields are then derived
-    log-free); u_prev: [5, ...] (None means the state rows of u_stage,
-    the first stage); weights [8, E] (row 0 interior cell-face area, rows
-    1+k side k's face weight, row 7 = dt * inv_cell_volume); others:
+    log-free); flux "kepes", "hll" or "hllc"; u_prev: [5, ...] (None
+    means the state rows of u_stage, the first stage); weights [8, E]
+    (row 0 interior cell-face area, rows 1+k side k's face weight, row 7
+    = dt * inv_cell_volume); others:
     2*dim side layers [5 or 7, *(ext,)*(dim-1), E] (as many rows as
     u_stage), side k = 2*axis + (0 hi, 1 lo).  CUDA tensors launch the
     kernel (a 7-row launch counts in `launches_logs`, a 5-row one in
@@ -392,7 +401,8 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
     speed = _speed_bits(E, dev)
     a_c, b_c, c_c = (float(x) for x in coeffs)
     _launch(_stage_library(), "t8_fused_rk_stage", dev,
-            [dim, ext, E, int(logs), u_stage.data_ptr(),
+            [dim, ext, E, CUDA_FLUXES.index(flux), int(logs),
+             u_stage.data_ptr(),
              None if u_prev is None else u_prev.data_ptr(),
              weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
              speed.data_ptr(), float(gamma), a_c, b_c, c_c],
@@ -409,12 +419,23 @@ fused_rk_stage.launches_logs = 0
 
 
 def _stage_library() -> ctypes.CDLL:
-    """The stage kernel's library: device, dim, ext, E, logs as int; every
-    pointer and the stream as c_void_p; gamma double, coefficients float."""
+    """The stage kernel's library: device, dim, ext, E, flux (the index in
+    CUDA_FLUXES), logs as int; every pointer and the stream as c_void_p;
+    gamma double, coefficients float."""
     return _library("fused_rk_stage", "t8_fused_rk_stage",
-                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11
                     + [ctypes.c_double] + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
+
+
+def fused_rk_stage_attributes(dim: int, ext: int, flux: str = "kepes",
+                              logs: bool = False, share_prev: bool = True,
+                              device: int = 0) -> dict:
+    """The resources of the stage kernel of one case on a card (builds the
+    library), as fused_muscl_attributes."""
+    return _attributes(_stage_library(), "t8_fused_rk_stage_attributes",
+                       device, [dim, ext, CUDA_FLUXES.index(flux),
+                                int(bool(logs)), int(bool(share_prev))])
 
 
 def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
@@ -679,6 +700,13 @@ def _inner_library() -> ctypes.CDLL:
                     + [ctypes.c_double, ctypes.c_void_p])
 
 
+def inner_divergence_attributes(dim: int, ext: int, device: int = 0) -> dict:
+    """The resources of the inner-only kernel at one shape on a card
+    (builds the library), as fused_muscl_attributes."""
+    return _attributes(_inner_library(), "t8_inner_divergence_attributes",
+                       device, [dim, ext])
+
+
 def inner_divergence_reference(u: torch.Tensor, volumes: torch.Tensor,
                                gamma: float, flux: str):
     """Plain PyTorch version of the inner-only divergence: the TPU
@@ -751,12 +779,12 @@ def fused_muscl(u: torch.Tensor, weights: torch.Tensor, others, gamma: float,
     if dev.type != "cuda":
         raise ValueError(f"no MUSCL kernel for device {dev}")
     _check_cuda_tensors([u, weights, *others], flux, "MUSCL",
-                        MUSCL_CUDA_FLUXES)
+                        CUDA_FLUXES)
 
     D = torch.empty_like(u)
     speed = _speed_bits(E, dev, zero=False)
     _launch(_muscl_library(), "t8_fused_muscl", dev,
-            [dim, ext, E, MUSCL_CUDA_FLUXES.index(flux), int(space == "prim"),
+            [dim, ext, E, CUDA_FLUXES.index(flux), int(space == "prim"),
              int(limiter == "minmod"), int(bool(positivity)), u.data_ptr(),
              weights.data_ptr(), *_side_pointers(others), D.data_ptr(),
              speed.data_ptr(), float(gamma)], "fused_muscl")
@@ -769,7 +797,7 @@ fused_muscl.launches = 0
 
 def _muscl_library() -> ctypes.CDLL:
     """The MUSCL kernel's library: device, dim, ext, E, flux (the index in
-    MUSCL_CUDA_FLUXES), prim, minmod, positivity as int; every pointer and
+    CUDA_FLUXES), prim, minmod, positivity as int; every pointer and
     the stream as c_void_p; gamma double."""
     return _library("fused_muscl", "t8_fused_muscl",
                     [ctypes.c_int] * 8 + [ctypes.c_void_p] * 10
@@ -798,7 +826,7 @@ def fused_muscl_attributes(dim: int, ext: int, flux: str = "kepes",
     library): registers and spilled bytes per thread, threads and shared
     memory (bytes) per block."""
     return _attributes(_muscl_library(), "t8_fused_muscl_attributes", device,
-                       [dim, ext, MUSCL_CUDA_FLUXES.index(flux),
+                       [dim, ext, CUDA_FLUXES.index(flux),
                         int(space == "prim"), int(limiter == "minmod"),
                         int(bool(positivity))])
 

@@ -7,11 +7,12 @@ jax nor the JAX package, so it also runs on a GPU machine without JAX:
 
 The CUDA stage (state and log-row inputs), field-input (divergence and
 stage), inner-only, MUSCL and GLM-MHD kernels against their plain PyTorch
-versions on the same card (rtol 2e-5, atol 2e-6, as tests/test_pallas.py)
-and bit-identical on repeat, each in every template case; the two MUSCL
-kernels on the real side slabs of a periodic mesh (mesh-face
-conservation); the Euler solver
-(order 1 in each stage-input mode and at extents 2 and 16, order 2) and
+versions on the same card (rtol 2e-5, atol 2e-6, as tests/test_pallas.py;
+the stage kernel bit for bit) and bit-identical on repeat, each in every
+template case; the stage kernel and the two MUSCL kernels on the real
+side layers of a periodic mesh (mesh-face conservation); the Euler solver
+(order 1 in each stage-input mode, with hll and hllc, and at extents 2
+and 16, order 2) and
 the GLM-MHD solver (order 1 and 2) stepped on the card against the same
 solver on the CPU; flux_divergence's kernel dispatches.
 """
@@ -35,10 +36,12 @@ from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
                                          fused_mhd_muscl_reference,
                                          fused_muscl, fused_muscl_reference,
                                          fused_rk_stage,
+                                         fused_rk_stage_attributes,
                                          fused_rk_stage_fields,
                                          fused_rk_stage_fields_reference,
                                          fused_rk_stage_reference,
                                          inner_divergence,
+                                         inner_divergence_attributes,
                                          inner_divergence_reference)
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 from t8gpu_tpu_torch.utils.config import EulerConfig
@@ -57,28 +60,36 @@ def cuda():
     return torch.device("cuda")
 
 
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
 @pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
-def test_cuda_kernel_matches_reference(cuda, dim, ext):
+def test_cuda_kernel_matches_reference(cuda, dim, ext, flux):
+    """Every template case of the stage kernel (flux, shape, stage),
+    bit for bit against its plain version, with guard slots; no spills."""
     E = 1000                                     # not a multiple of 32
     for share_prev, coeffs in STAGES:
         u, up, w, others = stage_inputs(dim + ext, dim, ext, E, n_guard=37)
         u, up, w = (torch.from_numpy(a).to(cuda) for a in (u, up, w))
         others = [torch.from_numpy(o).to(cuda) for o in others]
         prev = None if share_prev else up
-        kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+        kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs)
         before = fused_rk_stage.launches
         kn, ksp = fused_rk_stage(u, prev, w, others, **kw)
         kn2, ksp2 = fused_rk_stage(u, prev, w, others, **kw)
         assert fused_rk_stage.launches == before + 2
         rn, rsp = fused_rk_stage_reference(u, prev, w, others, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(kn, kn2) and torch.equal(ksp, ksp2)
-        np.testing.assert_allclose(kn.cpu().numpy(), rn.cpu().numpy(),
-                                   rtol=RTOL, atol=ATOL)
-        np.testing.assert_allclose(ksp.cpu().numpy(), rsp.cpu().numpy(),
-                                   rtol=RTOL, atol=ATOL)
+        assert _bits_equal(kn, kn2) and _bits_equal(ksp, ksp2)
+        assert bool(torch.isfinite(kn).all())
+        assert _bits_equal(kn, rn) and _bits_equal(ksp, rsp)
         assert (ksp[-37:] == 0).all()
+        res = fused_rk_stage_attributes(dim, ext, flux=flux,
+                                        share_prev=share_prev)
+        assert res["spill_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -87,7 +98,7 @@ def test_cuda_kernel_rejects_unsupported(cuda):
     u, up, w = (torch.from_numpy(a).to(cuda) for a in (u, up, w))
     others = [torch.from_numpy(o).to(cuda) for o in others]
     with pytest.raises(ValueError, match="kepes"):
-        fused_rk_stage(u, up, w, others, gamma=GAMMA, flux="hll",
+        fused_rk_stage(u, up, w, others, gamma=GAMMA, flux="roe",
                        coeffs=STAGE_2)
     with pytest.raises(ValueError, match="float32"):
         fused_rk_stage(u.double(), up.double(), w.double(),
@@ -99,14 +110,19 @@ def test_cuda_kernel_rejects_unsupported(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,level,ext,periodic",
-                         [(3, 2, 8, True), (2, 3, 4, False)])
-def test_cuda_solver_matches_cpu(cuda, dim, level, ext, periodic):
+@pytest.mark.parametrize("dim,level,ext,periodic,flux",
+                         [(3, 2, 8, True, "kepes"), (2, 3, 4, False, "kepes"),
+                          (3, 1, 4, False, "hll"), (3, 2, 8, True, "hllc")])
+def test_cuda_solver_matches_cpu(cuda, dim, level, ext, periodic, flux):
+    """Three order-1 steps on the card against the CPU, every stage one
+    stage-kernel launch; hll and hllc step on the card too."""
     mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
                                                   periodic=periodic),
                                    SubgridSpec((ext,) * dim))
-    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 5))
-    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 5), device="cpu")
+    config = EulerConfig(flux=flux)
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 5), config=config)
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 5), config=config,
+                                         device="cpu")
     assert gpu.u.device.type == "cuda"
     m0 = gpu.compute_integral()
     dt = gpu.compute_timestep()
@@ -269,8 +285,33 @@ def test_cuda_muscl_conserves_mesh_faces(cuda, ext, kernel, flux, space):
                                rtol=RTOL, atol=ATOL)
 
 
-def _bits_equal(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+@pytest.mark.parametrize("ext", [4, 8])
+def test_cuda_stage_conserves_mesh_faces(cuda, ext, flux):
+    """The stage kernel on a periodic Forest.uniform(2) in 3D with the real
+    side layers (_state_side_layers) of a smooth seeded state, with
+    coefficients (0, 0, 1) and w[7] = 1, so that it returns D: both
+    elements of every mesh face evaluate the same flux, so the sum of D
+    over all cells vanishes per row to float32 round-off; and the result
+    is the plain version's bit for bit."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=3, periodic=True),
+                                   SubgridSpec((ext,) * 3))
+    s = SubgridCompressibleEulerSolver(mesh, _smooth_ic(3, 21 + ext, False))
+    w = tsg.face_weights(s.conn, s.spec, s.volumes).clone()
+    w[7] = 1.0
+    others = tsg._state_side_layers(s.u, s.conn, s.spec, s.volumes)
+    kw = dict(gamma=GAMMA, flux=flux, coeffs=(0.0, 0.0, 1.0))
+    before = fused_rk_stage.launches
+    kd, ksp = fused_rk_stage(s.u, None, w, others, **kw)
+    assert fused_rk_stage.launches == before + 1
+    rd, rsp = fused_rk_stage_reference(s.u, None, w, others, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kd).all())
+    d = kd.double().reshape(5, -1)
+    total, scale = d.sum(dim=1).abs(), d.abs().sum(dim=1)
+    assert bool((total <= 1e-6 * scale).all()), (total, scale)
+    assert _bits_equal(kd, rd) and _bits_equal(ksp, rsp)
 
 
 @pytest.mark.cuda
@@ -418,6 +459,10 @@ def test_cuda_logs_stage_matches_reference(cuda, dim, ext):
         assert k1[0].shape == u.shape
         ref = fused_rk_stage_reference(u7, prev, w, others7, **kw)
         _check_pair(k1, k2, ref, n_guard, guard_d_zero=False)
+        assert _bits_equal(k1[0], ref[0]) and _bits_equal(k1[1], ref[1])
+        res = fused_rk_stage_attributes(dim, ext, logs=True,
+                                        share_prev=share_prev)
+        assert res["spill_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -467,6 +512,31 @@ def test_cuda_inner_divergence_matches_reference(cuda, dim, ext):
     torch.cuda.synchronize()
     assert s1.dim() == 0 and _bits_equal(d1, d2) and _bits_equal(s1, s2)
     assert (d1[..., -n_guard:] == 0).all()
+    np.testing.assert_allclose(d1.cpu().numpy(), rd.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(s1), float(rs), rtol=RTOL)
+    assert inner_divergence_attributes(dim, ext)["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ext,E,n_live",
+                         [(3, 16, 576, 512), (2, 16, 4374, 4096),
+                          (3, 2, 279936, 262144), (3, 4, 4374, 4096)])
+def test_cuda_inner_divergence_at_smoke_shapes(cuda, dim, ext, E, n_live):
+    """The inner-only kernel at chip_smoke.py's INNER_KERNEL_SHAPES (3D
+    extent 16 in slabs of 4 planes, so the faces between slabs are
+    covered), dead slots after n_live."""
+    rng = np.random.default_rng(dim * 100 + ext + 1)
+    u = random_state(rng, (ext,) * dim + (E,))
+    vol = np.zeros(E, np.float32)
+    vol[:n_live] = rng.uniform(0.5, 1.0, n_live) ** dim
+    u, vol = torch.from_numpy(u).to(cuda), torch.from_numpy(vol).to(cuda)
+    d1, s1 = inner_divergence(u, vol, GAMMA, "kepes")
+    d2, s2 = inner_divergence(u, vol, GAMMA, "kepes")
+    rd, rs = inner_divergence_reference(u, vol, GAMMA, "kepes")
+    torch.cuda.synchronize()
+    assert _bits_equal(d1, d2) and _bits_equal(s1, s2)
+    assert (d1[..., n_live:] == 0).all()
     np.testing.assert_allclose(d1.cpu().numpy(), rd.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(float(s1), float(rs), rtol=RTOL)

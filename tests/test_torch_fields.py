@@ -58,6 +58,7 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops.rk import STAGE_2
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import GAMMA, noisy_kh, random_state
+from tests.torch_port_jax import interpret
 
 torch.set_num_threads(1)
 
@@ -236,10 +237,11 @@ def test_fused_rk_stage_fields_reference_matches_pallas():
     up = ts.u * 1.01
     tn, tsp = kernels.fused_rk_stage_fields_reference(
         q, up, w, others, gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
-    jn, jsp = fused_rk_stage_fields_pallas(
-        jnp.asarray(q.numpy()), jnp.asarray(up.numpy()),
-        jnp.asarray(w.numpy()), [jnp.asarray(o.numpy()) for o in others],
-        gamma=GAMMA, flux="kepes", coeffs=STAGE_2, interpret=True)
+    jn, jsp = interpret(
+        fused_rk_stage_fields_pallas, jnp.asarray(q.numpy()),
+        jnp.asarray(up.numpy()), jnp.asarray(w.numpy()),
+        [jnp.asarray(o.numpy()) for o in others], gamma=GAMMA, flux="kepes",
+        coeffs=STAGE_2)
     _close(tn.numpy(), jn)
     _close(tsp.numpy(), jsp)
     n = ts.n_elements

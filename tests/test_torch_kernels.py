@@ -21,6 +21,7 @@ from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
                                          fused_rk_stage_reference)
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 from tests.torch_port_inputs import GAMMA, stage_inputs
+from tests.torch_port_jax import interpret
 
 torch.set_num_threads(1)
 
@@ -48,10 +49,11 @@ def test_reference_matches_pallas(shape, flux, stage):
     dim, ext, E = shape
     share_prev, coeffs = stage
     u, up, w, others = stage_inputs(7 * dim + ext, dim, ext, E, N_GUARD)
-    jn, jsp = fused_rk_stage_pallas(
-        jnp.asarray(u), None if share_prev else jnp.asarray(up),
-        jnp.asarray(w), tuple(jnp.asarray(o) for o in others),
-        gamma=GAMMA, flux=flux, coeffs=coeffs, interpret=True)
+    jn, jsp = interpret(
+        fused_rk_stage_pallas, jnp.asarray(u),
+        None if share_prev else jnp.asarray(up), jnp.asarray(w),
+        tuple(jnp.asarray(o) for o in others), gamma=GAMMA, flux=flux,
+        coeffs=coeffs)
     jn, jsp = np.asarray(jax.block_until_ready(jn)), np.asarray(jsp)
     tn, tsp = fused_rk_stage_reference(
         torch.from_numpy(u), None if share_prev else torch.from_numpy(up),
@@ -104,9 +106,10 @@ def test_wrapper_rejects_unsupported_inputs():
         fused_rk_stage(ut, upt.double(), wt, ot, **kw)
     # what only the CUDA kernel refuses (checked before any launch)
     check = kernels._check_kernel_inputs
-    check(ut, upt, wt, ot, "kepes")
-    with pytest.raises(ValueError, match="kepes"):
-        check(ut, upt, wt, ot, "hll")
+    for flux in ("kepes", "hll", "hllc"):
+        check(ut, upt, wt, ot, flux)
+    with pytest.raises(ValueError, match="hllc flux, not 'roe'"):
+        check(ut, upt, wt, ot, "roe")
     with pytest.raises(ValueError, match="float32"):
         check(ut.double(), None, wt.double(), [o.double() for o in ot], "kepes")
     with pytest.raises(ValueError, match="contiguous"):
@@ -143,8 +146,50 @@ def test_stage_library_declares_c_signature(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: fake)
     lib = kernels._stage_library()
     args = lib.t8_fused_rk_stage.argtypes
-    assert args[:5] == [ctypes.c_int] * 5            # device, dim, ext, E, logs
-    assert args[5:16] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
-    assert args[16] is ctypes.c_double and args[17:20] == [ctypes.c_float] * 3
-    assert args[20] is ctypes.c_void_p and len(args) == 21   # the stream
+    assert args[:6] == [ctypes.c_int] * 6    # device, dim, ext, E, flux, logs
+    assert args[6:17] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
+    assert args[17] is ctypes.c_double and args[18:21] == [ctypes.c_float] * 3
+    assert args[21] is ctypes.c_void_p and len(args) == 22   # the stream
     assert lib.t8_cuda_error_string.restype is ctypes.c_char_p
+
+
+class _FakeAttributes:
+    """A C attributes entry point: records its arguments and fills out."""
+    argtypes = restype = None
+
+    def __call__(self, *args):
+        self.args = args
+        args[-1][:] = [88, 0, 128, 69632]
+        return 0
+
+
+@pytest.mark.parametrize("which", ["stage", "inner"])
+def test_attributes_declare_c_signature(monkeypatch, which):
+    """The stage and inner-only attributes entry points take the device
+    and the case as int and an int[4] out; the wrapper names the four
+    numbers."""
+    import ctypes
+    import types
+
+    from t8gpu_tpu_torch.ops import _build
+
+    def fn():
+        return types.SimpleNamespace(argtypes=None, restype=ctypes.c_int)
+    entry = _FakeAttributes()
+    fake = types.SimpleNamespace(
+        t8_fused_rk_stage=fn(), t8_inner_divergence=fn(),
+        t8_cuda_error_string=fn(), t8_fused_rk_stage_attributes=entry,
+        t8_inner_divergence_attributes=entry)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    if which == "stage":
+        got = kernels.fused_rk_stage_attributes(3, 8, flux="hllc",
+                                                share_prev=False)
+        case = (0, 3, 8, 2, 0, 0)     # device dim ext flux logs share_prev
+    else:
+        got = kernels.inner_divergence_attributes(3, 16)
+        case = (0, 3, 16)             # device dim ext
+    assert got == dict(registers=88, spill_bytes=0, threads=128,
+                       smem_bytes=69632)
+    assert entry.args[:-1] == case
+    assert entry.argtypes == ([ctypes.c_int] * len(case)
+                              + [ctypes.POINTER(ctypes.c_int)])

@@ -56,6 +56,7 @@ from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
 from tests.torch_port_inputs import (MHD_GAMMA, mhd_flux_inputs,
                                      mhd_muscl_inputs, noisy_orszag_tang,
                                      random_mhd_state)
+from tests.torch_port_jax import interpret
 
 torch.set_num_threads(1)
 
@@ -191,9 +192,9 @@ def test_flux_reference_matches_pallas(dim):
     """With conductor-wall side layers (about a quarter of each side) and
     guard slots: D = 0 and speed 0 there."""
     u, w, others = mhd_flux_inputs(50 + dim, dim, 4, 16, N_GUARD)
-    jd, jsp = fused_mhd_flux_pallas(jnp.asarray(u), jnp.asarray(w),
-                                    tuple(jnp.asarray(o) for o in others),
-                                    gamma=MHD_GAMMA, interpret=True)
+    jd, jsp = interpret(fused_mhd_flux_pallas, jnp.asarray(u),
+                        jnp.asarray(w), tuple(jnp.asarray(o) for o in others),
+                        gamma=MHD_GAMMA)
     td, tsp = fused_mhd_flux_reference(_t(u), _t(w),
                                        [_t(o) for o in others],
                                        gamma=MHD_GAMMA)
@@ -209,10 +210,9 @@ def test_muscl_reference_matches_pallas():
     the thermal-pressure guard."""
     limiter = "none"
     u, w, others = mhd_muscl_inputs(62, 2, 4, 16, N_GUARD, lo=0.02, hi=2.0)
-    jd, jsp = fused_mhd_muscl_pallas(jnp.asarray(u), jnp.asarray(w),
-                                     tuple(jnp.asarray(o) for o in others),
-                                     gamma=MHD_GAMMA, limiter=limiter,
-                                     interpret=True)
+    jd, jsp = interpret(fused_mhd_muscl_pallas, jnp.asarray(u),
+                        jnp.asarray(w), tuple(jnp.asarray(o) for o in others),
+                        gamma=MHD_GAMMA, limiter=limiter)
     args = (_t(u), _t(w), [_t(o) for o in others])
     td, tsp = fused_mhd_muscl_reference(*args, gamma=MHD_GAMMA,
                                         limiter=limiter)

@@ -50,6 +50,7 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_muscl_reference
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import GAMMA, muscl_inputs, noisy_kh, random_state
+from tests.torch_port_jax import interpret
 
 torch.set_num_threads(1)
 
@@ -164,10 +165,10 @@ def _kernel_id(case):
 def test_reference_matches_pallas(case):
     dim, ext, E, space, limiter, lo, hi = case
     u, w, others = muscl_inputs(dim * 10 + ext, dim, ext, E, N_GUARD, lo, hi)
-    jd, jsp = fused_muscl_pallas(
-        jnp.asarray(u), jnp.asarray(w), tuple(jnp.asarray(o) for o in others),
-        gamma=GAMMA, flux="kepes", limiter=limiter, space=space,
-        interpret=True)
+    jd, jsp = interpret(
+        fused_muscl_pallas, jnp.asarray(u), jnp.asarray(w),
+        tuple(jnp.asarray(o) for o in others), gamma=GAMMA, flux="kepes",
+        limiter=limiter, space=space)
     args = (torch.from_numpy(u), torch.from_numpy(w),
             [torch.from_numpy(o) for o in others])
     kw = dict(gamma=GAMMA, flux="kepes", limiter=limiter, space=space)
@@ -223,9 +224,9 @@ def test_wrapper_rejects_unsupported_inputs():
     check([ut, wt, *ot], "kepes", "MUSCL")
     with pytest.raises(ValueError, match="kepes"):
         check([ut, wt, *ot], "hll", "MUSCL")
-    check([ut, wt, *ot], "hllc", "MUSCL", kernels.MUSCL_CUDA_FLUXES)
+    check([ut, wt, *ot], "hllc", "MUSCL", kernels.CUDA_FLUXES)
     with pytest.raises(ValueError, match="hllc flux, not 'roe'"):
-        check([ut, wt, *ot], "roe", "MUSCL", kernels.MUSCL_CUDA_FLUXES)
+        check([ut, wt, *ot], "roe", "MUSCL", kernels.CUDA_FLUXES)
     with pytest.raises(ValueError, match="float32"):
         check([ut.double()], "kepes", "MUSCL")
     with pytest.raises(ValueError, match="contiguous"):
