@@ -28,9 +28,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    ragged ones; seeded random states, conductor-wall sides
                    for the flux kernel, every limiter/positivity case for
                    the MUSCL kernel; its registers and shared memory per
-                   block), then the stage kernel's 7-row log
-                   input, the field-input divergence and stage kernels
-                   (at the stage kernel's shapes) and the inner-only
+                   block; the first-order kernel's resources and a
+                   whole-wave time too), then the stage kernel's 7-row log
+                   input, the field-input divergence kernel and the
+                   field-input stage kernel (at the stage kernel's shapes;
+                   the stage in kepes, hll and hllc, one line each, with
+                   its resources and a whole-wave time) and the inner-only
                    kernel (Subgrid<16,16,16> with 512 live elements, and
                    2D extent 16, 3D extents 2 and 4; its resources and a
                    whole-wave time)
@@ -48,7 +51,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
   logs             the same with "logs": every stage one launch of the stage
                    kernel on 7-row states (counted apart)
   fields_vs_cpu    one step in each of the two modes on the card and on the
-                   CPU from the same state
+                   CPU from the same state, and one "fields" step with
+                   EulerConfig(flux="hll") and one with "hllc": 3 launches
+                   of the mode's kernel per step, none of any other
   divergence       ops/subgrid.flux_divergence at the flagship's state: one
                    field-input divergence launch per call, against the torch
                    stencil (use_kernel=False) on the card and the CPU; ms
@@ -78,7 +83,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
   mhd_order2       the same at order 2 (minmod): 3 fused_mhd_muscl per step
   mhd_vs_cpu       one step on the card and one on the CPU, order 1 and 2
 Then one JSON line with the seven kernels (the stage kernel's log input,
-hll and hllc as variants of its row) and, last, the device line
+hll and hllc as variants of its row, the field-input stage kernel's hll
+and hllc as variants of its row) and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -171,6 +177,11 @@ STAGE_FLUXES = ("kepes", "hll", "hllc")
 # inner-only kernel's at 3D extent 16 (one block per SM, each 8 elements'
 # slab of 2 of their 16 planes: 132 elements a wave, x 4 waves)
 STAGE_WAVE_E, INNER_WAVE_E = 4224, 528
+# the field-input stage kernel's at 3D extent 8 (two blocks per SM, each 8
+# elements' slab of 2 of their 8 planes: 528 elements a wave, x 8 waves)
+# and the first-order MHD kernel's at 2D extent 8 (two blocks per SM of 16
+# whole elements: 4224 elements a wave, x 5 waves)
+FIELDS_WAVE_E, MHD_FLUX_WAVE_E = 4224, 21120
 FLAGSHIP_LEVEL, LARGE_LEVEL = 4, 5
 MHD_LEVEL = 7
 # the MHD kernels at the Orszag-Tang shape (E its capacity, filled in by
@@ -183,8 +194,11 @@ INNER_KERNEL_SHAPES = ((3, 16, 576, 512), (2, 16, 4374, 4096),
                        (3, 2, 279936, 262144), (3, 4, 4374, 4096))
 EXT16_LEVEL = 3
 # what the profiler's name of a path's kernel contains: the MUSCL kernels
-# are muscl_pencil.cuh's walk, named by their physics policy
-PROFILE_KEYS = {"fused_muscl": "Euler", "fused_mhd_flux":
+# are muscl_pencil.cuh's walk, named by their physics policy; each key
+# matches no other kernel's name
+PROFILE_KEYS = {"fused_rk_stage": "fused_rk_stage_kernel",
+                "fused_rk_stage_fields": "fused_rk_stage_fields_kernel",
+                "fused_muscl": "Euler", "fused_mhd_flux":
                 "fused_mhd_flux_kernel", "fused_mhd_muscl": "Mhd"}
 # the stage inputs the stage kernels take (ops/subgrid.RK_STAGE_INPUTS)
 STAGE_INPUT_KERNELS = {"fields": "fused_rk_stage_fields",
@@ -293,17 +307,19 @@ def logs_cost(dim, ext, E, share_prev):
     return 4 * (read + write), ops
 
 
-def fields_cost(dim, ext, E, rk, share_prev):
-    """(bytes, ops) of the field-input kernels: q (10 rows), the weights
-    and the field side layers read once, D or u_next and the speed written
-    once (u_prev read too at stages 2-3); each interface's flux once, and
-    for the stage the state recovery and the update per cell."""
+def fields_cost(dim, ext, E, rk, share_prev, flux="kepes"):
+    """(bytes, ops) of the field-input kernels: q (10 rows kepes, 9
+    hll/hllc), the weights and the field side layers read once, D or
+    u_next and the speed written once (u_prev read too at stages 2-3);
+    each interface's flux once, and for the stage the state recovery and
+    the update per cell."""
     B, T = ext ** dim, ext ** (dim - 1)
-    read = 10 * B * E + 8 * E + 2 * dim * 10 * T * E
+    C = 10 if flux == "kepes" else 9
+    read = C * B * E + 8 * E + 2 * dim * C * T * E
     if rk and not share_prev:
         read += 5 * B * E
     write = 5 * B * E + E
-    ops = E * dim * (ext + 1) * T * (FLUX_OPS + FACE_OPS)
+    ops = E * dim * (ext + 1) * T * (STAGE_FLUX_OPS[flux] + FACE_OPS)
     if rk:
         ops += E * B * (RECOVER_OPS + UPDATE_OPS)
     return 4 * (read + write), ops
@@ -553,8 +569,10 @@ def _kernel_row(name, errs, timing, extra=None):
 def phase_kernel_mhd_flux():
     """The first-order MHD kernel against its plain version at the
     Orszag-Tang shape and three ragged shapes, with conductor-wall sides;
-    timed at the Orszag-Tang shape."""
+    timed at the Orszag-Tang shape and at MHD_FLUX_WAVE_E elements (whole
+    waves of blocks), with its resources there."""
     from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
+                                             fused_mhd_flux_attributes,
                                              fused_mhd_flux_reference)
     errs = [0.0, 0.0, 0.0]
     for i, (dim, ext, E, n_live) in enumerate(mhd_kernel_shapes()):
@@ -570,7 +588,14 @@ def phase_kernel_mhd_flux():
                       cuda_ms(lambda: fused_mhd_flux_reference(
                           *args, gamma=MHD_GAMMA), reps=3, warmup=1)) \
                 + mhd_cost(dim, ext, E, 9, recon=False)
-    return _kernel_row("fused_mhd_flux", errs, timing)
+            res = _resources(fused_mhd_flux_attributes(dim, ext))
+            wave = mhd_inputs("flux", dim * 10 + ext, dim, ext,
+                              MHD_FLUX_WAVE_E, MHD_FLUX_WAVE_E)
+            t_wave = cuda_ms(lambda: fused_mhd_flux(*wave, gamma=MHD_GAMMA),
+                             reps=20)
+    return _kernel_row("fused_mhd_flux", errs, timing, {
+        "bit_identical": errs[0] == 0.0, "resources": res,
+        f"E{MHD_FLUX_WAVE_E}_kernel_ms": f"{t_wave:.4f}"})
 
 
 def phase_kernel_mhd_muscl():
@@ -673,28 +698,32 @@ def phase_kernel_logs():
     return _mixed_row("fused_rk_stage_logs", errs, timing, extra)
 
 
-def _field_inputs(seed, dim, ext, E, n_live):
-    """Stage inputs with the state and the side layers turned into kepes
-    cell-field rows on the card (ops/euler.cell_fields_tuple)."""
+def _field_inputs(seed, dim, ext, E, n_live, flux="kepes"):
+    """Stage inputs with the state and the side layers turned into the
+    flux's cell-field rows on the card (ops/euler.cell_fields_tuple)."""
     from t8gpu_tpu_torch.ops.euler import cell_fields_tuple
     u, up, w, others = stage_inputs(seed, dim, ext, E, n_live)
-    fields = lambda t: torch.stack(cell_fields_tuple(t, GAMMA, "kepes"))
+    fields = lambda t: torch.stack(cell_fields_tuple(t, GAMMA, flux))
     return fields(u), up, w, [fields(o) for o in others]
 
 
 def phase_kernel_fields():
-    """The field-input divergence kernel and the field-input stage kernel
-    (three stage-coefficient sets) against their plain versions at the
-    stage kernel's shapes, on the fields of seeded states; timed at the
-    flagship shape."""
+    """The field-input divergence kernel (kepes) and the field-input stage
+    kernel (kepes, hll and hllc; three stage-coefficient sets) against
+    their plain versions at the stage kernel's shapes, on the fields of
+    seeded states; timed at the flagship shape, the stage per flux (stage
+    1 and stages 2-3) with the resources of those instantiations and, in
+    kepes, a time at FIELDS_WAVE_E elements (whole waves of blocks).
+    Returns (the divergence's row fields, {flux: the stage's})."""
     from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
                                              fused_rk_stage_fields,
+                                             fused_rk_stage_fields_attributes,
                                              fused_rk_stage_fields_reference)
     from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 
-    errs_d, errs_s, timing = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], {}
+    errs_d = [0.0, 0.0, 0.0]
     for i, (dim, ext, E, n_live) in enumerate(KERNEL_SHAPES):
-        q, up, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live)
+        q, _, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live)
         kw = dict(gamma=GAMMA, flux="kepes")
         k1 = fused_flux(q, w, oq, **kw)
         k2 = fused_flux(q, w, oq, **kw)
@@ -706,26 +735,46 @@ def phase_kernel_fields():
                       cuda_ms(lambda: fused_flux_reference(q, w, oq, **kw),
                               reps=3, warmup=1)) \
                 + fields_cost(dim, ext, E, rk=False, share_prev=True)
-        for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
-                                   (False, STAGE_3)):
-            args = (q, None if share_prev else up, w, oq)
-            kws = dict(kw, coeffs=coeffs)
-            k1 = fused_rk_stage_fields(*args, **kws)
-            k2 = fused_rk_stage_fields(*args, **kws)
-            ref = fused_rk_stage_fields_reference(*args, **kws)
-            torch.cuda.synchronize()
-            _hold(f"fused_rk_stage_fields {dim}d ext{ext}", k1, k2, ref,
-                  n_live, errs_s, stage=True)
-            if i == 0 and coeffs != STAGE_3:
-                timing[share_prev] = (
-                    cuda_ms(lambda: fused_rk_stage_fields(*args, **kws),
-                            reps=20),
-                    cuda_ms(lambda: fused_rk_stage_fields_reference(
-                        *args, **kws), reps=3, warmup=1)) \
-                    + fields_cost(dim, ext, E, rk=True,
-                                  share_prev=share_prev)
-    return (_kernel_row("fused_flux", errs_d, t_flux),
-            _mixed_row("fused_rk_stage_fields", errs_s, timing))
+    rows = {}
+    for flux in STAGE_FLUXES:
+        errs, timing = [0.0, 0.0, 0.0], {}
+        for i, (dim, ext, E, n_live) in enumerate(KERNEL_SHAPES):
+            q, up, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live,
+                                         flux)
+            for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
+                                       (False, STAGE_3)):
+                args = (q, None if share_prev else up, w, oq)
+                kws = dict(gamma=GAMMA, flux=flux, coeffs=coeffs)
+                k1 = fused_rk_stage_fields(*args, **kws)
+                k2 = fused_rk_stage_fields(*args, **kws)
+                ref = fused_rk_stage_fields_reference(*args, **kws)
+                torch.cuda.synchronize()
+                _hold(f"fused_rk_stage_fields {flux} {dim}d ext{ext}", k1, k2,
+                      ref, n_live, errs, stage=True)
+                if i == 0 and coeffs != STAGE_3:
+                    timing[share_prev] = (
+                        cuda_ms(lambda: fused_rk_stage_fields(*args, **kws),
+                                reps=20),
+                        cuda_ms(lambda: fused_rk_stage_fields_reference(
+                            *args, **kws), reps=3, warmup=1)) \
+                        + fields_cost(dim, ext, E, rk=True,
+                                      share_prev=share_prev, flux=flux)
+        dim, ext = KERNEL_SHAPES[0][:2]
+        extra = {"bit_identical": errs[0] == 0.0}
+        for share_prev in (True, False):
+            extra[f"resources_stage{1 if share_prev else 23}"] = _resources(
+                fused_rk_stage_fields_attributes(dim, ext, flux=flux,
+                                                 share_prev=share_prev))
+        if flux == "kepes":
+            q, _, w, oq = _field_inputs(dim * 10 + ext, dim, ext,
+                                        FIELDS_WAVE_E, FIELDS_WAVE_E)
+            kws = dict(gamma=GAMMA, flux=flux, coeffs=STAGE_1)
+            extra[f"E{FIELDS_WAVE_E}_stage1_ms"] = (
+                f"{cuda_ms(lambda: fused_rk_stage_fields(q, None, w, oq, **kws), reps=20):.4f}")
+        name = "fused_rk_stage_fields" + ("" if flux == "kepes"
+                                          else f"_{flux}")
+        rows[flux] = _mixed_row(name, errs, timing, extra)
+    return _kernel_row("fused_flux", errs_d, t_flux), rows
 
 
 def phase_kernel_inner():
@@ -865,7 +914,7 @@ def phase_flagship(profile_dir):
           mass_drift=f"{drift:.3e}", dt=f"{float(dt):.6e}")
     if profile_dir is not None:
         _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "flagship",
-                 "fused_rk_stage_kernel")
+                 PROFILE_KEYS["fused_rk_stage"])
     return launches
 
 
@@ -974,34 +1023,52 @@ def phase_stage_inputs(mode, profile_dir):
               dof_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
               mass_drift=f"{drift:.3e}", dt=f"{float(dt):.6e}")
         if profile_dir is not None:
-            key = ("fused_fields_kernel" if mode == "fields"
-                   else "fused_rk_stage_kernel")
+            key = PROFILE_KEYS["fused_rk_stage_fields" if mode == "fields"
+                               else "fused_rk_stage"]
             _profile(solver, dt, ms_step, pathlib.Path(profile_dir), mode,
                      key)
     return counts[name]
 
 
 def phase_fields_vs_cpu():
-    """One flagship step in each of the two stage-input modes on the card
-    and on the CPU (plain versions) from the same state."""
+    """One flagship step in each of the two stage-input modes, and in the
+    "fields" mode with the hll and the hllc flux, on the card and on the
+    CPU (plain versions) from the same state; each card step 3 launches of
+    the mode's kernel and none of any other.  Returns the field-input
+    stage kernel's launches of the hll and hllc steps, by flux."""
+    from t8gpu_tpu_torch import EulerConfig
     torch.set_num_threads(os.cpu_count() or 1)
-    for mode in ("fields", "logs"):
-        gpu = flagship_solver(FLAGSHIP_LEVEL)
-        cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu")
+    launches = {}
+    for mode, flux in (("fields", "kepes"), ("logs", "kepes"),
+                       ("fields", "hll"), ("fields", "hllc")):
+        config = EulerConfig(flux=flux)
+        gpu = flagship_solver(FLAGSHIP_LEVEL, config=config)
+        cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu", config=config)
         if not torch.equal(gpu.u.cpu(), cpu.u):
             raise AssertionError("fields_vs_cpu: initial states differ")
         dt = gpu.compute_timestep()
+        name = STAGE_INPUT_KERNELS[mode]
         with stage_inputs_mode(mode):
+            reset_launches()                # count this step only
             gpu.iterate(dt)
+            torch.cuda.synchronize()
+            counts = launch_counts()
             t0 = time.perf_counter()
             cpu.iterate(dt)
             cpu_s = time.perf_counter() - t0
-        a, r, t = compare(f"fields_vs_cpu {mode}",
+        want = {n: 3 if n == name else 0 for n in counts}
+        if counts != want:
+            raise AssertionError(f"fields_vs_cpu {mode} {flux}: launches "
+                                 f"{counts}, expected {want}")
+        launches[flux] = counts[name]
+        a, r, t = compare(f"fields_vs_cpu {mode} {flux}",
                           torch.from_numpy(gpu.conserved_state()),
                           torch.from_numpy(cpu.conserved_state()))
-        phase("fields_vs_cpu", stage_inputs=mode, max_abs_err=f"{a:.3e}",
+        phase("fields_vs_cpu", stage_inputs=mode, flux=flux,
+              launches=counts[name], max_abs_err=f"{a:.3e}",
               max_rel_err=f"{r:.3e}", tolerance_used=f"{t:.3f}", rtol=RTOL,
               atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
+    return launches
 
 
 def _hold_divergence(name, got, want):
@@ -1375,7 +1442,7 @@ def main(argv=None) -> int:
     phase_flagship_vs_cpu()
     fields_launches = phase_stage_inputs("fields", args.profile)
     logs_launches = phase_stage_inputs("logs", args.profile)
-    phase_fields_vs_cpu()
+    fields_flux_launches = phase_fields_vs_cpu()
     flux_launches = phase_divergence()
     inner_launches = phase_ext16()
     phase_large()
@@ -1404,6 +1471,15 @@ def main(argv=None) -> int:
         row(f"fused_rk_stage_{f}", "t8gpu_tpu/ops/pallas_kernels.py:1190",
             stage_flux_launches[f], k_stages[f], "fused_rk_stage")
         for f in ("hll", "hllc")]
+    fields = row("fused_rk_stage_fields",
+                 "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_launches,
+                 k_fields["kepes"], "fused_rk_stage")
+    # the hll and hllc fluxes of the field-input stage kernel, with the
+    # launches of their fields_vs_cpu steps
+    fields["variants"] = [
+        row(f"fused_rk_stage_fields_{f}",
+            "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_flux_launches[f],
+            k_fields[f], "fused_rk_stage") for f in ("hll", "hllc")]
     print(json.dumps({"kernels": [
         stage,
         row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",
@@ -1414,8 +1490,7 @@ def main(argv=None) -> int:
             mhd_launches, k_mhd_flux),
         row("fused_mhd_muscl", "t8gpu_tpu/ops/pallas_kernels.py:777",
             mhd_muscl_launches, k_mhd_muscl),
-        row("fused_rk_stage_fields", "t8gpu_tpu/ops/pallas_kernels.py:1329",
-            fields_launches, k_fields, "fused_fields"),
+        fields,
         row("inner_divergence", "t8gpu_tpu/ops/pallas_kernels.py:1425",
             inner_launches, k_inner)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

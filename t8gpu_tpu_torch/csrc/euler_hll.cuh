@@ -1,6 +1,7 @@
 // The hll and hllc interface fluxes on face-frame fields, shared by the
-// first-order stage kernel (fused_rk_stage.cu, fields of each cell) and
-// the MUSCL kernel (fused_muscl.cu, fields of each reconstruction): the
+// first-order stage kernels (fused_rk_stage.cu, fields of each cell,
+// derived from the state or read as field rows) and the MUSCL kernel
+// (fused_muscl.cu, fields of each reconstruction): the
 // arithmetic of hll_fields_flux and hllc_fields_flux in
 // t8gpu_tpu_torch/ops/euler.py, in the same order (IEEE divisions and
 // square roots, --fmad=false).  Min, max and clamp propagate NaN, as
@@ -116,6 +117,19 @@ __device__ __forceinline__ float hllc_flux(const HllFields& L, const HllFields& 
   else
     hllc_side(R, s_r, s_m, false, f);
   return t8pencil::nan_max(fabsf(s_l), fabsf(s_r));
+}
+
+// hll_flux (FLUX HLL) or hllc_flux (HLLC) across a +A face from the two
+// cells' fields in the +A frame; f comes back in x, y, z rows.
+template <int FLUX, int A>
+__device__ __forceinline__ float hll_family_flux(const HllFields& L,
+                                                 const HllFields& R,
+                                                 const Consts& k, float f[5]) {
+  float fr[5];
+  const float sp = FLUX == HLL ? hll_flux(L, R, k, fr) : hllc_flux(L, R, k, fr);
+#pragma unroll
+  for (int i = 0; i < 5; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
+  return sp;
 }
 
 }  // namespace

@@ -8,7 +8,7 @@
 //
 //   F(i|i+1) = Rusanov + exact GLM flux (mhd_rusanov.cuh) from the rotated
 //              states of cells i and i+1, with the cleaning speed c_h
-//   D(c)    += w(c-1|c) F(c-1|c) - w(c|c+1) F(c|c+1)
+//   D(c)     = (D(c) + w(c-1|c) F(c-1|c)) - w(c|c+1) F(c|c+1), axis 0 first
 //   speed    = per-element max signal speed over the masked interfaces
 //
 // At the block edge the other state is the side layer (the equal-level
@@ -31,134 +31,159 @@
 // interface, 3.2M interfaces) is ~0.7 GFLOP, 10 us at the fp32 peak, so
 // the bytes bound it.
 //
-// Design (the simple version that is right first, as the Euler kernels):
-// one thread per (element, cell), elements fastest across threadIdx.x, so
-// a warp's load of one cell row is one coalesced 128-byte line and all
-// threads of a warp share one cell (no divergence at the block edges).
-// Each thread loads its own state once per axis and evaluates its two
-// interfaces from it and the state on either side, so every interior
-// interface is evaluated twice, by the same code on the same inputs.  The
-// ragged element edge is masked, not padded; the per-element speed max is
-// one atomicMax on float bits.
+// Design: the first-order pencil walk of muscl_pencil.cuh (walk1_slab),
+// shared with the Euler stage kernels, on the 9 state rows (the Glm
+// policy below: a cell's rows rotated into the face frame, the flux
+// rotated back).  A block stages a tile of elements in shared memory (all
+// of a thread's loads in flight at once), walks each pencil in two
+// segments, evaluating each interface once (the one between the segments
+// by both, the same bits), keeps D in a shared tile between axes and
+// writes it in one pass, elements fastest.  At 2D extent 8 a block holds
+// 16 elements: 256 threads, 83,968 bytes of shared memory, two blocks per
+// SM, 87 registers (8 or 32 elements per block, one segment per pencil,
+// blocks that stay resident and stage the next tile while they walk, and
+// D from the faces in a second pass all ran slower); at 3D extent 8 a
+// slab of 2 of the 8 planes along axis 0 of 8
+// elements, whose axis-0 pencils read the planes beyond the slab in
+// device memory (the face between two slabs evaluated by both, from the
+// same two states), and an element's speed combines its slabs' by one
+// atomicMax on the bits of the non-negative float into the zero-filled
+// [E].  Every instantiation's resources: t8_fused_mhd_flux_attributes.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "mhd_rusanov.cuh"
+#include "muscl_pencil.cuh"
 
 namespace {
 
-using namespace t8mhd;
+constexpr int ROWS = t8mhd::ROWS;
 
-// The two interfaces of the thread's cell along axis A:
-// D += w_lo F(ia-1 | ia) - w_hi F(ia | ia+1).
-template <int DIM, int EXT, int A>
-__device__ __forceinline__ void axis_update(
-    const float* __restrict__ u, const Sides& sides, const float* __restrict__ w,
-    const int idx[3], int c, const Site& st, float surface, float interior_ok,
-    float ch, const Consts& k, float D[ROWS], float& spd) {
-  constexpr int stride = ipow(EXT, DIM - 1 - A);  // cell stride along A
-  const int ia = idx[A];
-  const long long toff =
-      (long long)tangent_index<DIM, EXT, A>(idx) * st.Es + st.e;
-  const float w_hi = __ldg(w + (1 + 2 * A) * st.Es + st.e);
-  const float w_lo = __ldg(w + (2 + 2 * A) * st.Es + st.e);
-  const float eq_hi = w_hi > 0.0f ? 1.0f : 0.0f;
-  const float eq_lo = w_lo > 0.0f ? 1.0f : 0.0f;
+// The GLM-MHD physics of walk1: the 9 state rows staged as they are, a
+// cell's rows rotated into the +A face frame, the Rusanov/GLM flux with
+// c_h = aux (weight row 7) rotated back into x, y, z rows.
+struct Glm {
+  static constexpr int RIN = ROWS, RS = ROWS, RD = ROWS;
+  using Params = t8mhd::Consts;
+  struct Cell {
+    float s[ROWS];
+  };
 
-  float me[ROWS];
-  load9<A>(u, st.rs, (long long)c * st.Es + st.e, me);
-
-#pragma unroll 1
-  for (int h = 0; h < 2; ++h) {  // h = 0: the -A face, h = 1: the +A face
-    float nb[ROWS];
-    if (h == 0) {
-      if (ia == 0)
-        load9<A>(sides.p[2 * A + 1], st.ls, toff, nb);
-      else
-        load9<A>(u, st.rs, (long long)(c - stride) * st.Es + st.e, nb);
-    } else {
-      if (ia == EXT - 1)
-        load9<A>(sides.p[2 * A], st.ls, toff, nb);
-      else
-        load9<A>(u, st.rs, (long long)(c + stride) * st.Es + st.e, nb);
-    }
-    float l[ROWS], r[ROWS];
+  __device__ static __forceinline__ void convert(const float* r, float s[ROWS],
+                                                 const Params&) {
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      l[i] = h == 0 ? nb[i] : me[i];
-      r[i] = h == 0 ? me[i] : nb[i];
-    }
-    float f[ROWS];
-    const float sp = rusanov(l, r, ch, k, f);
-    float wgt;
-    if (h == 0) {
-      wgt = ia == 0 ? w_lo : surface;
-      if (ia == 0) spd = fmaxf(spd, sp * eq_lo);
-    } else {
-      wgt = ia == EXT - 1 ? w_hi : surface;
-      spd = fmaxf(spd, sp * (ia == EXT - 1 ? eq_hi : interior_ok));
-    }
-    float fw[ROWS];
-    unrotate9<A>(f, wgt, fw);
-    if (h == 0) {
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) D[i] = D[i] + fw[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) D[i] = D[i] - fw[i];
-    }
+    for (int i = 0; i < ROWS; ++i) s[i] = r[i];
   }
+
+  template <int A>
+  __device__ static __forceinline__ Cell cell(const float s[ROWS], const Params&) {
+    Cell q;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) q.s[i] = s[t8pencil::frame_row(A, i)];
+    return q;
+  }
+
+  template <int A>
+  __device__ static __forceinline__ float flux(const Cell& L, const Cell& R,
+                                               float ch, const Params& k,
+                                               float f[ROWS]) {
+    float fr[ROWS];
+    const float sp = t8mhd::rusanov(L.s, R.s, ch, k, fr);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
+    return sp;
+  }
+};
+
+// A block takes a slab of PL planes along axis 0 (2 at 3D extent 8, else
+// the whole element) of MHD_SLOTS / T elements (T pencils of a slab along
+// the other axes), MHD_SPLIT threads per pencil: 256 threads in every
+// case; registers for MHD_MIN_BLOCKS blocks per SM.
+constexpr int MHD_SLOTS = 128, MHD_SPLIT = 2, MHD_MIN_BLOCKS = 2;
+
+__host__ __device__ constexpr int mhd_planes(int dim, int ext) {
+  return dim == 3 && ext == 8 ? 2 : ext;
 }
 
 template <int DIM, int EXT>
-__global__ void __launch_bounds__(TILE_E* TILE_C)
-    fused_mhd_flux_kernel(const float* __restrict__ u,
-                          const float* __restrict__ w, Sides sides,
-                          float* __restrict__ D_out,
-                          unsigned int* __restrict__ speed, int E, Consts k) {
-  constexpr int B = ipow(EXT, DIM);
-  constexpr int T = B / EXT;
-  static_assert(B % TILE_C == 0, "cells per block must divide the block");
-
-  const int e = blockIdx.x * TILE_E + threadIdx.x;
-  const int c = blockIdx.y * TILE_C + threadIdx.y;
-  const bool live = e < E;
-  float spd = 0.0f;
-  if (live) {
-    Site st;
-    st.e = e;
-    st.Es = E;
-    st.rs = (long long)B * st.Es;
-    st.ls = (long long)T * st.Es;
-    int idx[3];
-    cell_coords<DIM, EXT>(c, idx);
-    const float surface = __ldg(w + e);
-    const float interior_ok = surface > 0.0f ? 1.0f : 0.0f;
-    const float ch = __ldg(w + 7 * st.Es + e);
-    float D[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) D[i] = 0.0f;
-    axis_update<DIM, EXT, 0>(u, sides, w, idx, c, st, surface, interior_ok,
-                             ch, k, D, spd);
-    axis_update<DIM, EXT, 1>(u, sides, w, idx, c, st, surface, interior_ok,
-                             ch, k, D, spd);
-    if constexpr (DIM == 3)
-      axis_update<DIM, EXT, 2>(u, sides, w, idx, c, st, surface, interior_ok,
-                               ch, k, D, spd);
-    const long long off = (long long)c * st.Es + e;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) D_out[i * st.rs + off] = D[i];
-  }
-  element_speed_max(spd, live, e, speed);
-}
+struct MhdShape {
+  static constexpr int PL = mhd_planes(DIM, EXT);
+  static constexpr int T = PL * t8pencil::ipow(EXT, DIM - 1) / EXT;
+  using Blk = t8pencil::Block<MHD_SLOTS / T, MHD_SPLIT, MHD_MIN_BLOCKS>;
+};
 
 template <int DIM, int EXT>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* u,
-            const float* w, Sides sides, float* D, unsigned int* speed, int E,
-            Consts k) {
-  fused_mhd_flux_kernel<DIM, EXT><<<grid, block, 0, stream>>>(u, w, sides, D,
-                                                             speed, E, k);
+using MhdTile = t8pencil::Tile<ROWS, DIM, EXT, typename MhdShape<DIM, EXT>::Blk,
+                               MhdShape<DIM, EXT>::PL, ROWS>;
+
+// The divergence of a block's slab of its elements (walk1_slab), written
+// in one pass over the tile, and the per-element speed max.
+template <int DIM, int EXT>
+__global__ void __launch_bounds__(MhdTile<DIM, EXT>::THREADS, MHD_MIN_BLOCKS)
+    fused_mhd_flux_kernel(t8pencil::Args g, t8mhd::Consts k) {
+  using Tl = MhdTile<DIM, EXT>;
+  constexpr int B = Tl::B, NSLAB = EXT / MhdShape<DIM, EXT>::PL;
+  extern __shared__ float smem[];
+  float* st = smem;             // states
+  float* sd = st + Tl::TILE;    // D
+  float* red = sd + Tl::DTILE;  // [SLOTS][TE] speeds
+
+  const int slab = blockIdx.x % NSLAB;
+  const int e0 = (blockIdx.x / NSLAB) * Tl::TE;
+  const float spd = t8pencil::walk1_slab<Glm, Tl, DIM, EXT>(g, st, sd, slab, e0, k);
+
+  const long long Es = g.E;
+  const long long rs = (long long)t8pencil::ipow(EXT, DIM) * Es;  // row stride
+  t8pencil::for_cells<Tl, B>(e0, g.E, [&](int c, int ee, int cx) {
+    const long long off = (long long)(slab * B + c) * Es + ee;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) g.D[r * rs + off] = sd[Tl::at(r, c, cx)];
+  });
+  const int e = e0 + threadIdx.x;
+  t8pencil::element_speed<Tl, (NSLAB > 1)>(red, spd, e < g.E, g.speed, e);
 }
+
+// Call fn.template run<DIM, EXT>() for the case; cudaErrorInvalidValue
+// for a case none takes.
+template <class Fn>
+int with_case(int dim, int ext, const Fn& fn) {
+  if (dim == 3 && ext == 8) return fn.template run<3, 8>();
+  if (dim == 3 && ext == 4) return fn.template run<3, 4>();
+  if (dim == 2 && ext == 8) return fn.template run<2, 8>();
+  if (dim == 2 && ext == 4) return fn.template run<2, 4>();
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Launcher {
+  int device;
+  const t8pencil::Args& g;
+  const t8mhd::Consts& k;
+  cudaStream_t stream;
+  template <int DIM, int EXT>
+  int run() const {
+    using Tl = MhdTile<DIM, EXT>;
+    auto kern = fused_mhd_flux_kernel<DIM, EXT>;
+    static bool raised[64] = {};
+    const int err = t8pencil::raise_smem((const void*)kern, Tl::SMEM, device, raised);
+    if (err != 0) return err;
+    const dim3 block(Tl::TE, Tl::SLOTS);
+    const dim3 grid((g.E + Tl::TE - 1) / Tl::TE * (EXT / mhd_planes(DIM, EXT)));
+    kern<<<grid, block, Tl::SMEM, stream>>>(g, k);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct Attributes {
+  int* out;
+  template <int DIM, int EXT>
+  int run() const {
+    using Tl = MhdTile<DIM, EXT>;
+    return t8pencil::kernel_attributes((const void*)fused_mhd_flux_kernel<DIM, EXT>,
+                                       Tl::THREADS, Tl::SMEM, out);
+  }
+};
 
 }  // namespace
 
@@ -175,23 +200,19 @@ extern "C" int t8_fused_mhd_flux(int device, int dim, int ext, int E,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return (int)cudaErrorInvalidValue;
-  const int B = ext == 8 ? (dim == 3 ? 512 : 64) : (dim == 3 ? 64 : 16);
-  const dim3 block(TILE_E, TILE_C);
-  const dim3 grid((E + TILE_E - 1) / TILE_E, B / TILE_C);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Sides sides = {{o0, o1, o2, o3, o4, o5}};
-  const Consts k = make_consts(gamma);
-  if (dim == 3 && ext == 8)
-    launch<3, 8>(grid, block, s, u, w, sides, D, speed, E, k);
-  else if (dim == 3 && ext == 4)
-    launch<3, 4>(grid, block, s, u, w, sides, D, speed, E, k);
-  else if (dim == 2 && ext == 8)
-    launch<2, 8>(grid, block, s, u, w, sides, D, speed, E, k);
-  else if (dim == 2 && ext == 4)
-    launch<2, 4>(grid, block, s, u, w, sides, D, speed, E, k);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const t8pencil::Args g{u, w, {o0, o1, o2, o3, o4, o5}, D, speed, E};
+  const t8mhd::Consts k = t8mhd::make_consts(gamma);
+  return with_case(dim, ext, Launcher{device, g, k, static_cast<cudaStream_t>(stream)});
+}
+
+// Registers, spilled (local) bytes per thread, threads per block and
+// shared memory per block of the case's kernel, into out[0..3].  Returns
+// a cudaError_t.
+extern "C" int t8_fused_mhd_flux_attributes(int device, int dim, int ext,
+                                            int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return with_case(dim, ext, Attributes{out});
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

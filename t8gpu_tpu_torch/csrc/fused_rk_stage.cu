@@ -1,62 +1,86 @@
 // One SSP-RK stage of the subgrid compressible-Euler scheme, fused into one
-// kernel for NVIDIA Hopper (sm_90a).
+// kernel for NVIDIA Hopper (sm_90a), from the state or from cell fields.
 //
-// Replaces the TPU kernel fused_rk_stage_pallas
-// (t8gpu_tpu/ops/pallas_kernels.py:1190, body _fused_rk_kernel :1100 and
-// _tile_flux_divergence :97) for the kepes, hll and hllc fluxes, 5-row
-// state inputs or (kepes) 7-row ones with log rho and log p in rows 5-6
-// (the "logs" stage input), no hanging-face extras, mu = 0 and no gravity.
-// It computes, per element E and cell c of its [EXT]^DIM block:
+// Replaces two TPU kernels of t8gpu_tpu/ops/pallas_kernels.py, for no
+// hanging-face extras, mu = 0 and no gravity:
+//   * fused_rk_stage_pallas (:1190, body _fused_rk_kernel :1100 and
+//     _tile_flux_divergence :97), kernel fused_rk_stage_kernel: kepes,
+//     hll and hllc on 5-row state inputs, or (kepes) 7-row ones with log
+//     rho and log p in rows 5-6 (the "logs" stage input);
+//   * fused_rk_stage_fields_pallas (:1329, body _fused_rk_fields_kernel
+//     :1282), kernel fused_rk_stage_fields_kernel: kepes, hll and hllc on
+//     the caller's cell-field rows (the "fields" stage input), the stage
+//     state recovered from them (_recover_state_rows :1268: m = rho v,
+//     e = p / (gamma - 1) + rho ke for kepes, rho h - p for hll/hllc).
+// Both compute, per element E and cell c of its [EXT]^DIM block:
 //
 //   D(c)   = sum over axes a of  w_lo(c,a) F(c-1 -> c) - w_hi(c,a) F(c -> c+1)
 //   out(c) = (ca * u_prev(c) + cb * u(c)) + (cc * w[7]) * D(c)
 //   speed  = per-element max wave speed over the masked interfaces
 //
-// where the interface flux F is fields_flux of t8gpu_tpu/ops/euler.py on
-// per-cell fields (cell_fields_tuple): kepes_fields_flux (euler_kepes.cuh),
+// with u_prev = u when it is not given (stage 1), where the interface
+// flux F is fields_flux of t8gpu_tpu/ops/euler.py on per-cell fields
+// (cell_fields_tuple): kepes_fields_flux (euler_kepes.cuh),
 // hll_fields_flux or hllc_fields_flux (euler_hll.cuh).  Interfaces inside
 // the block carry weight w[0] (the cell face area); the +a face of the
 // last cell reads the side layer others[2a] with weight w[1+2a], the -a
-// face of cell 0 the side layer others[2a+1] with weight w[2+2a].
+// face of cell 0 the side layer others[2a+1] with weight w[2+2a] (a wall
+// side carries the mirrored own layer, built by the caller).
 //
-// Layout (element-minor, as in the JAX package): u is [5 or 7, EXT^DIM, E],
-// u_prev and out [5, EXT^DIM, E]; w is [8, E]; side layer k is [5 or 7,
-// EXT^(DIM-1), E] with the tangent axes in increasing order; speed is [E]
-// (float bits).
+// Layout (element-minor, as in the JAX package): u is [5 or 7, EXT^DIM,
+// E], or the field rows q [10 (kepes: rho, v_x, v_y, v_z, p, rho/p, log
+// rho, log p, vent0, ke) or 9 (hll/hllc: rho, v_x, v_y, v_z, p, h, c,
+// sqrt(rho), ke), EXT^DIM, E]; u_prev and out [5, EXT^DIM, E]; w is [8,
+// E]; side layer k has u's rows, [C, EXT^(DIM-1), E], the tangent axes
+// in increasing order; speed is [E] (float bits).
 //
-// Bound on this card: the stage moves ~123 MB (stage 1, one state read) or
-// ~168 MB (stages 2-3) at the flagship shape (DIM 3, EXT 8, E 4374), 37-50
-// us at 3.35 TB/s; its necessary arithmetic (the fields of each cell once,
-// ~22 operations with two logs and three divides, and each interface's
-// flux once, ~200 with two divides, a sqrt and a rsqrt) is ~1.6 GFLOP, 24
-// us at the fp32 peak.  So the bytes bound it, if it reads every input
-// once and evaluates every interface once.
+// Bound on this card, at the flagship shape (DIM 3, EXT 8, E 4374): the
+// state-input stage moves ~123 MB (stage 1, one state read) or ~168 MB
+// (stages 2-3), 37-50 us at 3.35 TB/s; its necessary arithmetic (the
+// fields of each cell once, ~22 operations with two logs and three
+// divides, and each interface's flux once, ~200 with two divides, a sqrt
+// and a rsqrt) is ~1.6 GFLOP, 24 us at the fp32 peak.  The field-input
+// stage moves ~202 MB (stage 1) or ~246 MB (stages 2-3): 60 and 74 us;
+// twice the state's bytes come in as field rows, the price of taking the
+// field derivation out of the kernel.  So the bytes bound both, if they
+// read every input once and evaluate every interface once.
 //
-// Design: the first-order pencil walk of muscl_pencil.cuh (walk1).  A
-// block takes a slab of 2 of the 8 planes along axis 0 of 16 elements (at
-// 3D extent 8; whole elements at extent 4 and in 2D): it loads the slab's
-// cells with all of a thread's loads in flight at once, derives each
-// cell's fields once into shared memory (rho, v, p, log rho, log p: 7
-// rows; rho/p, ke and vent0, or sqrt(rho) for hll/hllc, are taken per face
-// frame by the same operations), and one thread per pencil walks it,
-// evaluating each of its interfaces once; the faces beyond the pencil's
-// ends come from the side layers, or inside the element from the planes
-// beyond the slab, whose fields are derived by the same code as their own
-// block's (the face between two slabs is evaluated by both, the same
-// bits, and both elements of a mesh face get the same bits).  D lives in
-// a shared tile between axes; the stage update is one pass over the tile,
-// elements fastest (u, u_prev and w[7] loaded first).  256 threads per
-// block, 111,616 bytes of shared memory, two blocks per SM; 16 elements
-// give 64-byte runs of each cell row.  An element's speed max combines its
-// slabs' by one atomicMax on the bits of the non-negative float into a
-// zero-filled [E] (order-free, bit-reproducible); no float atomics.
-// Every instantiation's resources: t8_fused_rk_stage_attributes.
+// Design: the first-order pencil walk of muscl_pencil.cuh (walk1_slab).
+// A block takes a slab of 2 of the 8 planes along axis 0 (at 3D extent 8;
+// whole elements at extent 4 and in 2D) of a tile of elements: it loads
+// the slab's cells with all of a thread's loads in flight at once and
+// stages each cell's fields once in shared memory (from the state: rho,
+// v, p, log rho, log p, 7 rows, whose rho/p, ke and vent0, or sqrt(rho)
+// for hll/hllc, are taken per face frame by the same operations; from
+// field rows: the rows as they are), and walks each pencil, evaluating
+// each of its interfaces once; the faces beyond the pencil's ends come
+// from the side layers, or inside the element from the planes beyond the
+// slab, whose fields come by the same code as their own block's (the
+// face between two slabs is evaluated by both, the same bits, and both
+// elements of a mesh face get the same bits).  D lives in a shared tile
+// between axes; the stage update is one pass over the tile, elements
+// fastest.  State input: 16 elements and one thread per pencil, 256
+// threads, 111,616 bytes of shared memory, two blocks per SM, 91
+// registers (kepes).  Field input: 8 elements and two threads per pencil
+// (each pencil walked in two segments, the face between them by both),
+// 256 threads, 70,144 bytes (kepes, 96 registers) or 65,536 (hll/hllc,
+// 94 and 92), two blocks per SM.  At the flagship the field-input stage
+// is slower than the one-thread-per-cell kernel it replaced, which read
+// whole 128-byte rows and evaluated every interface twice: about half of
+// its time is the staging and the update pass, whose 32-byte runs of a
+// cell row (E = 4374 puts most of them across two sectors) move the
+// bytes at ~1.2 TB/s, and the walks do not overlap them (PERF.md has the
+// ablations and the variants that lost).  An element's speed max combines
+// its slabs' by one atomicMax on the bits of the non-negative float into
+// a zero-filled [E] (order-free, bit-reproducible); no float atomics.
+// Every instantiation's resources: t8_fused_rk_stage_attributes,
+// t8_fused_rk_stage_fields_attributes.
 //
 // Built without --use_fast_math and with --fmad=false: IEEE division and
-// sqrt, no contraction, as the plain PyTorch version, which the kernel
-// follows bit for bit.  torch divides by a Python scalar on CUDA as a
+// sqrt, no contraction, as the plain PyTorch versions, which the kernels
+// follow bit for bit.  torch divides by a Python scalar on CUDA as a
 // product with the scalar's float reciprocal, so vent0's "/ (gamma - 1)"
-// is that product here too.
+// and the recovered energy's are that product here too.
 
 #include <cuda_runtime.h>
 
@@ -74,8 +98,9 @@ namespace {
 // same operations, so to the same bits.
 template <bool LOGS>
 struct Kepes {
+  static constexpr bool FIELDS = false;
   static constexpr int RIN = LOGS ? 7 : 5;
-  static constexpr int RS = 7;
+  static constexpr int RS = 7, RD = 5;
   using Params = Consts;
   using Cell = Fields;
 
@@ -116,7 +141,7 @@ struct Kepes {
 
   template <int A>
   __device__ static __forceinline__ float flux(const Fields& L, const Fields& R,
-                                               const Consts& k, float f[5]) {
+                                               float, const Consts& k, float f[5]) {
     return kepes_flux<A>(L, R, k, f);
   }
 };
@@ -126,8 +151,9 @@ struct Kepes {
 // bits); ke is not needed, the fluxes do not read it.
 template <int FLUX>
 struct Hll {
+  static constexpr bool FIELDS = false;
   static constexpr int RIN = 5;
-  static constexpr int RS = 7;
+  static constexpr int RS = 7, RD = 5;
   using Params = Consts;
   using Cell = HllFields;
 
@@ -156,131 +182,168 @@ struct Hll {
 
   template <int A>
   __device__ static __forceinline__ float flux(const HllFields& L, const HllFields& R,
-                                               const Consts& k, float f[5]) {
-    float fr[5];
-    const float sp = FLUX == HLL ? hll_flux(L, R, k, fr) : hllc_flux(L, R, k, fr);
-#pragma unroll
-    for (int i = 0; i < 5; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
-    return sp;
+                                               float, const Consts& k, float f[5]) {
+    return hll_family_flux<FLUX, A>(L, R, k, f);
   }
 };
 
-// A block: 256 threads, one per pencil of a slab of PL planes along axis 0
-// (2 at 3D extent 8, else the whole element) of as many elements as that
-// leaves (16 at 3D extent 8); registers for two blocks per SM.
+// The field-input stage: the staged rows are the caller's field rows of
+// flux FLUX (ops/euler.cell_fields_tuple), read, not derived; cell<A>
+// picks them into the flux's fields, and the stage state is recovered
+// from them (_recover_state_rows).
+template <int FLUX>
+struct FieldRows {
+  static constexpr bool FIELDS = true;
+  static constexpr int RIN = FLUX == KEPES ? 10 : 9;
+  static constexpr int RS = RIN, RD = 5;
+  using Params = Consts;
+  using Cell = std::conditional_t<FLUX == KEPES, Fields, HllFields>;
+
+  __device__ static __forceinline__ void convert(const float* r, float s[RS],
+                                                 const Consts&) {
+#pragma unroll
+    for (int i = 0; i < RS; ++i) s[i] = r[i];
+  }
+
+  // kepes: the fields as they are (the flux rotates); hll/hllc: in the
+  // +A face frame
+  template <int A>
+  __device__ static __forceinline__ Cell cell(const float s[RS], const Consts&) {
+    if constexpr (FLUX == KEPES) {
+      return {s[0], {s[1], s[2], s[3]}, s[4], s[5], s[6], s[7], s[8], s[9]};
+    } else {
+      using Fr = Frame<A>;
+      return {s[0], s[1 + Fr::n], s[1 + Fr::t1], s[1 + Fr::t2], s[4], s[5], s[6], s[7], s[8]};
+    }
+  }
+
+  template <int A>
+  __device__ static __forceinline__ float flux(const Cell& L, const Cell& R,
+                                               float, const Consts& k, float f[5]) {
+    if constexpr (FLUX == KEPES)
+      return kepes_flux<A>(L, R, k, f);
+    else
+      return hll_family_flux<FLUX, A>(L, R, k, f);
+  }
+
+  // the stage state of a cell from its field rows q(i): m = rho v, e =
+  // p / (gamma - 1) + rho ke (kepes) or rho h - p (hll/hllc)
+  template <class Row>
+  __device__ static __forceinline__ void recover(const Row& q, const Consts& k,
+                                                 float u[5]) {
+    const float rho = q(0);
+    u[0] = rho;
+    u[1] = rho * q(1);
+    u[2] = rho * q(2);
+    u[3] = rho * q(3);
+    u[4] = FLUX == KEPES ? q(4) * k.inv_km1 + rho * q(9) : rho * q(5) - q(4);
+  }
+};
+
+// A block takes a slab of PL planes along axis 0 (2 at 3D extent 8, else
+// the whole element) of as many elements as its threads leave, with
+// registers for two blocks per SM.  State input: 256 threads, one per
+// pencil (16 elements at 3D extent 8).  Field input: FIELDS_SLOTS / T
+// elements (T pencils of a slab along the other axes), FIELDS_SPLIT
+// threads per pencil (8 elements and 256 threads at 3D extent 8).
+constexpr int FIELDS_SLOTS = 128, FIELDS_SPLIT = 2;
+
 __host__ __device__ constexpr int stage_planes(int dim, int ext) {
   return dim == 3 && ext == 8 ? 2 : ext;
 }
 
-template <int DIM, int EXT>
+template <class P, int DIM, int EXT>
 struct StageShape {
   static constexpr int PL = stage_planes(DIM, EXT);
   static constexpr int T = PL * t8pencil::ipow(EXT, DIM - 1) / EXT;  // pencils
-  using Blk = t8pencil::Block<256 / T, 1, 2>;
+  using Blk = std::conditional_t<
+      P::FIELDS,
+      t8pencil::Block<FIELDS_SLOTS / T, FIELDS_SPLIT, 2>,
+      t8pencil::Block<256 / T, 1, 2>>;
 };
 
 // The staged tile holds each cell's fields, the divergence tile D.
 template <class P, int DIM, int EXT>
-using StageTile = t8pencil::Tile<P::RS, DIM, EXT, typename StageShape<DIM, EXT>::Blk,
-                                 StageShape<DIM, EXT>::PL, 5>;
+using StageTile = t8pencil::Tile<P::RS, DIM, EXT, typename StageShape<P, DIM, EXT>::Blk,
+                                 StageShape<P, DIM, EXT>::PL, P::RD>;
 
-// One stage for a block: the fields of its slab of its elements' cells,
-// walks along axis 0, 1 (and 2), then the stage update
-// (a u_prev + b u) + c w[7] D in one pass and the per-element speed max.
-// up == nullptr (SHARE_PREV) means u_prev is the state rows of u.
+// One stage for a block: it walks its slab of its elements' cells
+// (walk1_slab; from the state, the fields derived as they are staged),
+// then the stage update (a u_prev + b u) + c w[7] D in one pass, u the
+// state rows of g.u or recovered from the staged field rows, and the
+// per-element speed max.  up == nullptr (SHARE_PREV) means u_prev is u.
 template <class P, int DIM, int EXT, bool SHARE_PREV>
-__global__ void __launch_bounds__(StageTile<P, DIM, EXT>::THREADS,
-                                  StageShape<DIM, EXT>::Blk::MIN_BLOCKS)
-    fused_rk_stage_kernel(t8pencil::Args g, const float* __restrict__ up,
-                          Consts k, float ca, float cb, float cc) {
+__device__ __forceinline__ void stage(const t8pencil::Args& g,
+                                      const float* __restrict__ up,
+                                      const Consts& k, float ca, float cb,
+                                      float cc) {
   using Tl = StageTile<P, DIM, EXT>;
-  using t8pencil::End;
-  constexpr int B = Tl::B, T0 = t8pencil::ipow(EXT, DIM - 1);  // cells of a plane
-  constexpr int NSLAB = EXT / StageShape<DIM, EXT>::PL;
+  constexpr int NSLAB = EXT / StageShape<P, DIM, EXT>::PL;
   extern __shared__ float smem[];
   float* st = smem;             // fields
   float* sd = st + Tl::TILE;    // D
   float* red = sd + Tl::DTILE;  // [SLOTS][TE] speeds
 
-  const int x = threadIdx.x, y = threadIdx.y;
   const int slab = blockIdx.x % NSLAB;
   const int e0 = (blockIdx.x / NSLAB) * Tl::TE;
-  const int e = e0 + x;
-  const bool live = e < g.E;
-  const long long Es = g.E;
-  const long long rs = (long long)EXT * T0 * Es;  // row stride of a block tensor
-  const long long ls = (long long)T0 * Es;        // row stride of a side layer
-  const int cbase = slab * B;                     // the slab's first cell
-
-  t8pencil::load_cells<Tl, B, P::RIN>(
-      e0, g.E,
-      [&](int c, int ee, float* v) {
-#pragma unroll
-        for (int r = 0; r < P::RIN; ++r)
-          v[r] = __ldg(g.u + r * rs + (long long)(cbase + c) * Es + ee);
-      },
-      [&](int c, int, int cx, const float* v) {
-        float s[P::RS];
-        P::convert(v, s, k);
-#pragma unroll
-        for (int i = 0; i < P::RS; ++i) st[Tl::at(i, c, cx)] = s[i];
-      });
-  __syncthreads();
-
-  float spd = 0.0f;
-  float surface = 0.0f, interior_ok = 0.0f;
-  if (live) {
-    surface = __ldg(g.w + e);
-    interior_ok = surface > 0.0f ? 1.0f : 0.0f;
-  }
-  // walk axis A; pencil t's neighbours are side layers 2A (hi) and 2A+1
-  // (lo), or along axis 0 inside the element the planes beyond the slab
-  auto walk = [&](auto axis) {
-    constexpr int A = decltype(axis)::value;
-    const float w_hi = __ldg(g.w + (1 + 2 * A) * Es + e);
-    const float w_lo = __ldg(g.w + (2 + 2 * A) * Es + e);
-    auto ends = [&](int t, End& lo, End& hi) {
-      // the side layers' tangent index: the slab's planes along axis 0
-      // come after the earlier slabs'
-      const long long ts = A == 0 ? t : t + slab * Tl::T;
-      hi = End{g.sides[2 * A] + ts * Es + e, ls, w_hi, w_hi > 0.0f ? 1.0f : 0.0f};
-      lo = End{g.sides[2 * A + 1] + ts * Es + e, ls, w_lo, w_lo > 0.0f ? 1.0f : 0.0f};
-      if constexpr (A == 0) {
-        const float* cell = g.u + (long long)(cbase + t) * Es + e;
-        if (slab > 0) lo = End{cell - T0 * Es, rs, surface, interior_ok};
-        if (slab < NSLAB - 1) hi = End{cell + B * Es, rs, surface, interior_ok};
-      }
-    };
-    t8pencil::walk1_axis<P, Tl, DIM, EXT, A>(st, sd, x, y, ends, surface,
-                                             interior_ok, k, spd);
-  };
-  if (live) walk(std::integral_constant<int, 0>{});
-  __syncthreads();
-  if (live) walk(std::integral_constant<int, 1>{});
-  if constexpr (DIM == 3) {
-    __syncthreads();
-    if (live) walk(std::integral_constant<int, 2>{});
-  }
-  __syncthreads();
+  const float spd = t8pencil::walk1_slab<P, Tl, DIM, EXT>(g, st, sd, slab, e0, k);
 
   // the stage update, in _stage_update's operation order
+  constexpr int B = Tl::B;
+  const long long Es = g.E;
+  const long long rs = (long long)t8pencil::ipow(EXT, DIM) * Es;  // row stride
   t8pencil::for_cells<Tl, B>(e0, g.E, [&](int c, int ee, int cx) {
-    const long long off = (long long)(cbase + c) * Es + ee;
+    const long long off = (long long)(slab * B + c) * Es + ee;
     const float cdt = cc * __ldg(g.w + 7 * Es + ee);
+    float uf[5];
+    if constexpr (P::FIELDS)
+      P::recover([&](int i) { return st[Tl::at(i, c, cx)]; }, k, uf);
 #pragma unroll
     for (int r = 0; r < 5; ++r) {
-      const float ur = __ldg(g.u + r * rs + off);
+      const float ur = P::FIELDS ? uf[r] : __ldg(g.u + r * rs + off);
       const float upr = SHARE_PREV ? ur : __ldg(up + r * rs + off);
       g.D[r * rs + off] = (ca * upr + cb * ur) + cdt * sd[Tl::at(r, c, cx)];
     }
   });
-  t8pencil::element_speed<Tl, (NSLAB > 1)>(red, spd, live, g.speed, e);
+  const int e = e0 + threadIdx.x;
+  t8pencil::element_speed<Tl, (NSLAB > 1)>(red, spd, e < g.E, g.speed, e);
 }
+
+// The stage on 5-row states or 7-row states with their log rows.
+template <class P, int DIM, int EXT, bool SHARE_PREV>
+__global__ void __launch_bounds__(StageTile<P, DIM, EXT>::THREADS,
+                                  StageShape<P, DIM, EXT>::Blk::MIN_BLOCKS)
+    fused_rk_stage_kernel(t8pencil::Args g, const float* __restrict__ up,
+                          Consts k, float ca, float cb, float cc) {
+  stage<P, DIM, EXT, SHARE_PREV>(g, up, k, ca, cb, cc);
+}
+
+// The stage on cell-field rows (g.u is q).
+template <class P, int DIM, int EXT, bool SHARE_PREV>
+__global__ void __launch_bounds__(StageTile<P, DIM, EXT>::THREADS,
+                                  StageShape<P, DIM, EXT>::Blk::MIN_BLOCKS)
+    fused_rk_stage_fields_kernel(t8pencil::Args g, const float* __restrict__ up,
+                                 Consts k, float ca, float cb, float cc) {
+  stage<P, DIM, EXT, SHARE_PREV>(g, up, k, ca, cb, cc);
+}
+
+// The case's kernel: state or field input.
+template <class P, int DIM, int EXT, bool SHARE_PREV>
+auto stage_kernel() {
+  if constexpr (P::FIELDS)
+    return fused_rk_stage_fields_kernel<P, DIM, EXT, SHARE_PREV>;
+  else
+    return fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV>;
+}
+
+// What the stage reads: the 5-row state, the 7-row state with its log
+// rows (kepes only), or the flux's cell-field rows.
+enum Input { STATE = 0, LOGS = 1, FIELD_ROWS = 2 };
 
 // Call fn.template run<P, DIM, EXT, SHARE_PREV>() for the instantiation of
 // the case; cudaErrorInvalidValue for a case none takes.
 template <class Fn>
-int with_case(int dim, int ext, int flux, bool logs, bool share_prev, const Fn& fn) {
+int with_case(int dim, int ext, int flux, int input, bool share_prev, const Fn& fn) {
   auto by_shape = [&](auto physics) -> int {
     using P = decltype(physics);
     auto by_prev = [&](auto d, auto x) -> int {
@@ -298,8 +361,14 @@ int with_case(int dim, int ext, int flux, bool logs, bool share_prev, const Fn& 
     if (dim == 2 && ext == 4) return by_prev(I2{}, I4{});
     return (int)cudaErrorInvalidValue;
   };
-  if (flux == KEPES) return logs ? by_shape(Kepes<true>{}) : by_shape(Kepes<false>{});
-  if (logs) return (int)cudaErrorInvalidValue;  // the log rows: kepes only
+  if (input == FIELD_ROWS) {
+    if (flux == KEPES) return by_shape(FieldRows<KEPES>{});
+    if (flux == HLL) return by_shape(FieldRows<HLL>{});
+    if (flux == HLLC) return by_shape(FieldRows<HLLC>{});
+    return (int)cudaErrorInvalidValue;
+  }
+  if (flux == KEPES) return input == LOGS ? by_shape(Kepes<true>{}) : by_shape(Kepes<false>{});
+  if (input == LOGS) return (int)cudaErrorInvalidValue;  // the log rows: kepes only
   if (flux == HLL) return by_shape(Hll<HLL>{});
   if (flux == HLLC) return by_shape(Hll<HLLC>{});
   return (int)cudaErrorInvalidValue;
@@ -315,7 +384,7 @@ struct Launcher {
   template <class P, int DIM, int EXT, bool SHARE_PREV>
   int run() const {
     using Tl = StageTile<P, DIM, EXT>;
-    auto kern = fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV>;
+    auto kern = stage_kernel<P, DIM, EXT, SHARE_PREV>();
     static bool raised[64] = {};
     const int err = t8pencil::raise_smem((const void*)kern, Tl::SMEM, device, raised);
     if (err != 0) return err;
@@ -332,18 +401,40 @@ struct Attributes {
   int run() const {
     using Tl = StageTile<P, DIM, EXT>;
     return t8pencil::kernel_attributes(
-        (const void*)fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV>, Tl::THREADS,
+        (const void*)stage_kernel<P, DIM, EXT, SHARE_PREV>(), Tl::THREADS,
         Tl::SMEM, out);
   }
 };
+
+int launch(int device, int dim, int ext, int E, int flux, int input,
+           const float* u, const float* up, const float* w,
+           const float* const o[6], float* out, unsigned int* speed,
+           double gamma, float ca, float cb, float cc, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (E <= 0) return (int)cudaErrorInvalidValue;
+  const t8pencil::Args g{u, w, {o[0], o[1], o[2], o[3], o[4], o[5]}, out, speed, E};
+  const Consts k = make_consts(gamma);
+  return with_case(dim, ext, flux, input, up == nullptr,
+                   Launcher{device, g, up, k, ca, cb, cc,
+                            static_cast<cudaStream_t>(stream)});
+}
+
+int attributes(int device, int dim, int ext, int flux, int input,
+               int share_prev, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return with_case(dim, ext, flux, input, share_prev != 0, Attributes{out});
+}
 
 }  // namespace
 
 // Launch one stage on `stream`.  flux is 0 kepes, 1 hll, 2 hllc; logs != 0
 // (kepes only) means u and the side layers have 7 rows; up == nullptr
-// means u_prev == the state rows of u (stage 1).  speed [E] receives the
-// uint32 bits of each element's float max.  Returns the cudaError_t of the
-// launch (0 on success); never synchronizes.
+// means u_prev == the state rows of u (stage 1).  speed must be a
+// zero-filled [E]; it receives the uint32 bits of each element's float
+// max.  Returns the cudaError_t of the launch (0 on success); never
+// synchronizes.
 extern "C" int t8_fused_rk_stage(int device, int dim, int ext, int E, int flux,
                                  int logs, const float* u, const float* up,
                                  const float* w, const float* o0,
@@ -352,14 +443,27 @@ extern "C" int t8_fused_rk_stage(int device, int dim, int ext, int E, int flux,
                                  const float* o5, float* out,
                                  unsigned int* speed, double gamma, float ca,
                                  float cb, float cc, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (E <= 0) return (int)cudaErrorInvalidValue;
-  const t8pencil::Args g{u, w, {o0, o1, o2, o3, o4, o5}, out, speed, E};
-  const Consts k = make_consts(gamma);
-  return with_case(dim, ext, flux, logs != 0, up == nullptr,
-                   Launcher{device, g, up, k, ca, cb, cc,
-                            static_cast<cudaStream_t>(stream)});
+  const float* const o[6] = {o0, o1, o2, o3, o4, o5};
+  return launch(device, dim, ext, E, flux, logs != 0 ? LOGS : STATE, u, up, w,
+                o, out, speed, gamma, ca, cb, cc, stream);
+}
+
+// Launch one stage from cell-field rows q (flux 0 kepes: 10 rows, 1 hll
+// or 2 hllc: 9 rows; the side layers too) on `stream`; up == nullptr
+// means u_prev == the state recovered from q (stage 1).  speed as
+// t8_fused_rk_stage's.  Returns the cudaError_t of the launch.
+extern "C" int t8_fused_rk_stage_fields(int device, int dim, int ext, int E,
+                                        int flux, const float* q,
+                                        const float* up, const float* w,
+                                        const float* o0, const float* o1,
+                                        const float* o2, const float* o3,
+                                        const float* o4, const float* o5,
+                                        float* out, unsigned int* speed,
+                                        double gamma, float ca, float cb,
+                                        float cc, void* stream) {
+  const float* const o[6] = {o0, o1, o2, o3, o4, o5};
+  return launch(device, dim, ext, E, flux, FIELD_ROWS, q, up, w, o, out,
+                speed, gamma, ca, cb, cc, stream);
 }
 
 // Registers, spilled (local) bytes per thread, threads per block and
@@ -368,9 +472,15 @@ extern "C" int t8_fused_rk_stage(int device, int dim, int ext, int E, int flux,
 extern "C" int t8_fused_rk_stage_attributes(int device, int dim, int ext,
                                             int flux, int logs, int share_prev,
                                             int* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return with_case(dim, ext, flux, logs != 0, share_prev != 0, Attributes{out});
+  return attributes(device, dim, ext, flux, logs != 0 ? LOGS : STATE,
+                    share_prev, out);
+}
+
+// The same for the field-input stage's case.
+extern "C" int t8_fused_rk_stage_fields_attributes(int device, int dim,
+                                                   int ext, int flux,
+                                                   int share_prev, int* out) {
+  return attributes(device, dim, ext, flux, FIELD_ROWS, share_prev, out);
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

@@ -151,7 +151,7 @@ __device__ __forceinline__ float kepes_es_flux(const float L[5],
 // The state-form flux on staged states: a cell's five state rows, rotated
 // into the +A face frame for each face.
 struct StateForm {
-  static constexpr int RIN = 5, RS = 5;
+  static constexpr int RIN = 5, RS = 5, RD = 5;
   using Params = Consts;
   struct Cell {
     float s[5];
@@ -173,7 +173,7 @@ struct StateForm {
 
   template <int A>
   __device__ static __forceinline__ float flux(const Cell& L, const Cell& R,
-                                               const Consts& k, float f[5]) {
+                                               float, const Consts& k, float f[5]) {
     float fr[5];
     const float sp = kepes_es_flux(L.s, R.s, k, fr);
 #pragma unroll
@@ -251,16 +251,16 @@ __global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
   auto none = [](int, End& lo, End& hi) { lo = hi = End{nullptr, 0, 0.0f, 0.0f}; };
   if (live)
     t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 0>(st, sd, x, y, planes, surface,
-                                                     1.0f, k, spd);
+                                                     1.0f, 0.0f, k, spd);
   __syncthreads();
   if (live)
     t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 1>(st, sd, x, y, none, surface,
-                                                     1.0f, k, spd);
+                                                     1.0f, 0.0f, k, spd);
   if constexpr (DIM == 3) {
     __syncthreads();
     if (live)
       t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 2>(st, sd, x, y, none, surface,
-                                                       1.0f, k, spd);
+                                                       1.0f, 0.0f, k, spd);
   }
   __syncthreads();
   t8pencil::for_cells<Tl, Tl::B>(e0, E, [&](int c, int ee, int cx) {

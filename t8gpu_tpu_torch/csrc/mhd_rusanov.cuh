@@ -4,8 +4,10 @@
 // frame, as models/mhd._rusanov_rows of the port (and of the JAX package).
 // Every expression keeps that function's operation order; built with
 // --fmad=false and without fast math (IEEE division and sqrtf), so the
-// kernels follow their plain PyTorch versions to a few ulp and two threads
-// that evaluate one interface get bit-identical fluxes.
+// kernels follow their plain PyTorch versions bit for bit (the first-order
+// kernel) or to a few ulp, and two threads that evaluate one interface
+// get bit-identical fluxes.  The states come in rotated into the face
+// frame (muscl_pencil.cuh's frame_row), the flux goes out in it.
 
 #pragma once
 
@@ -13,13 +15,7 @@
 
 namespace t8mhd {
 
-constexpr int ROWS = 9;     // rho, m_x, m_y, m_z, E, B_x, B_y, B_z, psi
-constexpr int TILE_E = 32;  // elements per block (threadIdx.x)
-constexpr int TILE_C = 8;   // cells per block (threadIdx.y)
-
-__host__ __device__ constexpr int ipow(int b, int n) {
-  return n == 0 ? 1 : b * ipow(b, n - 1);
-}
+constexpr int ROWS = 9;  // rho, m_x, m_y, m_z, E, B_x, B_y, B_z, psi
 
 // gamma and gamma - 1 rounded from double to float once on the host (the
 // JAX code combines gamma in Python doubles and rounds to f32).
@@ -27,56 +23,6 @@ struct Consts {
   float gamma;
   float km1;
 };
-
-struct Sides {
-  const float* p[6];
-};
-
-// Face frame of a +A normal: normal component A, tangents the other two
-// axes in increasing order, for the momentum (rows 1-3) and the field
-// (rows 5-7) alike (_ROT9 / _UNROT9 of models/mhd.py).
-template <int A>
-struct Frame {
-  static constexpr int n = A;
-  static constexpr int t1 = (A == 0) ? 1 : 0;
-  static constexpr int t2 = (A == 2) ? 1 : 2;
-};
-
-// One state, rows rotated into the +A frame.
-template <int A>
-__device__ __forceinline__ void load9(const float* __restrict__ base,
-                                      long long rs, long long off,
-                                      float s[ROWS]) {
-  using Fr = Frame<A>;
-  float r[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) r[i] = __ldg(base + off + i * rs);
-  s[0] = r[0];
-  s[1] = r[1 + Fr::n];
-  s[2] = r[1 + Fr::t1];
-  s[3] = r[1 + Fr::t2];
-  s[4] = r[4];
-  s[5] = r[5 + Fr::n];
-  s[6] = r[5 + Fr::t1];
-  s[7] = r[5 + Fr::t2];
-  s[8] = r[8];
-}
-
-// Frame rows back to x, y, z rows, times the face weight.
-template <int A>
-__device__ __forceinline__ void unrotate9(const float f[ROWS], float wgt,
-                                          float out[ROWS]) {
-  using Fr = Frame<A>;
-  out[0] = f[0] * wgt;
-  out[1 + Fr::n] = f[1] * wgt;
-  out[1 + Fr::t1] = f[2] * wgt;
-  out[1 + Fr::t2] = f[3] * wgt;
-  out[4] = f[4] * wgt;
-  out[5 + Fr::n] = f[5] * wgt;
-  out[5 + Fr::t1] = f[6] * wgt;
-  out[5 + Fr::t2] = f[7] * wgt;
-  out[8] = f[8] * wgt;
-}
 
 // Thermal pressure (_pressure): (g-1) * (E - ke - |B|^2/2).
 __device__ __forceinline__ float pressure(float rho, float mn, float mt1,
@@ -142,55 +88,6 @@ __device__ __forceinline__ float rusanov(const float L[ROWS],
   f[7] = 0.5f * (fl[6] + fr[6]) - hs * (R[7] - L[7]);
   f[8] = ch * ch * bn_s;  // F(psi)
   return smax;
-}
-
-// Where one thread's cell sits: its element and the strides.
-struct Site {
-  int e;
-  long long Es;  // element count (stride of one cell)
-  long long rs;  // row stride of a block state
-  long long ls;  // row stride of a side layer
-};
-
-// The thread's cell coordinates (x slowest) from its flat cell index.
-template <int DIM, int EXT>
-__device__ __forceinline__ void cell_coords(int c, int idx[3]) {
-  idx[0] = idx[1] = idx[2] = 0;
-  int rem = c;
-#pragma unroll
-  for (int a = DIM - 1; a >= 0; --a) {
-    idx[a] = rem % EXT;
-    rem /= EXT;
-  }
-}
-
-// Index of the thread's cell within the side layers of axis A (the
-// remaining axes in increasing order).
-template <int DIM, int EXT, int A>
-__device__ __forceinline__ int tangent_index(const int idx[3]) {
-  int t = 0;
-#pragma unroll
-  for (int b = 0; b < DIM; ++b)
-    if (b != A) t = t * EXT + idx[b];
-  return t;
-}
-
-// The per-element speed max of a block of TILE_C x TILE_E threads: a
-// shared-memory max over the block's cells and one atomicMax on the bits
-// of the non-negative float (max is order-free, so the result is
-// bit-reproducible; no float atomics).  Every thread of the block calls it.
-__device__ __forceinline__ void element_speed_max(float spd, bool live, int e,
-                                                  unsigned int* speed) {
-  __shared__ float red[TILE_C][TILE_E];
-  red[threadIdx.y][threadIdx.x] = spd;
-  __syncthreads();
-  if (threadIdx.y == 0 && live) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int j = 1; j < TILE_C; ++j) m = fmaxf(m, red[j][threadIdx.x]);
-    m = m > 0.0f ? m : 0.0f;  // +0 for zero and NaN: the bits order as floats
-    atomicMax(speed + e, __float_as_uint(m));
-  }
 }
 
 inline Consts make_consts(double gamma) {

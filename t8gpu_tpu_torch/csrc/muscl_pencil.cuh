@@ -48,34 +48,41 @@
 // slots of a warp hit distinct banks on every axis), and [SLOTS][TE]
 // floats for the speed reduction.
 //
-// The first-order kernels (fused_rk_stage.cu, inner_divergence.cu) take
-// the sibling walk `walk1` over the same tile: no slopes, one neighbour
-// cell beyond each end of a pencil, each interface F(i-1|i) once from the
-// two cells' staged rows,
+// The first-order kernels (fused_rk_stage.cu: the stage kernel on states
+// and on cell fields; fused_mhd_flux.cu; inner_divergence.cu) take the
+// sibling walk `walk1` over the same tile: no slopes, one neighbour cell
+// beyond each end of a pencil, each interface F(i-1|i) once from the two
+// cells' staged rows,
 //
 //   D_i  = (D_i + w(i-1|i) F(i-1|i)) - w(i|i+1) F(i|i+1),  axis 0 first,
 //
 // the operation order of the plain versions (ops/kernels.
 // _first_order_divergence, inner_divergence_reference).  Their policy P:
 //
-//   P::RIN, P::RS              rows of a cell in device memory, and
-//                              staged in shared memory
+//   P::RIN, P::RS, P::RD       rows of a cell in device memory, staged in
+//                              shared memory, and of its divergence
 //   P::convert(r, s, k)        a cell's RIN rows r into its RS staged rows
 //   P::Cell, P::cell<A>(s, k)  what the flux of a +A face needs of a cell,
 //                              from its staged rows s
-//   P::flux<A>(L, R, k, f)     the +A interface flux in x, y, z rows;
-//                              returns its wave speed
+//   P::flux<A>(L, R, aux, k, f)  the +A interface flux in x, y, z rows
+//                              (RD of them); returns its wave speed.  aux
+//                              is the element's weight row 7 (c_h for
+//                              GLM-MHD)
 //
 // Their tile may be a slab of PL planes along axis 0 (PL < EXT: the stage
-// kernel at 3D extent 8, the inner-only kernel at 3D extent 16), whose
-// axis-0 pencils reach the planes beyond the slab in device memory.  The kernels load their tiles with
-// every load of a thread in flight at once (load_cells) and write their
-// results in one pass over the tile (for_cells, elements fastest), D of
-// the last axis too.
+// and MHD kernels at 3D extent 8, the inner-only kernel at 3D extent 16),
+// whose axis-0 pencils reach the planes beyond the slab in device memory.
+// The kernels load their tiles with every load of a thread in flight at
+// once (load_cells) and write their results in one pass over the tile
+// (for_cells, elements fastest), D of the last axis too.  walk1_slab
+// stages a slab and walks it for the kernels whose pencils end at side
+// layers (the stage kernels and the MHD kernel).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace t8pencil {
 
@@ -141,6 +148,7 @@ struct Tile {
   static constexpr int TILE = R * BP * TE;   // floats of the staged tile
   static constexpr int DTILE = RD * BP * TE; // floats of the divergence tile
   static constexpr size_t SMEM = ((size_t)TILE + DTILE + SLOTS * TE) * sizeof(float);
+  static_assert(SMEM <= 232448, "a block holds at most 227 KB");
   // float index of row r of cell c of element slot x in either tile
   __device__ static int at(int r, int c, int x) {
     return (r * BP + c + c / EXT) * TE + x;
@@ -491,15 +499,16 @@ struct End {
 // first cell from the previous tile cell or lo's cell, the one after the
 // last from the next tile cell or hi's cell (an interface between two
 // segments is evaluated by both: the same bits); the flux weighted by
-// surface inside the tile; D of each cell once into the tile sd (axis 0
-// first); the masked interface speeds into spd.
+// surface inside the tile; D of each cell once into the tile sd (P::RD
+// rows, axis 0 first); the masked interface speeds into spd.
 template <class P, class Tl, int DIM, int EXT, int A>
 __device__ __forceinline__ void walk1(const float* st, float* sd, int x, int t,
                                       int seg, const End& lo, const End& hi,
                                       float surface, float interior_ok,
-                                      const typename P::Params& k, float& spd) {
+                                      float aux, const typename P::Params& k,
+                                      float& spd) {
   using Cell = typename P::Cell;
-  constexpr int RS = P::RS, TE = Tl::TE;
+  constexpr int RS = P::RS, RD = P::RD, TE = Tl::TE;
   constexpr int PL = Tl::B / ipow(EXT, DIM - 1);  // planes along axis 0
   constexpr int L = A == 0 ? PL : EXT;
   constexpr int Ls = L / Tl::SPLIT;               // cells of a segment
@@ -532,37 +541,39 @@ __device__ __forceinline__ void walk1(const float* st, float* sd, int x, int t,
   const bool has_lo = q0 == 0 && lo.nb != nullptr;
   const bool has_hi = q0 + Ls == L && hi.nb != nullptr;
   Cell cl = has_lo ? end_cell(lo) : tile_cell(q0 == 0 ? 0 : q0 - 1);  // at q-1
-  float fl[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // weighted F(q-2|q-1)
+  float fl[RD];  // weighted F(q-2|q-1)
+#pragma unroll
+  for (int r = 0; r < RD; ++r) fl[r] = 0.0f;
 
 #pragma unroll 2
   for (int j = 0; j <= Ls; ++j) {
     const int q = q0 + j;
     float* du = pd + (q - 1) * pstride * TE;  // cell q-1 in sd
-    float dold[5];                            // its D from the earlier axes
+    float dold[RD];                           // its D from the earlier axes
     if (!FIRST && j > 0) {
 #pragma unroll
-      for (int r = 0; r < 5; ++r) dold[r] = du[r * RSTR];
+      for (int r = 0; r < RD; ++r) dold[r] = du[r * RSTR];
     }
-    float fw[5];  // weighted F(q-1|q); zero where the pencil has no face
+    float fw[RD];  // weighted F(q-1|q); zero where the pencil has no face
     if ((q == 0 && !has_lo) || (q == L && !has_hi)) {
 #pragma unroll
-      for (int r = 0; r < 5; ++r) fw[r] = 0.0f;
+      for (int r = 0; r < RD; ++r) fw[r] = 0.0f;
     } else {
       const Cell cr = q == L ? end_cell(hi) : tile_cell(q);
-      float f[5];
-      const float sp = P::template flux<A>(cl, cr, k, f);
+      float f[RD];
+      const float sp = P::template flux<A>(cl, cr, aux, k, f);
       const float wgt = q == 0 ? lo.w : (q == L ? hi.w : surface);
       spd = nan_max(spd, sp * (q == 0 ? lo.ok : (q == L ? hi.ok : interior_ok)));
 #pragma unroll
-      for (int r = 0; r < 5; ++r) fw[r] = f[r] * wgt;
+      for (int r = 0; r < RD; ++r) fw[r] = f[r] * wgt;
       cl = cr;
     }
     if (j > 0) {  // both faces of cell q-1 known
 #pragma unroll
-      for (int r = 0; r < 5; ++r) du[r * RSTR] = ((FIRST ? 0.0f : dold[r]) + fl[r]) - fw[r];
+      for (int r = 0; r < RD; ++r) du[r * RSTR] = ((FIRST ? 0.0f : dold[r]) + fl[r]) - fw[r];
     }
 #pragma unroll
-    for (int r = 0; r < 5; ++r) fl[r] = fw[r];
+    for (int r = 0; r < RD; ++r) fl[r] = fw[r];
   }
 }
 
@@ -573,6 +584,7 @@ template <class P, class Tl, int DIM, int EXT, int A, class Ends>
 __device__ __forceinline__ void walk1_axis(const float* st, float* sd, int x,
                                            int y, const Ends& ends,
                                            float surface, float interior_ok,
+                                           float aux,
                                            const typename P::Params& k,
                                            float& spd) {
   constexpr int PENCILS = A == 0 ? ipow(EXT, DIM - 1) : Tl::T;
@@ -581,8 +593,86 @@ __device__ __forceinline__ void walk1_axis(const float* st, float* sd, int x,
     End lo, hi;
     ends(t, lo, hi);
     walk1<P, Tl, DIM, EXT, A>(st, sd, x, t, seg, lo, hi, surface, interior_ok,
-                              k, spd);
+                              aux, k, spd);
   }
+}
+
+// The first-order divergence of slab `slab` (of EXT / PL) of the TE
+// elements e0 .. e0 + TE - 1 of a block, those below E: stage the slab's
+// cells (g.u's P::RIN rows, all of a thread's loads in flight at once,
+// converted into the P::RS rows of st), then walk axis 0, 1 (and 2), D
+// into sd (P::RD rows).  A pencil's neighbours are the side layers
+// g.sides[2A] (hi, weight w[1+2A]) and [2A+1] (lo, w[2+2A]), or along
+// axis 0 inside the element the planes beyond the slab, read in g.u
+// (interior faces, weight w[0]).  Returns the thread's masked interface
+// speed max; ends with a __syncthreads, after which the block reads st
+// and sd.  Every thread of the block calls it.
+template <class P, class Tl, int DIM, int EXT>
+__device__ __forceinline__ float walk1_slab(const Args& g, float* st, float* sd,
+                                            int slab, int e0,
+                                            const typename P::Params& k) {
+  constexpr int B = Tl::B, T0 = ipow(EXT, DIM - 1);  // cells of a plane
+  constexpr int NSLAB = EXT * T0 / B;
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int e = e0 + x;
+  const bool live = e < g.E;
+  const long long Es = g.E;
+  const long long rs = (long long)EXT * T0 * Es;  // row stride of a block tensor
+  const long long ls = (long long)T0 * Es;        // row stride of a side layer
+  const int cbase = slab * B;                     // the slab's first cell
+
+  load_cells<Tl, B, P::RIN>(
+      e0, g.E,
+      [&](int c, int ee, float* v) {
+#pragma unroll
+        for (int r = 0; r < P::RIN; ++r)
+          v[r] = __ldg(g.u + r * rs + (long long)(cbase + c) * Es + ee);
+      },
+      [&](int c, int, int cx, const float* v) {
+        float s[P::RS];
+        P::convert(v, s, k);
+#pragma unroll
+        for (int i = 0; i < P::RS; ++i) st[Tl::at(i, c, cx)] = s[i];
+      });
+  __syncthreads();
+
+  float spd = 0.0f;
+  float surface = 0.0f, interior_ok = 0.0f, aux = 0.0f;
+  if (live) {
+    surface = __ldg(g.w + e);
+    interior_ok = surface > 0.0f ? 1.0f : 0.0f;
+    aux = __ldg(g.w + 7 * Es + e);
+  }
+  // walk axis A; pencil t's neighbours are side layers 2A (hi) and 2A+1
+  // (lo), or along axis 0 inside the element the planes beyond the slab
+  auto walk = [&](auto axis) {
+    constexpr int A = decltype(axis)::value;
+    const float w_hi = __ldg(g.w + (1 + 2 * A) * Es + e);
+    const float w_lo = __ldg(g.w + (2 + 2 * A) * Es + e);
+    auto ends = [&](int t, End& lo, End& hi) {
+      // the side layers' tangent index: the slab's planes along axis 0
+      // come after the earlier slabs'
+      const long long ts = A == 0 ? t : t + slab * Tl::T;
+      hi = End{g.sides[2 * A] + ts * Es + e, ls, w_hi, w_hi > 0.0f ? 1.0f : 0.0f};
+      lo = End{g.sides[2 * A + 1] + ts * Es + e, ls, w_lo, w_lo > 0.0f ? 1.0f : 0.0f};
+      if constexpr (A == 0) {
+        const float* cell = g.u + (long long)(cbase + t) * Es + e;
+        if (slab > 0) lo = End{cell - T0 * Es, rs, surface, interior_ok};
+        if (slab < NSLAB - 1) hi = End{cell + B * Es, rs, surface, interior_ok};
+      }
+    };
+    walk1_axis<P, Tl, DIM, EXT, A>(st, sd, x, y, ends, surface, interior_ok,
+                                   aux, k, spd);
+  };
+  if (live) walk(std::integral_constant<int, 0>{});
+  __syncthreads();
+  if (live) walk(std::integral_constant<int, 1>{});
+  if constexpr (DIM == 3) {
+    __syncthreads();
+    if (live) walk(std::integral_constant<int, 2>{});
+  }
+  __syncthreads();
+  return spd;
 }
 
 }  // namespace t8pencil

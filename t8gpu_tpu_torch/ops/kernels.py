@@ -34,7 +34,8 @@ divergence (Rusanov with the exact 2x2 GLM interface solve, c_h read from
 weight row 7) of the interior faces, the equal-level mesh faces and the
 conductor walls (their ghosts ride in as side layers), and the
 per-element max speed.  Bound on an H100: the bytes it must move, ~128
-MB at the Orszag-Tang shape (38 us at 3.35 TB/s; csrc/fused_mhd_flux.cu).
+MB at the Orszag-Tang shape (38 us at 3.35 TB/s).  The kernel is the
+stage kernel's pencil walk on the 9 state rows (csrc/fused_mhd_flux.cu).
 
 fused_rk_stage with a 7-row u_stage — the "logs" stage input of the same
 TPU kernel: rows 5-6 carry log rho and log p, computed once per cell
@@ -43,13 +44,18 @@ every field log-free.  Counted apart, in `fused_rk_stage.launches_logs`.
 
 fused_flux — replaces fused_flux_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:193): the first-order flux divergence D
-and the per-element max wave speed from precomputed cell-field rows (the
-interior faces, the equal-level mesh faces and the walls, whose mirrored
-field layers ride in as side layers).  fused_rk_stage_fields — replaces
-fused_rk_stage_fields_pallas (:1329): the same divergence, the stage state
-recovered from the field rows, and the stage update.  Both in
-csrc/fused_fields.cu; bound: the bytes, ~202 MB (D) and ~246 MB (stages
-2-3) at the flagship shape (60 and 74 us at 3.35 TB/s).
+and the per-element max wave speed from precomputed kepes cell-field rows
+(the interior faces, the equal-level mesh faces and the walls, whose
+mirrored field layers ride in as side layers); one thread per cell
+(csrc/fused_fields.cu).  Bound: the bytes, ~202 MB at the flagship shape
+(60 us at 3.35 TB/s).
+
+fused_rk_stage_fields — replaces fused_rk_stage_fields_pallas (:1329):
+the same divergence from kepes, hll or hllc field rows, the stage state
+recovered from the field rows, and the stage update: the stage kernel's
+pencil walk on the field rows as they are (csrc/fused_rk_stage.cu).
+Bound: the bytes, ~202 MB (stage 1) and ~246 MB (stages 2-3) at the
+flagship shape (60 and 74 us at 3.35 TB/s).
 
 inner_divergence — replaces inner_divergence_pallas (:1425): the interior
 faces' divergence of a 5-row state through the state-form KEPES flux (six
@@ -63,9 +69,7 @@ fused_mhd_muscl — replaces fused_mhd_muscl_pallas
 the interior and equal-level faces (per-axis minmod or unlimited slopes,
 the thermal-pressure positivity guard, the same Rusanov/GLM flux).  Bound:
 the bytes, ~154 MB at the Orszag-Tang shape (46 us;
-csrc/fused_mhd_muscl.cu): the pencil walk of fused_muscl on 9 rows.  The
-first-order MHD kernel is a one-thread-per-cell design, as the
-field-input kernels.
+csrc/fused_mhd_muscl.cu): the pencil walk of fused_muscl on 9 rows.
 """
 
 from __future__ import annotations
@@ -89,8 +93,9 @@ KERNEL_EXTENTS = (4, 8)
 INNER_EXTENTS = (2, 4, 8, 16)     # the inner-only kernel's block extents
 MUSCL_LIMITERS = ("minmod", "none")
 MUSCL_SPACES = ("cons", "prim")
-# the fluxes of the stage and MUSCL kernels, by their index in the C entry
-# points (MUSCL: hll/hllc in "cons" only; stage: the 7-row input kepes only)
+# the fluxes of the stage, field-input stage and MUSCL kernels, by their
+# index in the C entry points (MUSCL: hll/hllc in "cons" only; stage: the
+# 7-row input kepes only)
 CUDA_FLUXES = ("kepes", "hll", "hllc")
 
 
@@ -541,9 +546,9 @@ def fused_flux(q: torch.Tensor, weights: torch.Tensor, others, gamma: float,
     D = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
     speed = _speed_bits(E, dev)
     _launch(_fields_library(), "t8_fused_fields", dev,
-            [dim, ext, E, 0, q.data_ptr(), None, weights.data_ptr(),
+            [dim, ext, E, q.data_ptr(), weights.data_ptr(),
              *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
-             float(gamma), 0.0, 0.0, 0.0], "fused_flux")
+             float(gamma)], "fused_flux")
     fused_flux.launches += 1
     return D, speed.view(torch.float32)
 
@@ -570,9 +575,10 @@ def fused_rk_stage_fields(q: torch.Tensor, u_prev, weights: torch.Tensor,
     fused_flux's divergence and u the state recovered from q.
 
     q, weights, others as fused_flux, with weight row 7 = dt *
-    inv_cell_volume; u_prev: [5, ...] state, or None (the first stage:
-    the recovered state stands for it).  CUDA tensors launch the kernel
-    (kepes), CPU tensors run fused_rk_stage_fields_reference."""
+    inv_cell_volume; flux "kepes" (10 field rows), "hll" or "hllc" (9);
+    u_prev: [5, ...] state, or None (the first stage: the recovered state
+    stands for it).  CUDA tensors launch the kernel, CPU tensors run
+    fused_rk_stage_fields_reference."""
     dim, ext, E = _check_fields_inputs(q, u_prev, weights, others, flux,
                                        extras)
     dev = q.device
@@ -583,13 +589,13 @@ def fused_rk_stage_fields(q: torch.Tensor, u_prev, weights: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no stage kernel for device {dev}")
     _check_cuda_tensors(_stage_tensors(q, u_prev, weights, others), flux,
-                        "field stage")
+                        "field stage", CUDA_FLUXES)
 
     out = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
     speed = _speed_bits(E, dev)
     a_c, b_c, c_c = (float(x) for x in coeffs)
-    _launch(_fields_library(), "t8_fused_fields", dev,
-            [dim, ext, E, 1, q.data_ptr(),
+    _launch(_stage_fields_library(), "t8_fused_rk_stage_fields", dev,
+            [dim, ext, E, CUDA_FLUXES.index(flux), q.data_ptr(),
              None if u_prev is None else u_prev.data_ptr(),
              weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
              speed.data_ptr(), float(gamma), a_c, b_c, c_c],
@@ -602,13 +608,33 @@ fused_rk_stage_fields.launches = 0
 
 
 def _fields_library() -> ctypes.CDLL:
-    """The field-input kernels' library: device, dim, ext, E, rk as int;
-    every pointer and the stream as c_void_p; gamma double, coefficients
-    float."""
+    """The field-input divergence kernel's library: device, dim, ext, E as
+    int; every pointer and the stream as c_void_p; gamma double."""
     return _library("fused_fields", "t8_fused_fields",
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+                    + [ctypes.c_double, ctypes.c_void_p])
+
+
+def _stage_fields_library() -> ctypes.CDLL:
+    """The stage kernel's library with its field-input entry point:
+    device, dim, ext, E, flux (the index in CUDA_FLUXES) as int; every
+    pointer and the stream as c_void_p; gamma double, coefficients
+    float."""
+    return _library("fused_rk_stage", "t8_fused_rk_stage_fields",
                     [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
                     + [ctypes.c_double] + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
+
+
+def fused_rk_stage_fields_attributes(dim: int, ext: int, flux: str = "kepes",
+                                     share_prev: bool = True,
+                                     device: int = 0) -> dict:
+    """The resources of the field-input stage kernel of one case on a card
+    (builds the library), as fused_muscl_attributes."""
+    return _attributes(_stage_fields_library(),
+                       "t8_fused_rk_stage_fields_attributes", device,
+                       [dim, ext, CUDA_FLUXES.index(flux),
+                        int(bool(share_prev))])
 
 
 def fused_rk_stage_fields_reference(q: torch.Tensor, u_prev,
@@ -964,6 +990,13 @@ def _mhd_flux_library() -> ctypes.CDLL:
     return _library("fused_mhd_flux", "t8_fused_mhd_flux",
                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
                     + [ctypes.c_double, ctypes.c_void_p])
+
+
+def fused_mhd_flux_attributes(dim: int, ext: int, device: int = 0) -> dict:
+    """The resources of the first-order MHD kernel at one shape on a card
+    (builds the library), as fused_muscl_attributes."""
+    return _attributes(_mhd_flux_library(), "t8_fused_mhd_flux_attributes",
+                       device, [dim, ext])
 
 
 def fused_mhd_flux_reference(u: torch.Tensor, weights: torch.Tensor, others,

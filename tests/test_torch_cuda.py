@@ -5,14 +5,15 @@ jax nor the JAX package, so it also runs on a GPU machine without JAX:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-The CUDA stage (state and log-row inputs), field-input (divergence and
-stage), inner-only, MUSCL and GLM-MHD kernels against their plain PyTorch
-versions on the same card (rtol 2e-5, atol 2e-6, as tests/test_pallas.py;
-the stage kernel bit for bit) and bit-identical on repeat, each in every
-template case; the stage kernel and the two MUSCL kernels on the real
-side layers of a periodic mesh (mesh-face conservation); the Euler solver
-(order 1 in each stage-input mode, with hll and hllc, and at extents 2
-and 16, order 2) and
+The CUDA stage (state, log-row and field-row inputs), field-input
+divergence, inner-only, MUSCL and GLM-MHD kernels against their plain
+PyTorch versions on the same card (rtol 2e-5, atol 2e-6, as
+tests/test_pallas.py; the stage kernels and the first-order MHD kernel
+bit for bit) and bit-identical on repeat, each in every template case;
+the stage kernels, the first-order MHD kernel and the two MUSCL kernels
+on the real side layers of a periodic mesh (mesh-face conservation); the
+Euler solver (order 1 in each stage-input mode, with hll and hllc, and
+at extents 2 and 16, order 2) and
 the GLM-MHD solver (order 1 and 2) stepped on the card against the same
 solver on the CPU; flux_divergence's kernel dispatches.
 """
@@ -28,9 +29,11 @@ from t8gpu_tpu_torch.models.mhd import mhd_state, orszag_tang
 from t8gpu_tpu_torch.models.subgrid_euler import SubgridCompressibleEulerSolver
 from t8gpu_tpu_torch.models.subgrid_mhd import SubgridMHDSolver
 from t8gpu_tpu_torch.ops import subgrid as tsg
+from t8gpu_tpu_torch.ops import subgrid_mhd as tsm
 from t8gpu_tpu_torch.ops.euler import cell_fields_tuple
 from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
                                          fused_mhd_flux,
+                                         fused_mhd_flux_attributes,
                                          fused_mhd_flux_reference,
                                          fused_mhd_muscl,
                                          fused_mhd_muscl_reference,
@@ -38,6 +41,7 @@ from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
                                          fused_rk_stage,
                                          fused_rk_stage_attributes,
                                          fused_rk_stage_fields,
+                                         fused_rk_stage_fields_attributes,
                                          fused_rk_stage_fields_reference,
                                          fused_rk_stage_reference,
                                          inner_divergence,
@@ -318,7 +322,8 @@ def test_cuda_stage_conserves_mesh_faces(cuda, ext, flux):
 @pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
 def test_cuda_mhd_flux_matches_reference(cuda, dim, ext):
     """Every template case of the MHD flux kernel, with conductor-wall
-    sides and guard slots."""
+    sides and guard slots, bit for bit against its plain version; no
+    spills."""
     E, n_guard = 1000, 37                        # E not a multiple of 32
     u, w, others = mhd_flux_inputs(dim + ext, dim, ext, E, n_guard)
     u, w = (torch.from_numpy(a).to(cuda) for a in (u, w))
@@ -330,11 +335,36 @@ def test_cuda_mhd_flux_matches_reference(cuda, dim, ext):
     rd, rsp = fused_mhd_flux_reference(u, w, others, gamma=MHD_GAMMA)
     torch.cuda.synchronize()
     assert _bits_equal(kd, kd2) and _bits_equal(ksp, ksp2)
+    assert bool(torch.isfinite(kd).all())
     assert (kd[..., -n_guard:] == 0).all() and (ksp[-n_guard:] == 0).all()
-    np.testing.assert_allclose(kd.cpu().numpy(), rd.cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(ksp.cpu().numpy(), rsp.cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)
+    assert _bits_equal(kd, rd) and _bits_equal(ksp, rsp)
+    assert fused_mhd_flux_attributes(dim, ext)["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [4, 8])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_mhd_flux_conserves_mesh_faces(cuda, dim, ext):
+    """The first-order MHD kernel on a periodic Forest.uniform(2) with the
+    real side layers (mhd_side_inputs) of a smooth seeded state: both
+    elements of every mesh face evaluate the same flux, so the sum of D
+    over all cells vanishes per row to float32 round-off; and D is the
+    plain version's bit for bit."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=dim, periodic=True),
+                                   SubgridSpec((ext,) * dim))
+    s = SubgridMHDSolver(mesh, _smooth_ic(dim, 31 + ext, True), order=1)
+    others, w = tsm.mhd_side_inputs(s.u, s.conn, s.spec, s.volumes,
+                                    torch.tensor(2.0, device=cuda))
+    before = fused_mhd_flux.launches
+    kd, ksp = fused_mhd_flux(s.u, w, list(others), gamma=MHD_GAMMA)
+    assert fused_mhd_flux.launches == before + 1
+    rd, rsp = fused_mhd_flux_reference(s.u, w, list(others), gamma=MHD_GAMMA)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kd).all())
+    d = kd.double().reshape(kd.shape[0], -1)
+    total, scale = d.sum(dim=1).abs(), d.abs().sum(dim=1)
+    assert bool((total <= 1e-6 * scale).all()), (total, scale)
+    assert _bits_equal(kd, rd) and _bits_equal(ksp, rsp)
 
 
 @pytest.mark.cuda
@@ -466,30 +496,66 @@ def test_cuda_logs_stage_matches_reference(cuda, dim, ext):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
 @pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
-def test_cuda_fields_kernels_match_reference(cuda, dim, ext):
-    """The field-input divergence and the field-input stage (every stage,
-    share_prev both ways) on cell fields of seeded states."""
+def test_cuda_fields_kernels_match_reference(cuda, dim, ext, flux):
+    """The field-input stage (every stage, share_prev both ways) on the
+    flux's cell fields of seeded states, bit for bit against its plain
+    version, with no spills; in kepes also the field-input divergence."""
     E, n_guard = 1000, 37
     u, up, w, others = _card_stage_inputs(cuda, dim + ext + 2, dim, ext, E,
                                           n_guard)
-    q = torch.stack(cell_fields_tuple(u, GAMMA, "kepes"))
-    oq = [torch.stack(cell_fields_tuple(o, GAMMA, "kepes")) for o in others]
-    before = fused_flux.launches
-    k1 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
-    k2 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
-    assert fused_flux.launches == before + 2
-    _check_pair(k1, k2, fused_flux_reference(q, w, oq, gamma=GAMMA,
-                                             flux="kepes"), n_guard)
+    q = torch.stack(cell_fields_tuple(u, GAMMA, flux))
+    oq = [torch.stack(cell_fields_tuple(o, GAMMA, flux)) for o in others]
+    if flux == "kepes":
+        before = fused_flux.launches
+        k1 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
+        k2 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
+        assert fused_flux.launches == before + 2
+        _check_pair(k1, k2, fused_flux_reference(q, w, oq, gamma=GAMMA,
+                                                 flux="kepes"), n_guard)
     for share_prev, coeffs in STAGES:
         prev = None if share_prev else up
-        kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+        kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs)
         before = fused_rk_stage_fields.launches
         k1 = fused_rk_stage_fields(q, prev, w, oq, **kw)
         k2 = fused_rk_stage_fields(q, prev, w, oq, **kw)
         assert fused_rk_stage_fields.launches == before + 2
         ref = fused_rk_stage_fields_reference(q, prev, w, oq, **kw)
         _check_pair(k1, k2, ref, n_guard, guard_d_zero=False)
+        assert _bits_equal(k1[0], ref[0]) and _bits_equal(k1[1], ref[1])
+        res = fused_rk_stage_fields_attributes(dim, ext, flux=flux,
+                                               share_prev=share_prev)
+        assert res["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+@pytest.mark.parametrize("ext", [4, 8])
+def test_cuda_fields_stage_conserves_mesh_faces(cuda, ext, flux):
+    """The field-input stage on a periodic Forest.uniform(2) in 3D with the
+    real field side layers (pallas_side_inputs) of a smooth seeded state,
+    with coefficients (0, 0, 1) and w[7] = 1, so that it returns D: the
+    sum of D over all cells vanishes per row to float32 round-off; and
+    the result is the plain version's bit for bit."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=3, periodic=True),
+                                   SubgridSpec((ext,) * 3))
+    s = SubgridCompressibleEulerSolver(mesh, _smooth_ic(3, 41 + ext, False))
+    q = torch.stack(cell_fields_tuple(s.u, GAMMA, flux))
+    oq, w = tsg.pallas_side_inputs(q, s.conn, s.spec, s.volumes)
+    w = w.clone()
+    w[7] = 1.0
+    kw = dict(gamma=GAMMA, flux=flux, coeffs=(0.0, 0.0, 1.0))
+    before = fused_rk_stage_fields.launches
+    kd, ksp = fused_rk_stage_fields(q, None, w, oq, **kw)
+    assert fused_rk_stage_fields.launches == before + 1
+    rd, rsp = fused_rk_stage_fields_reference(q, None, w, oq, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kd).all())
+    d = kd.double().reshape(5, -1)
+    total, scale = d.sum(dim=1).abs(), d.abs().sum(dim=1)
+    assert bool((total <= 1e-6 * scale).all()), (total, scale)
+    assert _bits_equal(kd, rd) and _bits_equal(ksp, rsp)
 
 
 @pytest.mark.cuda
@@ -549,8 +615,8 @@ def test_cuda_new_kernels_reject_unsupported(cuda):
     oq = [torch.stack(cell_fields_tuple(o, GAMMA, "hll")) for o in others]
     with pytest.raises(ValueError, match="kepes"):
         fused_flux(q, w, oq, gamma=GAMMA, flux="hll")
-    with pytest.raises(ValueError, match="kepes"):
-        fused_rk_stage_fields(q, up, w, oq, gamma=GAMMA, flux="hll",
+    with pytest.raises(ValueError, match="flux"):
+        fused_rk_stage_fields(q, up, w, oq, gamma=GAMMA, flux="roe",
                               coeffs=STAGE_2)
     with pytest.raises(ValueError, match="kepes"):
         inner_divergence(u, w[0], GAMMA, "hll")
@@ -598,6 +664,35 @@ def test_cuda_stage_inputs_match_cpu(cuda, mode, dim, level, ext, periodic):
         tsg.RK_STAGE_INPUTS = old
     want = (0, 9, 0) if mode == "logs" else (0, 0, 9)
     assert tuple(a - b for a, b in zip(counts(), before)) == want
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    assert abs(gpu.compute_integral() - m0) <= 1e-6 * abs(m0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["hll", "hllc"])
+def test_cuda_fields_hll_solver_matches_cpu(cuda, flux):
+    """Three steps with RK_STAGE_INPUTS "fields" and EulerConfig(flux=
+    "hll" / "hllc") on the card against the CPU: every stage one launch
+    of the field-input stage kernel."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=3, periodic=True),
+                                   SubgridSpec((8, 8, 8)))
+    config = EulerConfig(flux=flux)
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(3, 12), config=config)
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(3, 12), config=config,
+                                         device="cpu")
+    m0 = gpu.compute_integral()
+    dt = gpu.compute_timestep()
+    before = (fused_rk_stage.launches, fused_rk_stage_fields.launches)
+    old = tsg.RK_STAGE_INPUTS
+    try:
+        tsg.RK_STAGE_INPUTS = "fields"
+        gpu.iterate_many(3, dt)
+        cpu.iterate_many(3, dt)
+    finally:
+        tsg.RK_STAGE_INPUTS = old
+    assert (fused_rk_stage.launches - before[0],
+            fused_rk_stage_fields.launches - before[1]) == (0, 9)
     np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
                                rtol=RTOL, atol=ATOL)
     assert abs(gpu.compute_integral() - m0) <= 1e-6 * abs(m0)

@@ -1,9 +1,11 @@
 """The port's field-input and inner-only kernels, its stage-input modes and
 its non-fused first-order divergence against the JAX package, on the CPU.
 
-(a) `append_log_rows`, `cell_fields_tuple(logs=...)` and the state-form
-    fluxes (`numerical_flux`: kepes, hll, hllc) on seeded states: rtol
-    2e-6 (as tests/test_torch_euler_ops.py), the state-form flux with
+(a) `append_log_rows`, `cell_fields_tuple(logs=...)`, the state recovered
+    from field rows (`_recover_state_rows`: kepes, hll, hllc) and the
+    state-form fluxes (`numerical_flux`: kepes, hll, hllc) on seeded
+    states: rtol 2e-6 (as tests/test_torch_euler_ops.py), the state-form
+    flux with
     atol 2e-6 (its energy row carries the entropy-variable jump, a
     difference of O(10) values: both packages are up to 2.1e-6 off the
     float64 value, in different elements);
@@ -46,7 +48,8 @@ from t8gpu_tpu.models.subgrid_euler import \
 from t8gpu_tpu.ops import euler as jeu
 from t8gpu_tpu.ops import rk as jrk
 from t8gpu_tpu.ops import subgrid as jsg
-from t8gpu_tpu.ops.pallas_kernels import (fused_rk_stage_fields_pallas,
+from t8gpu_tpu.ops.pallas_kernels import (_recover_state_rows,
+                                          fused_rk_stage_fields_pallas,
                                           kernel_mode)
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.mesh.forest import Forest
@@ -169,6 +172,22 @@ def test_log_rows_and_fields_from_logs_match_jax():
     assert tq[6] is logs[0] and tq[7] is logs[1]
     for t, j in zip(tq, jq):
         _close(t.numpy(), j, OPS_RTOL, OPS_ATOL)
+
+
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+def test_recover_state_rows_matches_jax(flux):
+    """The stage state recovered from the flux's field rows, as the
+    field-input stage kernel recovers it, against the TPU kernel's
+    helper."""
+    u = random_state(np.random.default_rng(52), (4, 300))
+    q = teu.cell_fields_tuple(torch.from_numpy(u), GAMMA, flux)
+    tu = kernels._recover_state_rows(q, GAMMA, flux)
+    with jax.disable_jit():
+        ju = _recover_state_rows(tuple(jnp.asarray(r.numpy()) for r in q),
+                                 GAMMA, flux)
+    for t, j in zip(tu, ju):
+        _close(t.numpy(), j, OPS_RTOL, OPS_ATOL)
+    _close(torch.stack(tu).numpy(), u, OPS_RTOL, OPS_ATOL)
 
 
 @pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
@@ -445,11 +464,12 @@ def test_kernel_input_refusals():
         kernels.inner_divergence(ts.u, torch.ones(2), GAMMA, "kepes")
 
 
-@pytest.mark.parametrize("which", ["fields", "inner"])
+@pytest.mark.parametrize("which", ["fields", "inner", "stage_fields"])
 def test_new_libraries_declare_c_signature(monkeypatch, which):
-    """Every pointer and the stream go to the field-input and inner-only
-    C entry points as c_void_p (an undeclared ctypes argument is a 32-bit
-    int and cuts a pointer)."""
+    """Every pointer and the stream go to the field-input divergence,
+    inner-only and field-input stage C entry points as c_void_p (an
+    undeclared ctypes argument is a 32-bit int and cuts a pointer); the
+    field-input stage takes the flux's index in CUDA_FLUXES."""
     import ctypes
     import types
 
@@ -457,16 +477,27 @@ def test_new_libraries_declare_c_signature(monkeypatch, which):
 
     def fn():
         return types.SimpleNamespace(argtypes=None, restype=ctypes.c_int)
-    entry = "t8_fused_fields" if which == "fields" else "t8_inner_divergence"
+    entry = {"fields": "t8_fused_fields", "inner": "t8_inner_divergence",
+             "stage_fields": "t8_fused_rk_stage_fields"}[which]
     fake = types.SimpleNamespace(**{entry: fn(), "t8_cuda_error_string": fn()})
-    monkeypatch.setattr(_build, "load", lambda name: fake)
+    loaded = []
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loaded.append(name) or fake)
     if which == "fields":
         args = kernels._fields_library().t8_fused_fields.argtypes
-        assert args[:5] == [ctypes.c_int] * 5     # device, dim, ext, E, rk
+        assert args[:4] == [ctypes.c_int] * 4     # device, dim, ext, E
+        assert args[4:14] == [ctypes.c_void_p] * 10   # q, w, 6 sides, D, speed
+        assert args[14] is ctypes.c_double
+        assert args[15] is ctypes.c_void_p and len(args) == 16
+    elif which == "stage_fields":
+        args = kernels._stage_fields_library().t8_fused_rk_stage_fields.argtypes
+        assert loaded == ["fused_rk_stage"]       # the stage kernel's library
+        assert args[:5] == [ctypes.c_int] * 5     # device, dim, ext, E, flux
         assert args[5:16] == [ctypes.c_void_p] * 11   # q, up, w, 6 sides, out, speed
         assert args[16] is ctypes.c_double
         assert args[17:20] == [ctypes.c_float] * 3
         assert args[20] is ctypes.c_void_p and len(args) == 21
+        assert kernels.CUDA_FLUXES == ("kepes", "hll", "hllc")
     else:
         args = kernels._inner_library().t8_inner_divergence.argtypes
         assert args[:4] == [ctypes.c_int] * 4     # device, dim, ext, E

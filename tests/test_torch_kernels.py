@@ -163,11 +163,12 @@ class _FakeAttributes:
         return 0
 
 
-@pytest.mark.parametrize("which", ["stage", "inner"])
+@pytest.mark.parametrize("which", ["stage", "inner", "stage_fields",
+                                   "mhd_flux"])
 def test_attributes_declare_c_signature(monkeypatch, which):
-    """The stage and inner-only attributes entry points take the device
-    and the case as int and an int[4] out; the wrapper names the four
-    numbers."""
+    """The stage, inner-only, field-input stage and first-order MHD
+    attributes entry points take the device and the case as int and an
+    int[4] out; the wrapper names the four numbers."""
     import ctypes
     import types
 
@@ -178,13 +179,23 @@ def test_attributes_declare_c_signature(monkeypatch, which):
     entry = _FakeAttributes()
     fake = types.SimpleNamespace(
         t8_fused_rk_stage=fn(), t8_inner_divergence=fn(),
+        t8_fused_rk_stage_fields=fn(), t8_fused_mhd_flux=fn(),
         t8_cuda_error_string=fn(), t8_fused_rk_stage_attributes=entry,
-        t8_inner_divergence_attributes=entry)
+        t8_inner_divergence_attributes=entry,
+        t8_fused_rk_stage_fields_attributes=entry,
+        t8_fused_mhd_flux_attributes=entry)
     monkeypatch.setattr(_build, "load", lambda name: fake)
     if which == "stage":
         got = kernels.fused_rk_stage_attributes(3, 8, flux="hllc",
                                                 share_prev=False)
         case = (0, 3, 8, 2, 0, 0)     # device dim ext flux logs share_prev
+    elif which == "stage_fields":
+        got = kernels.fused_rk_stage_fields_attributes(3, 8, flux="hll",
+                                                       share_prev=False)
+        case = (0, 3, 8, 1, 0)        # device dim ext flux share_prev
+    elif which == "mhd_flux":
+        got = kernels.fused_mhd_flux_attributes(2, 8)
+        case = (0, 2, 8)              # device dim ext
     else:
         got = kernels.inner_divergence_attributes(3, 16)
         case = (0, 3, 16)             # device dim ext
