@@ -6,9 +6,10 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
                                          # flagship, fields, logs, order 2
-                                         # (cons and prim), mhd and
-                                         # mhd_order2 (device time
-                                         # by kernel group, idle share);
+                                         # (cons and prim), mhd,
+                                         # mhd_order2 and amr (device time
+                                         # by kernel group, the AMR glue
+                                         # apart, idle share);
                                          # tables and traces to DIR
 
 Phases, one line each; any failure raises and the exit code is not 0:
@@ -82,9 +83,40 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    none of the others), mass drift, max |div B|
   mhd_order2       the same at order 2 (minmod): 3 fused_mhd_muscl per step
   mhd_vs_cpu       one step on the card and one on the CPU, order 1 and 2
+  kernel (extras)  the two stage kernels with the hanging-face side extras
+                   of AMR meshes (fused_rk_stage_extras on 5- and 7-row
+                   states, fused_rk_stage_fields_extras in kepes, hll and
+                   hllc) against their plain versions, bit for bit and on
+                   repeat, at (3, 8, 4374) with sides (0, 3, 4) and all six
+                   and at (2, 4, 4374) with sides (0, 3) and all four, every
+                   stage; a launch with zero extras equal to one without;
+                   their resources (no spills) and their times with six sides
+  amr              bench.py's bench_amr at full width on the card:
+                   Forest.uniform(3, dim=3), Subgrid<8,8,8>, kh_planar,
+                   AMRConfig(2, 4, 0.02), KEPES, SSP-RK3; 50 warm steps,
+                   then 6 cycles of iterate_many(45), adapt_prefetch(),
+                   iterate_many(5), adapt(), dt = compute_timestep_device();
+                   per cycle (amr_cycle) the elements before and after, the
+                   ms/step between adapts and the adapt's seconds by part;
+                   cell-updates/s including the adapts (bench_amr's metric);
+                   every adapted forest 2:1 with single-level moves, the
+                   element count changed, exactly 3 stage-kernel launches
+                   per step (with extras on meshes with finer neighbours)
+                   and none of any other kernel, a finite state, mass drift
+                   < 1e-5 after the second adapt (150 steps); then 10 steps
+                   each with the stage inputs "state", "logs" and "fields"
+                   on the last mesh (amr_tail)
+  amr_vs_cpu       Forest.uniform(2, dim=3), Subgrid<8,8,8>, AMRConfig(1, 3,
+                   0.02), on the card and on the CPU: two steps, the
+                   criteria, one adapt with the card's criteria on both
+                   (the same forest and mesh tables, the remapped state),
+                   one step in each stage input and flux_divergence
+                   (kernel 2 with coarser sides, then outer_fine_apply) on
+                   the adapted mesh, each within rtol 2e-5 / atol 2e-6
 Then one JSON line with the seven kernels (the stage kernel's log input,
-hll and hllc as variants of its row, the field-input stage kernel's hll
-and hllc as variants of its row) and, last, the device line
+hll, hllc and extras as variants of its row, the field-input stage
+kernel's hll, hllc and extras as variants of its row) and, last, the
+device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -193,6 +225,19 @@ MHD_KERNEL_SHAPES = ((2, 8, None, None), (2, 4, 4374, 4096),
 INNER_KERNEL_SHAPES = ((3, 16, 576, 512), (2, 16, 4374, 4096),
                        (3, 2, 279936, 262144), (3, 4, 4374, 4096))
 EXT16_LEVEL = 3
+# the stage kernels with side extras: (dim, ext, E, live) and the side
+# subsets besides all 2*dim sides
+EXTRAS_SHAPES = ((3, 8, 4374, 4096), (2, 4, 4374, 4096))
+EXTRAS_SUBSETS = {3: (0, 3, 4), 2: (0, 3)}
+# bench.py's bench_amr (bench.py:321-366): the forest level, the AMRConfig,
+# the warm steps, the timed steps, the adapt interval and the prefetch lag;
+# then AMR_TAIL steps per stage input on the last mesh
+AMR_LEVEL, AMR_CONFIG = 3, dict(min_level=2, max_level=4,
+                                refine_threshold=0.02)
+AMR_WARM, AMR_STEPS, AMR_EVERY, AMR_LAG, AMR_TAIL = 50, 300, 50, 5, 10
+# amr_vs_cpu: a smaller forest, one adapt on both devices
+AMR_CPU_LEVEL, AMR_CPU_CONFIG = 2, dict(min_level=1, max_level=3,
+                                        refine_threshold=0.02)
 # what the profiler's name of a path's kernel contains: the MUSCL kernels
 # are muscl_pencil.cuh's walk, named by their physics policy; each key
 # matches no other kernel's name
@@ -265,17 +310,19 @@ def muscl_cost(dim, ext, E, space, flux="kepes"):
     return 4 * (read + write), ops
 
 
-def stage_cost(dim, ext, E, share_prev, flux="kepes"):
+def stage_cost(dim, ext, E, share_prev, flux="kepes", n_extras=0):
     """(bytes, ops) the stage must move and compute: each input read once,
     each output written once; fields once per cell and side-layer cell,
-    each interface's flux once."""
+    each interface's flux once; n_extras sides' extras [5, T, E] read once
+    and added once per value."""
     B, T = ext ** dim, ext ** (dim - 1)
     n_state = 5 * B * E
-    read = n_state * (1 if share_prev else 2) + 8 * E + 2 * dim * 5 * T * E
+    read = (n_state * (1 if share_prev else 2) + 8 * E
+            + 2 * dim * 5 * T * E + n_extras * 5 * T * E)
     write = n_state + E
     ops = E * ((B + 2 * dim * T) * STAGE_FIELD_OPS[flux]
                + dim * (ext + 1) * T * (STAGE_FLUX_OPS[flux] + FACE_OPS)
-               + B * UPDATE_OPS)
+               + B * UPDATE_OPS + n_extras * 5 * T)
     return 4 * (read + write), ops
 
 
@@ -307,21 +354,21 @@ def logs_cost(dim, ext, E, share_prev):
     return 4 * (read + write), ops
 
 
-def fields_cost(dim, ext, E, rk, share_prev, flux="kepes"):
+def fields_cost(dim, ext, E, rk, share_prev, flux="kepes", n_extras=0):
     """(bytes, ops) of the field-input kernels: q (10 rows kepes, 9
     hll/hllc), the weights and the field side layers read once, D or
     u_next and the speed written once (u_prev read too at stages 2-3);
     each interface's flux once, and for the stage the state recovery and
-    the update per cell."""
+    the update per cell, and n_extras sides' extras read and added once."""
     B, T = ext ** dim, ext ** (dim - 1)
     C = 10 if flux == "kepes" else 9
-    read = C * B * E + 8 * E + 2 * dim * C * T * E
+    read = C * B * E + 8 * E + 2 * dim * C * T * E + n_extras * 5 * T * E
     if rk and not share_prev:
         read += 5 * B * E
     write = 5 * B * E + E
     ops = E * dim * (ext + 1) * T * (STAGE_FLUX_OPS[flux] + FACE_OPS)
     if rk:
-        ops += E * B * (RECOVER_OPS + UPDATE_OPS)
+        ops += E * B * (RECOVER_OPS + UPDATE_OPS) + E * n_extras * 5 * T
     return 4 * (read + write), ops
 
 
@@ -847,18 +894,28 @@ def kernel_wrappers():
 
 def reset_launches():
     """Set every kernel's launch counts to 0 (the stage kernel counts its
-    7-row launches apart)."""
-    for fn in kernel_wrappers().values():
+    7-row launches apart, the two stage kernels their launches with side
+    extras too)."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
-    kernel_wrappers()["fused_rk_stage"].launches_logs = 0
+    wrappers["fused_rk_stage"].launches_logs = 0
+    wrappers["fused_rk_stage"].launches_extras = 0
+    wrappers["fused_rk_stage_fields"].launches_extras = 0
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count, the stage kernel's 7-row launches as
-    fused_rk_stage_logs."""
-    counts = {n: fn.launches for n, fn in kernel_wrappers().items()}
-    counts["fused_rk_stage_logs"] = \
-        kernel_wrappers()["fused_rk_stage"].launches_logs
+    fused_rk_stage_logs, the two stage kernels' launches with side extras
+    (counted in their own counts too) as fused_rk_stage_extras and
+    fused_rk_stage_fields_extras."""
+    wrappers = kernel_wrappers()
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    counts["fused_rk_stage_logs"] = wrappers["fused_rk_stage"].launches_logs
+    counts["fused_rk_stage_extras"] = \
+        wrappers["fused_rk_stage"].launches_extras
+    counts["fused_rk_stage_fields_extras"] = \
+        wrappers["fused_rk_stage_fields"].launches_extras
     return counts
 
 
@@ -918,13 +975,19 @@ def phase_flagship(profile_dir):
     return launches
 
 
-def _profile(solver, dt, ms_step, out: pathlib.Path, tag, kernel_key, n=10):
+def _profile(solver, dt, ms_step, out: pathlib.Path, tag, kernel_key, n=10,
+             amr_glue=False):
     """Device time of n steps by kernel group (torch.profiler), the host's
     launches per step, and the device's idle share against the unprofiled
     ms/step; the table and trace go to the directory out, named by tag.
-    kernel_key names the kernel of the path."""
+    kernel_key names the kernel of the path.  amr_glue: the device time of
+    the AMR glue (the kernels launched inside ops/subgrid's AMR_GLUE_RANGE,
+    around each stage's fine_side_extras) as its own group, taken out of
+    the gathers and other groups' sum ("rest")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from t8gpu_tpu_torch.ops.subgrid import AMR_GLUE_RANGE
     solver.iterate_many(2, dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -934,6 +997,8 @@ def _profile(solver, dt, ms_step, out: pathlib.Path, tag, kernel_key, n=10):
     groups = {"kernel": 0.0, "gathers": 0.0, "other": 0.0}
     launches = 0
     for e in prof.key_averages():
+        if e.key == AMR_GLUE_RANGE:
+            continue            # a range, not a kernel (its span on the card)
         if e.device_type == DeviceType.CUDA:
             key = ("kernel" if kernel_key in e.key else
                    "gathers" if "gather" in e.key or "index" in e.key else
@@ -944,6 +1009,13 @@ def _profile(solver, dt, ms_step, out: pathlib.Path, tag, kernel_key, n=10):
     busy = sum(groups.values())
     if groups["kernel"] <= 0.0:
         raise AssertionError(f"profile: no {kernel_key} time was traced")
+    if amr_glue:
+        # the device time of the kernels launched inside the host ranges
+        glue = sum(e.device_time_total for e in prof.events()
+                   if e.name == AMR_GLUE_RANGE
+                   and e.device_type == DeviceType.CPU) / 1e3 / n
+        groups = {"kernel": groups["kernel"], "amr_glue": glue,
+                  "rest": busy - groups["kernel"] - glue}
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_{tag}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
@@ -1416,6 +1488,329 @@ def phase_mhd_vs_cpu():
               atol=ATOL, cpu_step_s=f"{cpu_s:.2f}")
 
 
+def _extras(seed, dim, ext, E, n_live, sides):
+    """Seeded side extras [5, *(ext,)*(dim-1), E] on the card for each of
+    `sides` (zero on the guard slots, which have no hanging faces)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.05, 0.05, (len(sides), 5) + (ext,) * (dim - 1)
+                    + (E,)).astype(np.float32)
+    x[..., n_live:] = 0.0
+    return [torch.from_numpy(a).cuda() for a in x]
+
+
+def phase_kernel_extras():
+    """The two stage kernels with side extras against their plain versions
+    at EXTRAS_SHAPES, with the sides EXTRAS_SUBSETS and all 2*dim, every
+    stage: kernel 1 on 5-row (kepes) and 7-row (logs) states, kernel 6 on
+    kepes, hll and hllc field rows; each bit-identical to its plain
+    version and on repeat (a failure otherwise); a launch with zero
+    extras on every side equal to one without; the extras instantiations'
+    resources (no spills); timed with all six sides at the first shape.
+    Returns {"state": row fields, "fields": row fields}."""
+    from t8gpu_tpu_torch.ops.kernels import (
+        fused_rk_stage, fused_rk_stage_attributes, fused_rk_stage_fields,
+        fused_rk_stage_fields_attributes, fused_rk_stage_fields_reference,
+        fused_rk_stage_reference)
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+    from t8gpu_tpu_torch.ops.subgrid import append_log_rows
+
+    stages = ((True, STAGE_1), (False, STAGE_2), (False, STAGE_3))
+    errs = {"state": [0.0, 0.0, 0.0], "fields": [0.0, 0.0, 0.0]}
+    timing = {"state": {}, "fields": {}}
+    for i, (dim, ext, E, n_live) in enumerate(EXTRAS_SHAPES):
+        u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+        inputs = {("state", "kepes"): (u, others),
+                  ("logs", "kepes"): (append_log_rows(u, GAMMA),
+                                      [append_log_rows(o, GAMMA)
+                                       for o in others])}
+        for flux in STAGE_FLUXES:
+            q, _, _, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live,
+                                        flux)
+            inputs[("fields", flux)] = (q, oq)
+        all_sides = tuple(range(2 * dim))
+        for sides in (EXTRAS_SUBSETS[dim], all_sides):
+            xs = _extras(dim + len(sides), dim, ext, E, n_live, sides)
+            for (inp, flux), (a, o) in inputs.items():
+                kind = "fields" if inp == "fields" else "state"
+                kern, ref_fn = ((fused_rk_stage_fields,
+                                 fused_rk_stage_fields_reference)
+                                if kind == "fields" else
+                                (fused_rk_stage, fused_rk_stage_reference))
+                for share_prev, coeffs in stages:
+                    args = (a, None if share_prev else up, w, o)
+                    kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                              extra_sides=sides, extras=xs)
+                    k1 = kern(*args, **kw)
+                    k2 = kern(*args, **kw)
+                    ref = ref_fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    _hold(f"{kern.__name__} extras {inp} {flux} {dim}d "
+                          f"ext{ext} sides {sides}", k1, k2, ref, n_live,
+                          errs[kind], stage=True)
+                    if i == 0 and sides == all_sides and flux == "kepes" \
+                            and inp != "logs" and coeffs != STAGE_3:
+                        cost = (stage_cost(dim, ext, E, share_prev,
+                                           n_extras=len(sides))
+                                if kind == "state" else
+                                fields_cost(dim, ext, E, True, share_prev,
+                                            n_extras=len(sides)))
+                        timing[kind][share_prev] = (
+                            cuda_ms(lambda: kern(*args, **kw), reps=20),
+                            cuda_ms(lambda: ref_fn(*args, **kw), reps=3,
+                                    warmup=1)) + cost
+        # zero extras on every side: the extras instantiation gives the
+        # bits of the one without
+        zeros = [torch.zeros_like(x) for x in _extras(0, dim, ext, E, n_live,
+                                                      all_sides)]
+        for kern, (a, o) in ((fused_rk_stage, inputs[("state", "kepes")]),
+                             (fused_rk_stage_fields,
+                              inputs[("fields", "kepes")])):
+            kw = dict(gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
+            got = kern(a, up, w, o, extra_sides=all_sides, extras=zeros, **kw)
+            want = kern(a, up, w, o, **kw)
+            for g, h in zip(got, want):
+                if not torch.equal(g.view(torch.int32), h.view(torch.int32)):
+                    raise AssertionError(f"{kern.__name__}: zero extras change "
+                                         f"the bits")
+    rows = {}
+    dim, ext = EXTRAS_SHAPES[0][:2]
+    for kind, name in (("state", "fused_rk_stage_extras"),
+                       ("fields", "fused_rk_stage_fields_extras")):
+        if errs[kind][0] != 0.0:
+            raise AssertionError(f"{name}: not bit-identical to its plain "
+                                 f"version (max abs err {errs[kind][0]:.3e})")
+        extra = {"bit_identical": True}
+        for share_prev in (True, False):
+            res = []
+            for flux in STAGE_FLUXES:
+                for logs in ((False, True) if kind == "state"
+                             and flux == "kepes" else (False,)):
+                    r = (fused_rk_stage_attributes(
+                        dim, ext, flux=flux, logs=logs, share_prev=share_prev,
+                        extras=True) if kind == "state" else
+                        fused_rk_stage_fields_attributes(
+                            dim, ext, flux=flux, share_prev=share_prev,
+                            extras=True))
+                    if r["spill_bytes"] != 0:
+                        raise AssertionError(f"{name} {flux} logs={logs}: "
+                                             f"{r['spill_bytes']} B spilled")
+                    res.append(f"{flux}{'-logs' if logs else ''}:"
+                               f"{_resources(r)}")
+            extra[f"resources_stage{1 if share_prev else 23}"] = \
+                ";".join(res)
+        rows[kind] = _mixed_row(name, errs[kind], timing[kind], extra)
+    return rows
+
+
+def amr_solver(level, config, device=None):
+    """bench_amr's solver: kh_planar on subgrid_manager(Forest.uniform(level,
+    dim=3), Subgrid<8,8,8>, AMRConfig(**config))."""
+    from t8gpu_tpu_torch import (Forest, SubgridCompressibleEulerSolver,
+                                 SubgridSpec, kh_planar)
+    from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    mgr = subgrid_manager(Forest.uniform(level, dim=3),
+                          SubgridSpec((8, 8, 8)), AMRConfig(**config))
+    return SubgridCompressibleEulerSolver(mgr, lambda c: kh_planar(c, dim=3),
+                                          device=device)
+
+
+def check_adapted(name, before, after):
+    """Raise unless the forest `after` is 2:1 balanced and each of its
+    leaves is at most one level from the leaf of `before` at its anchor.
+    Returns (leaves made by refining, leaves made by coarsening)."""
+    if after._balance_violations().any():
+        raise AssertionError(f"{name}: the adapted forest is not 2:1")
+    moves = (after.level.astype(int)
+             - before.level[before._locate(after.anchor)])
+    if abs(moves).max() > 1:
+        raise AssertionError(f"{name}: an element moved by "
+                             f"{abs(moves).max()} levels")
+    return int((moves > 0).sum()), int((moves < 0).sum())
+
+
+def phase_amr(profile_dir):
+    """bench_amr's loop on the card (the docstring's amr phase).  Returns
+    the extras launches of the stage kernels by stage input."""
+    solver = amr_solver(AMR_LEVEL, AMR_CONFIG)   # device=None: the card
+    B = solver.spec.size
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    reset_launches()                        # count this path only
+    solver.iterate_many(AMR_WARM, dt)
+    steps = AMR_WARM
+    extras_steps = AMR_WARM if any(solver.conn.has_fine) else 0
+    torch.cuda.synchronize()
+    cycles, cells, mass_2 = [], 0, None
+    t0 = time.perf_counter()
+    for c in range(AMR_STEPS // AMR_EVERY):
+        hanging = any(solver.conn.has_fine)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        solver.iterate_many(AMR_EVERY - AMR_LAG, dt)
+        solver.adapt_prefetch()
+        solver.iterate_many(AMR_LAG, dt)
+        ev[1].record()
+        steps += AMR_EVERY
+        extras_steps += AMR_EVERY if hanging else 0
+        cells += solver.n_elements * B * AMR_EVERY
+        before, n_before = solver.manager.forest, solver.n_elements
+        ta = time.perf_counter()
+        solver.adapt()
+        t_adapt = time.perf_counter() - ta
+        dt = solver.compute_timestep_device()   # the mesh may have refined
+        if c == 1:      # mass after two adapts, on the device (no wait)
+            mass_2 = (solver.u[0] * (solver.volumes / B)).sum()
+        cycles.append((n_before, solver.n_elements, ev, t_adapt,
+                       dict(solver.adapt_timings), before,
+                       solver.manager.forest))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {n: 0 for n in counts}
+    want.update(fused_rk_stage=3 * steps, fused_rk_stage_extras=3 * extras_steps)
+    if counts != want:
+        raise AssertionError(f"amr: launches {counts} for {steps} steps "
+                             f"({extras_steps} on meshes with finer "
+                             f"neighbours), expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("amr: non-finite state")
+    drift_2 = abs(float(mass_2) - m0) / abs(m0)
+    if not drift_2 < 1e-5:
+        raise AssertionError(f"amr: relative mass drift {drift_2:.3e} after "
+                             f"two adapts")
+    if all(n0 == n1 for n0, n1, *_ in cycles):
+        raise AssertionError("amr: the element count never changed")
+    ms_steps = []
+    for c, (n0, n1, ev, t_adapt, parts, before, after) in enumerate(cycles):
+        refined, coarsened = check_adapted(f"amr cycle {c}", before, after)
+        ms = ev[0].elapsed_time(ev[1]) / AMR_EVERY
+        ms_steps.append(ms)
+        phase("amr_cycle", cycle=c, elements_before=n0, elements_after=n1,
+              leaves_refined=refined, leaves_coarsened=coarsened,
+              ms_per_step=f"{ms:.4f}", adapt_s=f"{t_adapt:.4f}",
+              **{f"{k}_s": f"{v:.4f}" for k, v in parts.items()})
+    drift = abs(solver.compute_integral() - m0) / abs(m0)
+    phase("amr", elements_final=solver.n_elements,
+          capacity=solver.conn.element_capacity, steps=steps,
+          launches=counts["fused_rk_stage"],
+          launches_per_step=counts["fused_rk_stage"] / steps,
+          extras_launches=counts["fused_rk_stage_extras"],
+          wall_s=f"{wall:.3f}",
+          cell_updates_per_s_incl_adapts=f"{cells / wall:.4e}",
+          ms_per_step_mean=f"{statistics.mean(ms_steps):.4f}",
+          mass_drift_after_two_adapts=f"{drift_2:.3e}",
+          mass_drift_end=f"{drift:.3e}", max_level=solver.mesh.max_level)
+
+    # the last mesh in each stage input
+    extras = {"state": counts["fused_rk_stage_extras"]}
+    for mode in ("state", "logs", "fields"):
+        name = ("fused_rk_stage" if mode == "state"
+                else STAGE_INPUT_KERNELS[mode])
+        x_name = ("fused_rk_stage_fields_extras" if mode == "fields"
+                  else "fused_rk_stage_extras")
+        with stage_inputs_mode(mode):
+            solver.iterate_many(1, dt)
+            reset_launches()
+            t = timed_steps(solver, AMR_TAIL, dt)
+            counts = launch_counts()
+            want = {n: 0 for n in counts}
+            hang = 3 * AMR_TAIL if any(solver.conn.has_fine) else 0
+            want.update({name: 3 * AMR_TAIL, x_name: hang})
+            if counts != want:
+                raise AssertionError(f"amr_tail {mode}: launches {counts}, "
+                                     f"expected {want}")
+            ms_step = t / AMR_TAIL * 1e3
+            phase("amr_tail", stage_inputs=mode,
+                  elements=solver.n_elements, steps=AMR_TAIL,
+                  launches=counts[name], extras_launches=counts[x_name],
+                  ms_per_step=f"{ms_step:.4f}")
+            extras[mode] = extras.get(mode, 0) + counts[x_name]
+            if profile_dir is not None and mode == "state":
+                _profile(solver, dt, ms_step, pathlib.Path(profile_dir),
+                         "amr", PROFILE_KEYS["fused_rk_stage"],
+                         amr_glue=True)
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("amr_tail: non-finite state")
+    return extras
+
+
+def phase_amr_vs_cpu():
+    """The docstring's amr_vs_cpu phase."""
+    import numpy as np
+    from t8gpu_tpu_torch.ops.subgrid import flux_divergence, h1_criteria
+    torch.set_num_threads(os.cpu_count() or 1)
+    gpu = amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG)
+    cpu = amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG, device="cpu")
+    if not torch.equal(gpu.u.cpu(), cpu.u):
+        raise AssertionError("amr_vs_cpu: initial states differ")
+    dt = gpu.compute_timestep()
+    gpu.iterate_many(2, dt)
+    cpu.iterate_many(2, dt)
+    used = {"steps": compare("amr_vs_cpu steps",
+                             torch.from_numpy(gpu.conserved_state()),
+                             torch.from_numpy(cpu.conserved_state()))[2]}
+    crit = h1_criteria(gpu.u, gpu.volumes, gpu.spec).cpu()
+    used["criteria"] = compare("amr_vs_cpu criteria", crit,
+                               h1_criteria(cpu.u, cpu.volumes, cpu.spec))[2]
+    before = gpu.manager.forest
+    for s in (gpu, cpu):
+        s.adapt(criteria=crit.numpy())
+    fg, fc = gpu.manager.forest, cpu.manager.forest
+    if not (np.array_equal(fg.level, fc.level)
+            and np.array_equal(fg.anchor, fc.anchor)):
+        raise AssertionError("amr_vs_cpu: the adapted forests differ")
+    refined, coarsened = check_adapted("amr_vs_cpu", before, fg)
+    for name in ("nbr", "rel", "bits", "mask", "fine_idx", "fine_inv"):
+        for a, b in zip(getattr(gpu.conn, name), getattr(cpu.conn, name)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"amr_vs_cpu: the {name} tables differ")
+    if not (any(gpu.conn.has_fine) and any(gpu.conn.has_coarse)):
+        raise AssertionError("amr_vs_cpu: the adapted mesh has no hanging "
+                             "faces")
+    used["remap"] = compare("amr_vs_cpu remap",
+                            torch.from_numpy(gpu.conserved_state()),
+                            torch.from_numpy(cpu.conserved_state()))[2]
+    u_g, u_c = gpu.u.clone(), cpu.u.clone()
+    dt = gpu.compute_timestep()             # the mesh has refined
+    for mode in ("state", "logs", "fields"):
+        name = ("fused_rk_stage" if mode == "state"
+                else STAGE_INPUT_KERNELS[mode])
+        x_name = ("fused_rk_stage_fields_extras" if mode == "fields"
+                  else "fused_rk_stage_extras")
+        gpu.u, cpu.u = u_g.clone(), u_c.clone()
+        with stage_inputs_mode(mode):
+            reset_launches()
+            gpu.iterate(dt)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            cpu.iterate(dt)
+        want = {n: 0 for n in counts}
+        want.update({name: 3, x_name: 3})
+        if counts != want:
+            raise AssertionError(f"amr_vs_cpu {mode}: launches {counts}, "
+                                 f"expected {want}")
+        used[mode] = compare(f"amr_vs_cpu step {mode}",
+                             torch.from_numpy(gpu.conserved_state()),
+                             torch.from_numpy(cpu.conserved_state()))[2]
+    gpu.u, cpu.u = u_g, u_c
+    reset_launches()
+    got = flux_divergence(gpu.u, gpu.volumes, gpu.conn, gpu.spec, GAMMA,
+                          "kepes")
+    torch.cuda.synchronize()
+    if launch_counts()["fused_flux"] != 1:
+        raise AssertionError("amr_vs_cpu: flux_divergence did not launch "
+                             "fused_flux once")
+    used["divergence"] = _hold_divergence(
+        "amr_vs_cpu divergence", got,
+        flux_divergence(cpu.u, cpu.volumes, cpu.conn, cpu.spec, GAMMA,
+                        "kepes"))
+    phase("amr_vs_cpu", elements=gpu.n_elements, leaves_refined=refined,
+          leaves_coarsened=coarsened, rtol=RTOL, atol=ATOL,
+          **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1453,6 +1848,9 @@ def main(argv=None) -> int:
     mhd_launches = phase_mhd(1, args.profile)
     mhd_muscl_launches = phase_mhd(2, args.profile)
     phase_mhd_vs_cpu()
+    k_extras = phase_kernel_extras()
+    amr_extras = phase_amr(args.profile)
+    phase_amr_vs_cpu()
 
     def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",
@@ -1470,7 +1868,12 @@ def main(argv=None) -> int:
                              logs_launches, k_logs, "fused_rk_stage")] + [
         row(f"fused_rk_stage_{f}", "t8gpu_tpu/ops/pallas_kernels.py:1190",
             stage_flux_launches[f], k_stages[f], "fused_rk_stage")
-        for f in ("hll", "hllc")]
+        for f in ("hll", "hllc")] + [
+        # the side extras (:1154-1158) with the amr path's launches (its
+        # 5-row loop and tail and its 7-row tail)
+        row("fused_rk_stage_extras", "t8gpu_tpu/ops/pallas_kernels.py:1154",
+            amr_extras["state"] + amr_extras["logs"], k_extras["state"],
+            "fused_rk_stage")]
     fields = row("fused_rk_stage_fields",
                  "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_launches,
                  k_fields["kepes"], "fused_rk_stage")
@@ -1479,7 +1882,12 @@ def main(argv=None) -> int:
     fields["variants"] = [
         row(f"fused_rk_stage_fields_{f}",
             "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_flux_launches[f],
-            k_fields[f], "fused_rk_stage") for f in ("hll", "hllc")]
+            k_fields[f], "fused_rk_stage") for f in ("hll", "hllc")] + [
+        # the side extras (:1309-1313) with the launches of the amr path's
+        # "fields" tail
+        row("fused_rk_stage_fields_extras",
+            "t8gpu_tpu/ops/pallas_kernels.py:1309", amr_extras["fields"],
+            k_extras["fields"], "fused_rk_stage")]
     print(json.dumps({"kernels": [
         stage,
         row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",

@@ -1,8 +1,8 @@
 // One SSP-RK stage of the subgrid compressible-Euler scheme, fused into one
 // kernel for NVIDIA Hopper (sm_90a), from the state or from cell fields.
 //
-// Replaces two TPU kernels of t8gpu_tpu/ops/pallas_kernels.py, for no
-// hanging-face extras, mu = 0 and no gravity:
+// Replaces two TPU kernels of t8gpu_tpu/ops/pallas_kernels.py, for mu = 0
+// and no gravity:
 //   * fused_rk_stage_pallas (:1190, body _fused_rk_kernel :1100 and
 //     _tile_flux_divergence :97), kernel fused_rk_stage_kernel: kepes,
 //     hll and hllc on 5-row state inputs, or (kepes) 7-row ones with log
@@ -15,6 +15,10 @@
 // Both compute, per element E and cell c of its [EXT]^DIM block:
 //
 //   D(c)   = sum over axes a of  w_lo(c,a) F(c-1 -> c) - w_hi(c,a) F(c -> c+1)
+//   D(c)  += x_k(t(c))  for each side k with extras whose boundary layer
+//            holds c, in increasing k (both kernels' extras operand,
+//            _fused_rk_kernel :1154-1158, _fused_rk_fields_kernel
+//            :1309-1313: the hanging-fine faces' fluxes of AMR meshes)
 //   out(c) = (ca * u_prev(c) + cb * u(c)) + (cc * w[7]) * D(c)
 //   speed  = per-element max wave speed over the masked interfaces
 //
@@ -32,7 +36,10 @@
 // rho, log p, vent0, ke) or 9 (hll/hllc: rho, v_x, v_y, v_z, p, h, c,
 // sqrt(rho), ke), EXT^DIM, E]; u_prev and out [5, EXT^DIM, E]; w is [8,
 // E]; side layer k has u's rows, [C, EXT^(DIM-1), E], the tangent axes
-// in increasing order; speed is [E] (float bits).
+// in increasing order, and its extras x_k (null: none) [5, EXT^(DIM-1),
+// E] the same tangent order, t(c) the cell's index in it; side k is the
+// +axis (k even) or -axis (k odd) side of axis k / 2, its boundary layer
+// the cells at EXT - 1 or 0 along that axis; speed is [E] (float bits).
 //
 // Bound on this card, at the flagship shape (DIM 3, EXT 8, E 4374): the
 // state-input stage moves ~123 MB (stage 1, one state read) or ~168 MB
@@ -73,7 +80,11 @@
 // ablations and the variants that lost).  An element's speed max combines
 // its slabs' by one atomicMax on the bits of the non-negative float into
 // a zero-filled [E] (order-free, bit-reproducible); no float atomics.
-// Every instantiation's resources: t8_fused_rk_stage_attributes,
+// The extras are read in the update pass, one 5-row value per boundary
+// cell of each side that has them (sides 0 and 1 meet only the first and
+// last slab); a launch without extras runs an instantiation without that
+// code (EXTRAS = false: the kernel of a uniform mesh).  Every
+// instantiation's resources: t8_fused_rk_stage_attributes,
 // t8_fused_rk_stage_fields_attributes.
 //
 // Built without --use_fast_math and with --fmad=false: IEEE division and
@@ -267,16 +278,49 @@ template <class P, int DIM, int EXT>
 using StageTile = t8pencil::Tile<P::RS, DIM, EXT, typename StageShape<P, DIM, EXT>::Blk,
                                  StageShape<P, DIM, EXT>::PL, P::RD>;
 
+// The extras operand: the 2*DIM sides' additive layers, null where a side
+// has none; an empty stand-in for the instantiations without extras.
+struct Extras {
+  const float* x[6];
+};
+struct NoExtras {};
+template <bool EXTRAS>
+using ExtrasArg = std::conditional_t<EXTRAS, Extras, NoExtras>;
+
+// Per side k, the offset t * E + e of tile cell c (slab `slab`, element
+// e) in x_k when x_k is given and c lies on side k's boundary layer, else
+// -1: t is c's index over the axes other than k / 2, in increasing order.
+template <int DIM, int EXT, int B>
+__device__ __forceinline__ void extras_offsets(const Extras& xs, int slab, int c,
+                                               long long Es, int e,
+                                               long long off[2 * DIM]) {
+  const int gc = slab * B + c;  // the cell's index in the element's block
+  int i[DIM];
+#pragma unroll
+  for (int a = DIM - 1, rem = gc; a >= 0; --a, rem /= EXT) i[a] = rem % EXT;
+#pragma unroll
+  for (int k = 0; k < 2 * DIM; ++k) {
+    const int a = k / 2;
+    int t = 0;
+#pragma unroll
+    for (int b = 0; b < DIM; ++b)
+      if (b != a) t = t * EXT + i[b];
+    const bool on = xs.x[k] != nullptr && i[a] == (k % 2 == 0 ? EXT - 1 : 0);
+    off[k] = on ? (long long)t * Es + e : -1;
+  }
+}
+
 // One stage for a block: it walks its slab of its elements' cells
 // (walk1_slab; from the state, the fields derived as they are staged),
-// then the stage update (a u_prev + b u) + c w[7] D in one pass, u the
-// state rows of g.u or recovered from the staged field rows, and the
-// per-element speed max.  up == nullptr (SHARE_PREV) means u_prev is u.
-template <class P, int DIM, int EXT, bool SHARE_PREV>
+// then the stage update (a u_prev + b u) + c w[7] (D + extras) in one
+// pass, u the state rows of g.u or recovered from the staged field rows,
+// and the per-element speed max.  up == nullptr (SHARE_PREV) means
+// u_prev is u.
+template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
 __device__ __forceinline__ void stage(const t8pencil::Args& g,
                                       const float* __restrict__ up,
                                       const Consts& k, float ca, float cb,
-                                      float cc) {
+                                      float cc, const ExtrasArg<EXTRAS>& xs) {
   using Tl = StageTile<P, DIM, EXT>;
   constexpr int NSLAB = EXT / StageShape<P, DIM, EXT>::PL;
   extern __shared__ float smem[];
@@ -298,11 +342,21 @@ __device__ __forceinline__ void stage(const t8pencil::Args& g,
     float uf[5];
     if constexpr (P::FIELDS)
       P::recover([&](int i) { return st[Tl::at(i, c, cx)]; }, k, uf);
+    [[maybe_unused]] long long xo[2 * DIM];
+    if constexpr (EXTRAS) extras_offsets<DIM, EXT, B>(xs, slab, c, Es, ee, xo);
 #pragma unroll
     for (int r = 0; r < 5; ++r) {
       const float ur = P::FIELDS ? uf[r] : __ldg(g.u + r * rs + off);
       const float upr = SHARE_PREV ? ur : __ldg(up + r * rs + off);
-      g.D[r * rs + off] = (ca * upr + cb * ur) + cdt * sd[Tl::at(r, c, cx)];
+      float d = sd[Tl::at(r, c, cx)];
+      if constexpr (EXTRAS) {
+        // the sides in increasing k, the plain version's order
+        constexpr long long T = t8pencil::ipow(EXT, DIM - 1);
+#pragma unroll
+        for (int s = 0; s < 2 * DIM; ++s)
+          if (xo[s] >= 0) d = d + __ldg(xs.x[s] + r * T * Es + xo[s]);
+      }
+      g.D[r * rs + off] = (ca * upr + cb * ur) + cdt * d;
     }
   });
   const int e = e0 + threadIdx.x;
@@ -310,46 +364,52 @@ __device__ __forceinline__ void stage(const t8pencil::Args& g,
 }
 
 // The stage on 5-row states or 7-row states with their log rows.
-template <class P, int DIM, int EXT, bool SHARE_PREV>
+template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
 __global__ void __launch_bounds__(StageTile<P, DIM, EXT>::THREADS,
                                   StageShape<P, DIM, EXT>::Blk::MIN_BLOCKS)
     fused_rk_stage_kernel(t8pencil::Args g, const float* __restrict__ up,
-                          Consts k, float ca, float cb, float cc) {
-  stage<P, DIM, EXT, SHARE_PREV>(g, up, k, ca, cb, cc);
+                          Consts k, float ca, float cb, float cc,
+                          ExtrasArg<EXTRAS> xs) {
+  stage<P, DIM, EXT, SHARE_PREV, EXTRAS>(g, up, k, ca, cb, cc, xs);
 }
 
 // The stage on cell-field rows (g.u is q).
-template <class P, int DIM, int EXT, bool SHARE_PREV>
+template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
 __global__ void __launch_bounds__(StageTile<P, DIM, EXT>::THREADS,
                                   StageShape<P, DIM, EXT>::Blk::MIN_BLOCKS)
     fused_rk_stage_fields_kernel(t8pencil::Args g, const float* __restrict__ up,
-                                 Consts k, float ca, float cb, float cc) {
-  stage<P, DIM, EXT, SHARE_PREV>(g, up, k, ca, cb, cc);
+                                 Consts k, float ca, float cb, float cc,
+                                 ExtrasArg<EXTRAS> xs) {
+  stage<P, DIM, EXT, SHARE_PREV, EXTRAS>(g, up, k, ca, cb, cc, xs);
 }
 
 // The case's kernel: state or field input.
-template <class P, int DIM, int EXT, bool SHARE_PREV>
+template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
 auto stage_kernel() {
   if constexpr (P::FIELDS)
-    return fused_rk_stage_fields_kernel<P, DIM, EXT, SHARE_PREV>;
+    return fused_rk_stage_fields_kernel<P, DIM, EXT, SHARE_PREV, EXTRAS>;
   else
-    return fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV>;
+    return fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV, EXTRAS>;
 }
 
 // What the stage reads: the 5-row state, the 7-row state with its log
 // rows (kepes only), or the flux's cell-field rows.
 enum Input { STATE = 0, LOGS = 1, FIELD_ROWS = 2 };
 
-// Call fn.template run<P, DIM, EXT, SHARE_PREV>() for the instantiation of
-// the case; cudaErrorInvalidValue for a case none takes.
+// Call fn.template run<P, DIM, EXT, SHARE_PREV, EXTRAS>() for the
+// instantiation of the case; cudaErrorInvalidValue for a case none takes.
 template <class Fn>
-int with_case(int dim, int ext, int flux, int input, bool share_prev, const Fn& fn) {
+int with_case(int dim, int ext, int flux, int input, bool share_prev,
+              bool extras, const Fn& fn) {
   auto by_shape = [&](auto physics) -> int {
     using P = decltype(physics);
     auto by_prev = [&](auto d, auto x) -> int {
       constexpr int D = decltype(d)::value, X = decltype(x)::value;
-      return share_prev ? fn.template run<P, D, X, true>()
-                        : fn.template run<P, D, X, false>();
+      if (extras)
+        return share_prev ? fn.template run<P, D, X, true, true>()
+                          : fn.template run<P, D, X, false, true>();
+      return share_prev ? fn.template run<P, D, X, true, false>()
+                        : fn.template run<P, D, X, false, false>();
     };
     using I3 = std::integral_constant<int, 3>;
     using I2 = std::integral_constant<int, 2>;
@@ -380,107 +440,131 @@ struct Launcher {
   const float* up;
   const Consts& k;
   float ca, cb, cc;
+  const Extras& xs;
   cudaStream_t stream;
-  template <class P, int DIM, int EXT, bool SHARE_PREV>
+  template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
   int run() const {
     using Tl = StageTile<P, DIM, EXT>;
-    auto kern = stage_kernel<P, DIM, EXT, SHARE_PREV>();
+    auto kern = stage_kernel<P, DIM, EXT, SHARE_PREV, EXTRAS>();
     static bool raised[64] = {};
     const int err = t8pencil::raise_smem((const void*)kern, Tl::SMEM, device, raised);
     if (err != 0) return err;
     const dim3 block(Tl::TE, Tl::SLOTS);
     const dim3 grid((g.E + Tl::TE - 1) / Tl::TE * (EXT / stage_planes(DIM, EXT)));
-    kern<<<grid, block, Tl::SMEM, stream>>>(g, up, k, ca, cb, cc);
+    if constexpr (EXTRAS)
+      kern<<<grid, block, Tl::SMEM, stream>>>(g, up, k, ca, cb, cc, xs);
+    else
+      kern<<<grid, block, Tl::SMEM, stream>>>(g, up, k, ca, cb, cc, NoExtras{});
     return (int)cudaGetLastError();
   }
 };
 
 struct Attributes {
   int* out;
-  template <class P, int DIM, int EXT, bool SHARE_PREV>
+  template <class P, int DIM, int EXT, bool SHARE_PREV, bool EXTRAS>
   int run() const {
     using Tl = StageTile<P, DIM, EXT>;
     return t8pencil::kernel_attributes(
-        (const void*)stage_kernel<P, DIM, EXT, SHARE_PREV>(), Tl::THREADS,
-        Tl::SMEM, out);
+        (const void*)stage_kernel<P, DIM, EXT, SHARE_PREV, EXTRAS>(),
+        Tl::THREADS, Tl::SMEM, out);
   }
 };
 
 int launch(int device, int dim, int ext, int E, int flux, int input,
            const float* u, const float* up, const float* w,
-           const float* const o[6], float* out, unsigned int* speed,
-           double gamma, float ca, float cb, float cc, void* stream) {
+           const float* const o[6], const float* const x[6], float* out,
+           unsigned int* speed, double gamma, float ca, float cb, float cc,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return (int)cudaErrorInvalidValue;
   const t8pencil::Args g{u, w, {o[0], o[1], o[2], o[3], o[4], o[5]}, out, speed, E};
   const Consts k = make_consts(gamma);
-  return with_case(dim, ext, flux, input, up == nullptr,
-                   Launcher{device, g, up, k, ca, cb, cc,
+  const Extras xs{{x[0], x[1], x[2], x[3], x[4], x[5]}};
+  bool any = false;
+  for (int s = 0; s < 6; ++s) {
+    if (x[s] == nullptr) continue;
+    if (s >= 2 * dim) return (int)cudaErrorInvalidValue;  // no such side
+    any = true;
+  }
+  return with_case(dim, ext, flux, input, up == nullptr, any,
+                   Launcher{device, g, up, k, ca, cb, cc, xs,
                             static_cast<cudaStream_t>(stream)});
 }
 
 int attributes(int device, int dim, int ext, int flux, int input,
-               int share_prev, int* out) {
+               int share_prev, int extras, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return with_case(dim, ext, flux, input, share_prev != 0, Attributes{out});
+  return with_case(dim, ext, flux, input, share_prev != 0, extras != 0,
+                   Attributes{out});
 }
 
 }  // namespace
 
 // Launch one stage on `stream`.  flux is 0 kepes, 1 hll, 2 hllc; logs != 0
 // (kepes only) means u and the side layers have 7 rows; up == nullptr
-// means u_prev == the state rows of u (stage 1).  speed must be a
-// zero-filled [E]; it receives the uint32 bits of each element's float
-// max.  Returns the cudaError_t of the launch (0 on success); never
-// synchronizes.
+// means u_prev == the state rows of u (stage 1); x0 .. x5 are the sides'
+// extras, nullptr where a side has none (all null: the instantiation
+// without extras).  speed must be a zero-filled [E]; it receives the
+// uint32 bits of each element's float max.  Returns the cudaError_t of the
+// launch (0 on success); never synchronizes.
 extern "C" int t8_fused_rk_stage(int device, int dim, int ext, int E, int flux,
                                  int logs, const float* u, const float* up,
                                  const float* w, const float* o0,
                                  const float* o1, const float* o2,
                                  const float* o3, const float* o4,
-                                 const float* o5, float* out,
+                                 const float* o5, const float* x0,
+                                 const float* x1, const float* x2,
+                                 const float* x3, const float* x4,
+                                 const float* x5, float* out,
                                  unsigned int* speed, double gamma, float ca,
                                  float cb, float cc, void* stream) {
   const float* const o[6] = {o0, o1, o2, o3, o4, o5};
+  const float* const x[6] = {x0, x1, x2, x3, x4, x5};
   return launch(device, dim, ext, E, flux, logs != 0 ? LOGS : STATE, u, up, w,
-                o, out, speed, gamma, ca, cb, cc, stream);
+                o, x, out, speed, gamma, ca, cb, cc, stream);
 }
 
 // Launch one stage from cell-field rows q (flux 0 kepes: 10 rows, 1 hll
 // or 2 hllc: 9 rows; the side layers too) on `stream`; up == nullptr
-// means u_prev == the state recovered from q (stage 1).  speed as
-// t8_fused_rk_stage's.  Returns the cudaError_t of the launch.
+// means u_prev == the state recovered from q (stage 1); x0 .. x5 and speed
+// as t8_fused_rk_stage's.  Returns the cudaError_t of the launch.
 extern "C" int t8_fused_rk_stage_fields(int device, int dim, int ext, int E,
                                         int flux, const float* q,
                                         const float* up, const float* w,
                                         const float* o0, const float* o1,
                                         const float* o2, const float* o3,
                                         const float* o4, const float* o5,
+                                        const float* x0, const float* x1,
+                                        const float* x2, const float* x3,
+                                        const float* x4, const float* x5,
                                         float* out, unsigned int* speed,
                                         double gamma, float ca, float cb,
                                         float cc, void* stream) {
   const float* const o[6] = {o0, o1, o2, o3, o4, o5};
-  return launch(device, dim, ext, E, flux, FIELD_ROWS, q, up, w, o, out,
+  const float* const x[6] = {x0, x1, x2, x3, x4, x5};
+  return launch(device, dim, ext, E, flux, FIELD_ROWS, q, up, w, o, x, out,
                 speed, gamma, ca, cb, cc, stream);
 }
 
 // Registers, spilled (local) bytes per thread, threads per block and
-// shared memory per block of the case's kernel, into out[0..3].  Returns
-// a cudaError_t.
+// shared memory per block of the case's kernel (extras != 0: the
+// instantiation with extras), into out[0..3].  Returns a cudaError_t.
 extern "C" int t8_fused_rk_stage_attributes(int device, int dim, int ext,
                                             int flux, int logs, int share_prev,
-                                            int* out) {
+                                            int extras, int* out) {
   return attributes(device, dim, ext, flux, logs != 0 ? LOGS : STATE,
-                    share_prev, out);
+                    share_prev, extras, out);
 }
 
 // The same for the field-input stage's case.
 extern "C" int t8_fused_rk_stage_fields_attributes(int device, int dim,
                                                    int ext, int flux,
-                                                   int share_prev, int* out) {
-  return attributes(device, dim, ext, flux, FIELD_ROWS, share_prev, out);
+                                                   int share_prev, int extras,
+                                                   int* out) {
+  return attributes(device, dim, ext, flux, FIELD_ROWS, share_prev, extras,
+                    out);
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

@@ -1,9 +1,12 @@
 """Block-structured (subgrid) compressible-Euler solver on torch tensors.
 
-Counterpart of t8gpu_tpu/models/subgrid_euler.py for uniform meshes:
-each forest leaf carries a dense [ext]^dim block of cells; the state is
-one tensor [5, *ext, cap] with the element axis minor-most and padded to a
-capacity bucket, the padded slots holding a quiescent guard state.
+Counterpart of t8gpu_tpu/models/subgrid_euler.py: each forest leaf
+carries a dense [ext]^dim block of cells; the state is one tensor [5,
+*ext, cap] with the element axis minor-most and padded to a capacity
+bucket, the padded slots holding a quiescent guard state.  The mesh is
+fixed (a SubgridMesh) or adaptive (a MeshManager from `subgrid_manager`:
+`adapt` refines and coarsens by the density H1 criteria, keeping the
+forest 2:1 balanced, and remaps the state).
 
   order 1, float32 at extents 4 and 8 (`_fused_path`): every SSP-RK3
            stage is one call of a CUDA stage kernel on the card
@@ -21,24 +24,27 @@ On the CPU each kernel's plain PyTorch version runs instead.
 
 The solver runs on CUDA unless the caller passes device="cpu", and raises
 when CUDA is asked for and missing.  The kernels are float32; float64 runs
-only on the CPU.  Viscosity, gravity, farfield boundaries and AMR meshes
-raise NotImplementedError when the solver steps.
+only on the CPU.  Viscosity, gravity and farfield boundaries raise
+NotImplementedError when the solver steps, and so do meshes with hanging
+faces at order 2 or on the torch stencil (extents 2 and 16).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
+from t8gpu_tpu_torch.mesh.manager import MeshManager
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.ops import rk
 from t8gpu_tpu_torch.ops import subgrid as sg
 from t8gpu_tpu_torch.ops.euler import cfl_sum_speed
-from t8gpu_tpu_torch.utils.config import (EulerConfig, resolve_device,
-                                          resolve_dtype)
+from t8gpu_tpu_torch.utils.config import (AMRConfig, EulerConfig,
+                                          resolve_device, resolve_dtype)
 
 GUARD_STATE = np.array([1.0, 0.0, 0.0, 0.0, 2.5], np.float32)
 
@@ -46,12 +52,13 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class SubgridCompressibleEulerSolver:
-    """Euler solver on subgrid elements over a fixed uniform forest, first
-    or second order.
+    """Euler solver on subgrid elements over a fixed or adaptive forest,
+    first or second order.
 
     Parameters
     ----------
-    mesh: a SubgridMesh.
+    mesh: a SubgridMesh, or a MeshManager built with a SubgridMesh factory
+        (`subgrid_manager`) for dynamic AMR.
     ic: callable mapping cell centers [N*B, dim] -> conservative state
         [5, N*B] (cells in element-major C-order).
     config: EulerConfig (order 1 or 2); options not ported yet raise
@@ -60,8 +67,11 @@ class SubgridCompressibleEulerSolver:
         PyTorch path.
     """
 
-    def __init__(self, mesh: SubgridMesh, ic: Callable[[np.ndarray], np.ndarray],
+    def __init__(self, mesh, ic: Callable[[np.ndarray], np.ndarray],
                  config: EulerConfig = EulerConfig(), device=None):
+        self.manager: Optional[MeshManager] = None
+        if isinstance(mesh, MeshManager):
+            self.manager, mesh = mesh, mesh.mesh
         self._setup(mesh, config, device)
         u0 = np.asarray(ic(mesh.cell_centers()), _NP_DTYPES[self.dtype])
         u0 = u0.reshape((5, mesh.n_elements) + mesh.spec.extents)
@@ -75,6 +85,7 @@ class SubgridCompressibleEulerSolver:
         or [5, *ext, cap] (numpy or tensor; guard slots are refilled), e.g.
         the JAX package's `np.asarray(solver.u)` (io/interop.py)."""
         self = cls.__new__(cls)
+        self.manager = None
         self._setup(mesh, config, device)
         u = u if torch.is_tensor(u) else torch.from_numpy(np.array(u))
         self.install_mesh(mesh, u[..., : mesh.n_elements].to(self.dtype))
@@ -94,12 +105,17 @@ class SubgridCompressibleEulerSolver:
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise ValueError(f"the CUDA kernels are float32; "
                              f"{config.dtype} runs on device='cpu' only")
+        self._crit_pending = None
+        self.adapt_timings = {}
 
     # -- mesh / state installation --------------------------------------------
 
     def install_mesh(self, mesh: SubgridMesh, u: torch.Tensor):
         """Install `mesh` and the element-minor state `u` [5, *ext, n or
-        cap]; slots [n, cap) are filled with GUARD_STATE."""
+        cap]; slots [n, cap) of an n-element state are filled with
+        GUARD_STATE.  Clears the cached weights and pending criteria, which
+        refer to the previous mesh."""
+        self._crit_pending = None
         self.mesh = mesh
         self.conn = mesh.conn.to(self.device)
         cap = mesh.conn.element_capacity
@@ -203,6 +219,78 @@ class SubgridCompressibleEulerSolver:
             u = self._step(u, dt)
         self.u = u
 
+    # -- AMR cycle ----------------------------------------------------------------
+
+    def _require_manager(self, what: str):
+        if self.manager is None:
+            raise RuntimeError(f"{what} requires an adaptive mesh: build the "
+                               f"solver on subgrid_manager(...)")
+
+    def adapt_prefetch(self):
+        """Compute the H1 criteria now and start their device-to-host copy
+        (into pinned memory on CUDA, recorded by an event), for a later
+        adapt(): called a few steps before it, the copy overlaps those
+        steps instead of stalling the adapt."""
+        self._require_manager("adapt_prefetch()")
+        crit = sg.h1_criteria(self.u, self.volumes, self.spec)
+        if crit.device.type == "cuda":
+            host = torch.empty(crit.shape, dtype=crit.dtype, pin_memory=True)
+            host.copy_(crit, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._crit_pending = (host, done)
+        else:
+            self._crit_pending = (crit.clone(), None)
+
+    def _criteria(self) -> np.ndarray:
+        """The prefetched criteria (waiting for their copy), or computed
+        and copied now."""
+        if self._crit_pending is not None:
+            host, done = self._crit_pending
+            self._crit_pending = None
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
+        return sg.h1_criteria(self.u, self.volumes, self.spec).cpu().numpy()
+
+    def adapt(self, criteria=None):
+        """One adapt cycle: the H1 criteria (prefetched or computed now;
+        `criteria`, a host array [>= n_elements], replaces them) -> the
+        manager's flags, balance, forest adapt and new mesh -> the remap
+        tables up in one host-to-device copy -> the state remapped by
+        gathers (ops/subgrid.apply_subgrid_remap) -> the new mesh
+        installed.  `adapt_timings` gets the host seconds of its parts
+        (criteria, flags+balance, forest-adapt, mesh-build, upload, remap:
+        the remap's device work runs on after it)."""
+        self._require_manager("adapt()")
+        t0 = time.perf_counter()
+        if criteria is None:
+            crit = self._criteria()
+        else:
+            self._crit_pending = None
+            crit = np.asarray(criteria)
+        t1 = time.perf_counter()
+        remap = self.manager.adapt_forest(crit)
+        t2 = time.perf_counter()
+        mesh = self.manager.mesh
+        cap = mesh.conn.element_capacity
+        n = len(remap.src_start)
+        tables = np.zeros((4, cap), np.int32)
+        tables[0, :n] = remap.src_start
+        tables[1, :n] = remap.level_change > 0
+        tables[2, :n] = remap.child_id
+        tables[3, :n] = remap.src_count > 1
+        d_tab = torch.from_numpy(tables).to(self.device)
+        t3 = time.perf_counter()
+        u_new = sg.apply_subgrid_remap(self.u, d_tab[0], d_tab[1] > 0,
+                                       d_tab[2], d_tab[3] > 0,
+                                       spec=self.spec, capacity=cap)
+        t4 = time.perf_counter()
+        self.install_mesh(mesh, u_new)          # the mesh tables go up here
+        t5 = time.perf_counter()
+        self.adapt_timings = dict(criteria=t1 - t0, **self.manager.timings,
+                                  upload=t3 - t2 + t5 - t4, remap=t4 - t3)
+
     # -- diagnostics -------------------------------------------------------------
 
     def compute_integral(self) -> float:
@@ -233,3 +321,13 @@ class SubgridCompressibleEulerSolver:
         order; internally the layout is element-minor)."""
         return np.moveaxis(self.u[..., : self.n_elements].cpu().numpy(), -1, 1)
 
+
+
+def subgrid_manager(forest, spec: SubgridSpec,
+                    amr: AMRConfig = AMRConfig()) -> MeshManager:
+    """A MeshManager whose meshes are SubgridMesh blocks of `spec` (the
+    reference's SubgridMeshManager role); the mesh tables stay on the
+    CPU until a solver installs them."""
+    return MeshManager(
+        forest, amr,
+        mesh_factory=lambda f, cap: SubgridMesh.from_forest(f, spec, cap))

@@ -9,7 +9,8 @@ plain integer attribute (`fused_rk_stage.launches`).
 fused_rk_stage — replaces fused_rk_stage_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:1190): one whole SSP-RK stage per
 element (cell fields, kepes, hll or hllc interface fluxes, weighted
-divergence, stage update, per-element max wave speed) in one pass over
+divergence, the side extras that carry an AMR mesh's hanging-fine faces
+(:1154-1158), stage update, per-element max wave speed) in one pass over
 the state.  Bound on an H100: the bytes it must move, ~123 MB for stage 1
 and ~168 MB for stages 2-3 at the flagship shape (37-50 us at 3.35
 TB/s).  The kernel is the first-order pencil walk of
@@ -51,9 +52,12 @@ mirrored field layers ride in as side layers); one thread per cell
 (60 us at 3.35 TB/s).
 
 fused_rk_stage_fields — replaces fused_rk_stage_fields_pallas (:1329):
-the same divergence from kepes, hll or hllc field rows, the stage state
-recovered from the field rows, and the stage update: the stage kernel's
-pencil walk on the field rows as they are (csrc/fused_rk_stage.cu).
+the same divergence from kepes, hll or hllc field rows, the side extras
+(:1309-1313), the stage state recovered from the field rows, and the
+stage update: the stage kernel's pencil walk on the field rows as they
+are (csrc/fused_rk_stage.cu).  A launch with side extras runs the
+kernels' instantiation with the extras code, one without them that of a
+uniform mesh.
 Bound: the bytes, ~202 MB (stage 1) and ~246 MB (stages 2-3) at the
 flagship shape (60 and 74 us at 3.35 TB/s).
 
@@ -142,14 +146,30 @@ def _check_one_device_dtype(tensors, what: str):
         raise ValueError(f"{what} inputs have several dtypes: {dtypes}")
 
 
-def _check_stage_shapes(u_stage, u_prev, weights, others, extras, flux,
-                        rows=(5, 7)):
+def _check_extras(extra_sides, extras, dim: int, ext: int, E: int):
+    """Raise ValueError unless extras holds one 5-row layer [5,
+    *(ext,)*(dim-1), E] per side of extra_sides, the sides increasing in
+    range(2 * dim)."""
+    sides = tuple(int(k) for k in extra_sides)
+    if len(sides) != len(extras):
+        raise ValueError(f"extras must hold one layer per side of "
+                         f"extra_sides, got {len(extras)} for {sides}")
+    if any(k < 0 or k >= 2 * dim for k in sides) \
+            or any(a >= b for a, b in zip(sides, sides[1:])):
+        raise ValueError(f"extra_sides must increase within range({2 * dim}),"
+                         f" got {sides}")
+    lay = (5,) + (ext,) * (dim - 1) + (E,)
+    if any(tuple(x.shape) != lay for x in extras):
+        raise ValueError(f"extras must be 5-row side layers of shape {lay}, "
+                         f"got {[tuple(x.shape) for x in extras]}")
+
+
+def _check_stage_shapes(u_stage, u_prev, weights, others, flux, rows=(5, 7),
+                        extra_sides=(), extras=()):
     """Raise ValueError on inputs no version of the stage takes: u_stage
     with `rows` rows (7: the state and its log rho, log p rows, kepes
-    only; a field stage: the flux's field rows), u_prev [5, ...].
-    Returns (dim, ext, E)."""
-    if extras:
-        raise ValueError("hanging-face side extras are not ported yet")
+    only; a field stage: the flux's field rows), u_prev [5, ...], extras
+    (`_check_extras`).  Returns (dim, ext, E)."""
     C = u_stage.shape[0] if u_stage.dim() else 0
     if C not in rows:
         raise ValueError(f"u_stage must have {' or '.join(map(str, rows))} "
@@ -161,8 +181,9 @@ def _check_stage_shapes(u_stage, u_prev, weights, others, extras, flux,
         raise ValueError(f"u_prev {tuple(u_prev.shape)} must be the "
                          f"5-row state of u_stage {tuple(u_stage.shape)}")
     _check_sides(weights, others, C, dim, ext, E)
-    _check_one_device_dtype(_stage_tensors(u_stage, u_prev, weights, others),
-                            "stage")
+    _check_extras(extra_sides, extras, dim, ext, E)
+    _check_one_device_dtype(_stage_tensors(u_stage, u_prev, weights, others)
+                            + list(extras), "stage")
     return dim, ext, E
 
 
@@ -186,10 +207,11 @@ def _check_cuda_tensors(tensors, flux: str, what: str, fluxes=("kepes",)):
     _check_f32_contiguous(tensors, what)
 
 
-def _check_kernel_inputs(u_stage, u_prev, weights, others, flux: str):
+def _check_kernel_inputs(u_stage, u_prev, weights, others, flux: str,
+                         extras=()):
     """Raise ValueError on what the CUDA stage kernel does not take."""
-    _check_cuda_tensors(_stage_tensors(u_stage, u_prev, weights, others),
-                        flux, "stage", CUDA_FLUXES)
+    _check_cuda_tensors(_stage_tensors(u_stage, u_prev, weights, others)
+                        + list(extras), flux, "stage", CUDA_FLUXES)
 
 
 def _library(name: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -217,6 +239,27 @@ def _side_pointers(others) -> list:
     """The 2*dim side-layer pointers, padded with None to the six of the C
     entry points."""
     return [o.data_ptr() for o in others] + [None] * (6 - len(others))
+
+
+def _extras_pointers(extra_sides, extras) -> list:
+    """The six sides' extras pointers of the stage entry points, None
+    where a side has none."""
+    ptrs = [None] * 6
+    for k, x in zip(extra_sides, extras):
+        ptrs[int(k)] = x.data_ptr()
+    return ptrs
+
+
+def _add_extras(D: torch.Tensor, extra_sides, extras) -> torch.Tensor:
+    """D [5, *(ext,)*dim, E] with each side's extras added onto its
+    boundary layer (side k: the cells at ext - 1, k even, or 0, k odd,
+    along axis k // 2), the sides in extra_sides order, as the TPU
+    kernels add them (_fused_rk_kernel :1154-1158)."""
+    ext = D.shape[1]
+    for k, x in zip(extra_sides, extras):
+        a = int(k) // 2
+        D.select(1 + a, ext - 1 if int(k) % 2 == 0 else 0).add_(x)
+    return D
 
 
 def _speed_bits(E: int, dev, zero: bool = True) -> torch.Tensor:
@@ -375,10 +418,11 @@ def _rows(t: torch.Tensor, first: int = 0, n: int = 5) -> tuple:
 
 
 def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
-                   others, gamma: float, flux: str, coeffs, extras=()):
+                   others, gamma: float, flux: str, coeffs, extra_sides=(),
+                   extras=()):
     """One SSP-RK stage: (u_next, speed) with
-    u_next = a*u_prev + b*u_stage + c*w[7]*D(u_stage) and speed [E] the
-    per-element max interface wave speed.
+    u_next = a*u_prev + b*u_stage + c*w[7]*(D(u_stage) + extras) and speed
+    [E] the per-element max interface wave speed.
 
     u_stage: [5, *(ext,)*dim, E], or [7, ...] with rows 5-6 log rho and
     log p (the "logs" input, kepes: the fields are then derived
@@ -387,18 +431,24 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
     (row 0 interior cell-face area, rows 1+k side k's face weight, row 7
     = dt * inv_cell_volume); others:
     2*dim side layers [5 or 7, *(ext,)*(dim-1), E] (as many rows as
-    u_stage), side k = 2*axis + (0 hi, 1 lo).  CUDA tensors launch the
+    u_stage), side k = 2*axis + (0 hi, 1 lo); extras: per side of
+    extra_sides (increasing) an additive layer [5, *(ext,)*(dim-1), E]
+    onto that side's boundary cell layer (the hanging-fine faces of AMR
+    meshes, ops/subgrid.fine_side_extras).  CUDA tensors launch the
     kernel (a 7-row launch counts in `launches_logs`, a 5-row one in
-    `launches`), CPU tensors run fused_rk_stage_reference."""
-    dim, ext, E = _check_stage_shapes(u_stage, u_prev, weights, others,
-                                      extras, flux)
+    `launches`, a launch with extras in `launches_extras` too), CPU
+    tensors run fused_rk_stage_reference."""
+    dim, ext, E = _check_stage_shapes(u_stage, u_prev, weights, others, flux,
+                                      extra_sides=extra_sides, extras=extras)
     dev = u_stage.device
     if dev.type == "cpu":
         return fused_rk_stage_reference(u_stage, u_prev, weights, others,
-                                        gamma=gamma, flux=flux, coeffs=coeffs)
+                                        gamma=gamma, flux=flux, coeffs=coeffs,
+                                        extra_sides=extra_sides,
+                                        extras=extras)
     if dev.type != "cuda":
         raise ValueError(f"no stage kernel for device {dev}")
-    _check_kernel_inputs(u_stage, u_prev, weights, others, flux)
+    _check_kernel_inputs(u_stage, u_prev, weights, others, flux, extras)
 
     logs = u_stage.shape[0] == 7
     out = torch.empty((5,) + u_stage.shape[1:], dtype=u_stage.dtype,
@@ -409,38 +459,45 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
             [dim, ext, E, CUDA_FLUXES.index(flux), int(logs),
              u_stage.data_ptr(),
              None if u_prev is None else u_prev.data_ptr(),
-             weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
+             weights.data_ptr(), *_side_pointers(others),
+             *_extras_pointers(extra_sides, extras), out.data_ptr(),
              speed.data_ptr(), float(gamma), a_c, b_c, c_c],
             "fused_rk_stage")
     if logs:
         fused_rk_stage.launches_logs += 1
     else:
         fused_rk_stage.launches += 1
+    if extras:
+        fused_rk_stage.launches_extras += 1
     return out, speed.view(torch.float32)
 
 
 fused_rk_stage.launches = 0
 fused_rk_stage.launches_logs = 0
+fused_rk_stage.launches_extras = 0
 
 
 def _stage_library() -> ctypes.CDLL:
     """The stage kernel's library: device, dim, ext, E, flux (the index in
-    CUDA_FLUXES), logs as int; every pointer and the stream as c_void_p;
-    gamma double, coefficients float."""
+    CUDA_FLUXES), logs as int; every pointer (u, u_prev, w, six sides, six
+    sides' extras, out, speed) and the stream as c_void_p; gamma double,
+    coefficients float."""
     return _library("fused_rk_stage", "t8_fused_rk_stage",
-                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 11
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 17
                     + [ctypes.c_double] + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
 
 
 def fused_rk_stage_attributes(dim: int, ext: int, flux: str = "kepes",
                               logs: bool = False, share_prev: bool = True,
-                              device: int = 0) -> dict:
+                              extras: bool = False, device: int = 0) -> dict:
     """The resources of the stage kernel of one case on a card (builds the
-    library), as fused_muscl_attributes."""
+    library), as fused_muscl_attributes; `extras`: the instantiation that
+    adds side extras."""
     return _attributes(_stage_library(), "t8_fused_rk_stage_attributes",
                        device, [dim, ext, CUDA_FLUXES.index(flux),
-                                int(bool(logs)), int(bool(share_prev))])
+                                int(bool(logs)), int(bool(share_prev)),
+                                int(bool(extras))])
 
 
 def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
@@ -456,14 +513,15 @@ def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
 
 def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
                              weights: torch.Tensor, others, gamma: float,
-                             flux: str, coeffs):
+                             flux: str, coeffs, extra_sides=(), extras=()):
     """Plain PyTorch version of the stage: the tile math of the TPU
     kernel (_fused_rk_kernel / _tile_flux_divergence) over the whole
     element axis, for kepes, hll and hllc, from a 5-row state or (kepes)
-    a 7-row state with its log rows.  Same signature and result as
-    fused_rk_stage; runs on any device and dtype."""
-    dim, _, _ = _check_stage_shapes(u_stage, u_prev, weights, others, (),
-                                    flux)
+    a 7-row state with its log rows, with the side extras.  Same
+    signature and result as fused_rk_stage; runs on any device and
+    dtype."""
+    dim, _, _ = _check_stage_shapes(u_stage, u_prev, weights, others, flux,
+                                    extra_sides=extra_sides, extras=extras)
     logs7 = u_stage.shape[0] == 7
 
     def fields(t):
@@ -476,6 +534,7 @@ def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
                                        [fields(o) for o in others], weights,
                                        5, fields_axis_rotate,
                                        flux_axis_unrotate, iface)
+    D = _add_extras(D, extra_sides, extras)
     u_next = _stage_update(_rows(u_stage),
                            None if u_prev is None else _rows(u_prev),
                            weights, D, coeffs)
@@ -485,14 +544,16 @@ def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
 # -- the field-input kernels (kernels 2 and 6) -------------------------------
 
 
-def _check_fields_inputs(q, u_prev, weights, others, flux, extras=()):
+def _check_fields_inputs(q, u_prev, weights, others, flux, extra_sides=(),
+                         extras=()):
     """Raise ValueError on inputs no version of the field-input kernels
     takes: q [C, ...] with the flux's C field rows.  Returns (dim, ext,
     E)."""
     if flux not in N_FIELDS:
         raise ValueError(f"unknown flux family: {flux}")
-    return _check_stage_shapes(q, u_prev, weights, others, extras, flux,
-                               rows=(N_FIELDS[flux],))
+    return _check_stage_shapes(q, u_prev, weights, others, flux,
+                               rows=(N_FIELDS[flux],),
+                               extra_sides=extra_sides, extras=extras)
 
 
 def _recover_state_rows(q, gamma: float, flux: str) -> tuple:
@@ -569,27 +630,31 @@ def fused_flux_reference(q: torch.Tensor, weights: torch.Tensor, others,
 
 def fused_rk_stage_fields(q: torch.Tensor, u_prev, weights: torch.Tensor,
                           others, gamma: float, flux: str, coeffs,
-                          extras=()):
+                          extra_sides=(), extras=()):
     """One SSP-RK stage from cell-field rows: (u_next [5, *(ext,)*dim, E],
-    speed [E]) with u_next = a*u_prev + b*u + c*w[7]*D, where D is
-    fused_flux's divergence and u the state recovered from q.
+    speed [E]) with u_next = a*u_prev + b*u + c*w[7]*(D + extras), where D
+    is fused_flux's divergence and u the state recovered from q.
 
     q, weights, others as fused_flux, with weight row 7 = dt *
     inv_cell_volume; flux "kepes" (10 field rows), "hll" or "hllc" (9);
     u_prev: [5, ...] state, or None (the first stage: the recovered state
-    stands for it).  CUDA tensors launch the kernel, CPU tensors run
+    stands for it); extra_sides, extras as fused_rk_stage's.  CUDA
+    tensors launch the kernel (a launch with extras counts in
+    `launches_extras` too), CPU tensors run
     fused_rk_stage_fields_reference."""
     dim, ext, E = _check_fields_inputs(q, u_prev, weights, others, flux,
-                                       extras)
+                                       extra_sides, extras)
     dev = q.device
     if dev.type == "cpu":
         return fused_rk_stage_fields_reference(q, u_prev, weights, others,
                                                gamma=gamma, flux=flux,
-                                               coeffs=coeffs)
+                                               coeffs=coeffs,
+                                               extra_sides=extra_sides,
+                                               extras=extras)
     if dev.type != "cuda":
         raise ValueError(f"no stage kernel for device {dev}")
-    _check_cuda_tensors(_stage_tensors(q, u_prev, weights, others), flux,
-                        "field stage", CUDA_FLUXES)
+    _check_cuda_tensors(_stage_tensors(q, u_prev, weights, others)
+                        + list(extras), flux, "field stage", CUDA_FLUXES)
 
     out = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
     speed = _speed_bits(E, dev)
@@ -597,14 +662,18 @@ def fused_rk_stage_fields(q: torch.Tensor, u_prev, weights: torch.Tensor,
     _launch(_stage_fields_library(), "t8_fused_rk_stage_fields", dev,
             [dim, ext, E, CUDA_FLUXES.index(flux), q.data_ptr(),
              None if u_prev is None else u_prev.data_ptr(),
-             weights.data_ptr(), *_side_pointers(others), out.data_ptr(),
+             weights.data_ptr(), *_side_pointers(others),
+             *_extras_pointers(extra_sides, extras), out.data_ptr(),
              speed.data_ptr(), float(gamma), a_c, b_c, c_c],
             "fused_rk_stage_fields")
     fused_rk_stage_fields.launches += 1
+    if extras:
+        fused_rk_stage_fields.launches_extras += 1
     return out, speed.view(torch.float32)
 
 
 fused_rk_stage_fields.launches = 0
+fused_rk_stage_fields.launches_extras = 0
 
 
 def _fields_library() -> ctypes.CDLL:
@@ -618,34 +687,38 @@ def _fields_library() -> ctypes.CDLL:
 def _stage_fields_library() -> ctypes.CDLL:
     """The stage kernel's library with its field-input entry point:
     device, dim, ext, E, flux (the index in CUDA_FLUXES) as int; every
-    pointer and the stream as c_void_p; gamma double, coefficients
-    float."""
+    pointer (q, u_prev, w, six sides, six sides' extras, out, speed) and
+    the stream as c_void_p; gamma double, coefficients float."""
     return _library("fused_rk_stage", "t8_fused_rk_stage_fields",
-                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 17
                     + [ctypes.c_double] + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
 
 
 def fused_rk_stage_fields_attributes(dim: int, ext: int, flux: str = "kepes",
                                      share_prev: bool = True,
+                                     extras: bool = False,
                                      device: int = 0) -> dict:
     """The resources of the field-input stage kernel of one case on a card
-    (builds the library), as fused_muscl_attributes."""
+    (builds the library), as fused_rk_stage_attributes."""
     return _attributes(_stage_fields_library(),
                        "t8_fused_rk_stage_fields_attributes", device,
                        [dim, ext, CUDA_FLUXES.index(flux),
-                        int(bool(share_prev))])
+                        int(bool(share_prev)), int(bool(extras))])
 
 
 def fused_rk_stage_fields_reference(q: torch.Tensor, u_prev,
                                     weights: torch.Tensor, others,
-                                    gamma: float, flux: str, coeffs):
+                                    gamma: float, flux: str, coeffs,
+                                    extra_sides=(), extras=()):
     """Plain PyTorch version of the field-input stage: the tile math of
     the TPU kernel (_fused_rk_fields_kernel) over the whole element axis,
-    for kepes, hll and hllc.  Same signature and result as
-    fused_rk_stage_fields; runs on any device and dtype."""
-    dim, _, _ = _check_fields_inputs(q, u_prev, weights, others, flux)
+    for kepes, hll and hllc, with the side extras.  Same signature and
+    result as fused_rk_stage_fields; runs on any device and dtype."""
+    dim, _, _ = _check_fields_inputs(q, u_prev, weights, others, flux,
+                                     extra_sides, extras)
     D, speed = _fields_divergence(q, weights, others, gamma, flux)
+    D = _add_extras(D, extra_sides, extras)
     C = q.shape[0]
     u_next = _stage_update(_recover_state_rows(_rows(q, n=C), gamma, flux),
                            None if u_prev is None else _rows(u_prev),

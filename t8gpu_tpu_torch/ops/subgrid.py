@@ -1,7 +1,6 @@
 """Stage glue of the subgrid scheme on torch tensors.
 
-Counterpart of t8gpu_tpu/ops/subgrid.py, for the paths that step uniform
-meshes:
+Counterpart of t8gpu_tpu/ops/subgrid.py, for the solvers' paths:
   * first order, RK-fused (`ssp_rk3_fused`, extents 4 and 8): per RK
     stage one call of a stage kernel, with what it reads chosen by the
     process-level switch RK_STAGE_INPUTS: "state" (the default) gathers
@@ -25,10 +24,19 @@ meshes:
     fluxes (`boundary_apply`), and update the state with plain torch ops
     (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
 
+AMR meshes (2:1 balanced, coarser and finer neighbours): the order-1 paths
+at extents 4 and 8 take them.  A coarser neighbour's facing layer enters
+the side layers sampled at my resolution (`_coarse_window`); the faces to
+finer neighbours are evaluated at the virtual fine resolution
+(`_fine_interleave`, `_upsample2`, `_pool2`) in torch, as the stage
+kernels' side extras (`fine_side_extras`) or added into the divergence
+(`outer_fine_apply`).  `h1_criteria` and `apply_subgrid_remap` are the
+device half of an adapt.  The torch stencil's mesh faces (`outer_apply`,
+extents 2 and 16) and order 2 raise NotImplementedError on AMR meshes.
+
 Layout: state is [5, *ext, E] with the element axis minor-most; a side
 layer is [C, *t_ext, E] where t_ext lists the remaining axes in increasing
 order.  Side k = 2*axis + (0 for the +axis side, 1 for the -axis side).
-Coarser and finer neighbours (AMR) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_axis_rotate,
-                                       fields_flux, fields_mirror)
+                                       fields_flux, fields_mirror,
+                                       numerical_flux)
 # State rows [rho, m_x, m_y, m_z, e] rotate into the +axis face frame like
 # the velocity rows of a fields stack, and a 5-row flux rotates back.
 from t8gpu_tpu_torch.ops.euler import fields_axis_rotate as axis_rotate
@@ -52,10 +61,11 @@ from t8gpu_tpu_torch.ops.kernels import \
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 
 
-def _require_uniform(conn):
+def _require_uniform(conn, what: str):
     if any(conn.has_coarse) or any(conn.has_fine):
         raise NotImplementedError(
-            "meshes with coarser/finer neighbors (AMR) are not ported yet")
+            f"{what} on meshes with coarser/finer neighbors (AMR) is not "
+            f"ported yet")
 
 
 def _gather_layers(opp_layer: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -63,6 +73,68 @@ def _gather_layers(opp_layer: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     [C, *t_ext, E] x nbr [E', M] -> [C, *t_ext, E', M]."""
     g = torch.index_select(opp_layer, -1, nbr.reshape(-1))
     return g.reshape(opp_layer.shape[:-1] + nbr.shape)
+
+
+# -- the 2:1 cell selections (pure permutations and selections) -------------
+
+
+def _upsample2(x: torch.Tensor, tangent_axes) -> torch.Tensor:
+    """Each cell repeated twice along every axis of tangent_axes."""
+    for ax in tangent_axes:
+        x = torch.repeat_interleave(x, 2, dim=ax)
+    return x
+
+
+def _fine_interleave(nb: torch.Tensor, spec: SubgridSpec) -> torch.Tensor:
+    """Finer-neighbour layers [C, *t_ext, E, M] (quadrant m: bit ti the
+    upper half of tangent axis ti) -> the virtual fine tiling [C,
+    *(2 ext,)*(dim-1), E], quadrant-major per tangent axis (tf = q*ext +
+    c)."""
+    ext = spec.extent
+    C = nb.shape[0]
+    if spec.dim == 2:
+        fine = torch.movedim(nb, -1, 1)                 # [C, b0, t0, E]
+        return fine.reshape(C, 2 * ext, -1)
+    q = nb.reshape(nb.shape[:-1] + (2, 2))              # [C, t0, t1, E, b1, b0]
+    fine = torch.movedim(q, (-1, -2), (1, 3))           # [C, b0, t0, b1, t1, E]
+    return fine.reshape(C, 2 * ext, 2 * ext, -1)
+
+
+def _coarse_window(base: torch.Tensor, bits: torch.Tensor,
+                   spec: SubgridSpec) -> torch.Tensor:
+    """A coarser neighbour's layer [C, *t_ext, E] -> its sample at my
+    resolution: per element the half-window of each tangent axis that my
+    face covers (bits[:, ti] 1: the upper half), each cell repeated
+    twice (t -> off + t // 2)."""
+    ext = spec.extent
+    n_t = spec.dim - 1
+    cw = base
+    for ti in range(n_t):
+        ax = 1 + ti
+        lower = cw.narrow(ax, 0, ext // 2)
+        upper = cw.narrow(ax, ext // 2, ext // 2)
+        b = bits[:, ti].reshape((1,) * (cw.dim() - 1) + (-1,))
+        cw = torch.where(b > 0, upper, lower)
+    return _upsample2(cw, tuple(range(1, 1 + n_t)))
+
+
+def _pool2(f: torch.Tensor, n_t: int) -> torch.Tensor:
+    """The 2x virtual subfaces of every tangent axis summed back onto the
+    layer's cells."""
+    for ti in range(n_t):
+        shape = (f.shape[: 1 + ti] + (f.shape[1 + ti] // 2, 2)
+                 + f.shape[2 + ti:])
+        f = f.reshape(shape).sum(dim=2 + ti)
+    return f
+
+
+def _expand_compact(contrib: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """Compact per-fine-element rows [C, *t_ext, K] -> dense [C, *t_ext, E]
+    through the inverse position map inv [E] (the sentinel K gives a zero
+    row): one gather."""
+    zero = torch.zeros(contrib.shape[:-1] + (1,), dtype=contrib.dtype,
+                       device=contrib.device)
+    return torch.index_select(torch.cat([contrib, zero], dim=-1), -1, inv)
 
 
 def _wall_masks(conn, spec: SubgridSpec, volumes: torch.Tensor):
@@ -85,13 +157,13 @@ def _mirror_rows(layer: torch.Tensor, axis: int) -> torch.Tensor:
 
 def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
                        volumes: torch.Tensor) -> tuple:
-    """Per side, the equal-level neighbor's facing layer as state slabs
-    [C, *t_ext, E] (C the rows of u: 5, or 7 with the log rows): the
-    +axis side reads the neighbor's cell 0 along the axis, the -axis side
-    its cell ext-1.  Wall sides get the mirrored own facing layer.
-    Coarser neighbors (the coarse-window resolution) come with the AMR
-    slice."""
-    _require_uniform(conn)
+    """Per side, the resolved equal-level or coarser neighbour's facing
+    layer as slabs [C, *t_ext, E] (C the rows of u: 5, or 7 with the log
+    rows, or cell-field rows): the +axis side reads the neighbour's cell
+    0 along the axis, the -axis side its cell ext-1; a coarser
+    neighbour's layer is sampled at my resolution (`_coarse_window`, a
+    cell selection, so exact on states and fields alike).  Wall sides get
+    the mirrored own facing layer."""
     ext = spec.extent
     walls = _wall_masks(conn, spec, volumes)
     others = []
@@ -100,6 +172,11 @@ def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
             k = 2 * a + s_i
             opp_layer = u.select(1 + a, 0 if hi else ext - 1)
             base = _gather_layers(opp_layer, conn.nbr[k][:, :1])[..., 0]
+            if conn.has_coarse[k]:
+                r_b = conn.rel[k].reshape((1,) * (base.dim() - 1) + (-1,))
+                base = torch.where(r_b < 0,
+                                   _coarse_window(base, conn.bits[k], spec),
+                                   base)
             if walls is not None:
                 wall_b = walls[k] > 0
                 own_layer = u.select(1 + a, ext - 1 if hi else 0)
@@ -193,9 +270,10 @@ def pallas_side_inputs(q, conn, spec: SubgridSpec, volumes: torch.Tensor,
 
     q: the cell fields, a stacked [C, *ext, E] tensor or a tuple of rows.
     weights: `face_weights`, which depends on the mesh only and may be
-    built once by the caller.  Coarser neighbours (AMR) and prescribed
+    built once by the caller.  A coarser neighbour's layer is sampled at
+    my resolution (`_state_side_layers`); hanging-fine faces are not in
+    these inputs (`fine_side_extras`, `outer_fine_apply`).  Prescribed
     exterior fields (`ghost_fields`, farfield) raise NotImplementedError."""
-    _require_uniform(conn)
     if ghost_fields is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
     if isinstance(q, tuple):
@@ -208,6 +286,86 @@ def pallas_side_inputs(q, conn, spec: SubgridSpec, volumes: torch.Tensor,
     return others, weights
 
 
+def _fine_side_fluxes(rows: torch.Tensor, conn, spec: SubgridSpec,
+                      volumes: torch.Tensor, flux_fn, compact: bool):
+    """The virtual-fine pass of the hanging-fine (2:1) faces, shared by
+    `fine_side_extras` and `outer_fine_apply`: per side with finer
+    neighbours, my boundary layer of `rows` [C, *ext, E] (states or cell
+    fields) repeated over its 2^(dim-1) subfaces against the finer
+    neighbours' facing layers in the fine tiling, both rotated into the
+    face frame; the sides' subfaces go through one call of
+    flux_fn(left, right) -> (flux, speed) along their joined element axes
+    (the flux is elementwise, so the bits are those of one call per
+    side), weighted by the subface area and summed back onto my layer's
+    cells, signed as a divergence.  compact: only the elements that face
+    finer neighbours (conn.fine_idx, the compact axis), else all E.
+    Returns ([(side k, contribution [5, *t_ext, K or E])], max speed as
+    a 0-d tensor, 0 without finer neighbours)."""
+    dim = spec.dim
+    ext = spec.extent
+    n_t = dim - 1
+    t_axes = tuple(range(1, 1 + n_t))
+    h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
+    area_v = (h_e / ext) ** n_t / (2 ** n_t)
+    faces, lefts, rights = [], [], []
+    for a in range(dim):
+        for s_i, hi in ((0, True), (1, False)):
+            k = 2 * a + s_i
+            if not conn.has_fine[k]:
+                continue
+            my_layer = rows.select(1 + a, ext - 1 if hi else 0)
+            opp_layer = rows.select(1 + a, 0 if hi else ext - 1)
+            nbr = conn.nbr[k]
+            w2 = conn.mask[k] * area_v * (conn.rel[k] > 0)
+            if compact:
+                idxk = conn.fine_idx[k]                   # [K]
+                my_layer = _gather_layers(my_layer, idxk[:, None])[..., 0]
+                nbr = torch.index_select(nbr, 0, idxk)
+                w2 = torch.index_select(w2, 0, idxk)
+            fine = _fine_interleave(_gather_layers(opp_layer, nbr), spec)
+            mine = _upsample2(my_layer, t_axes)
+            u_l, u_r = (mine, fine) if hi else (fine, mine)
+            lefts.append(axis_rotate(u_l, a))
+            rights.append(axis_rotate(u_r, a))
+            faces.append((k, a, hi, w2))
+    if not faces:
+        return [], torch.zeros((), dtype=rows.dtype, device=rows.device)
+    f, sp = flux_fn(torch.cat(lefts, dim=-1), torch.cat(rights, dim=-1))
+    w_all = torch.cat([w2 for *_, w2 in faces])
+    speed = (sp * (w_all > 0)).max()
+    out = []
+    for (k, a, hi, w2), f2 in zip(faces, f.split([len(x[3]) for x in faces],
+                                                 dim=-1)):
+        f2 = _pool2(axis_unrotate(f2, a) * w2, n_t)
+        out.append((k, -f2 if hi else f2))
+    return out, speed
+
+
+# The torch.profiler range around each stage's `fine_side_extras`, so that
+# a profile can put the AMR glue's device time apart.
+AMR_GLUE_RANGE = "t8:fine_side_extras"
+
+
+def fine_side_extras(u: torch.Tensor, conn, spec: SubgridSpec,
+                     volumes: torch.Tensor, gamma: float, flux: str):
+    """The hanging-fine (2:1) faces' contributions to the stage kernels:
+    per side with finer neighbours, the additive divergence [5, *t_ext,
+    E] onto that side's boundary layer (the virtual-fine pass of the JAX
+    package's outer_apply on states, through the state-form flux
+    `numerical_flux`).  Evaluated on the compact axis of the elements
+    that face finer neighbours (conn.fine_idx) and expanded by one gather
+    (`_expand_compact`); gathers only, so the step stays
+    bit-reproducible.  Returns (extra_sides, extras, max speed as a 0-d
+    tensor); nothing on meshes without finer neighbours."""
+    faces, speed = _fine_side_fluxes(
+        u[:5], conn, spec, volumes,
+        lambda l, r: numerical_flux(l, r, gamma=gamma, flux=flux),
+        compact=True)
+    return (tuple(k for k, _ in faces),
+            tuple(_expand_compact(c, conn.fine_inv[k]) for k, c in faces),
+            speed)
+
+
 def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
                   spec: SubgridSpec, gamma: float, flux: str, dt,
                   inv_cell_volume: torch.Tensor, mu: float = 0.0,
@@ -218,14 +376,15 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     take "state") or "fields" (see RK_STAGE_INPUTS).  `dt` may be a 0-d
     device tensor: it enters only through weight row 7, so the step never
     waits for the device.  `weights`: `face_weights`, built once per mesh
-    by the caller (or here).  Returns (u_next, max wave speed of stage 1
-    as a 0-d tensor).
+    by the caller (or here).  On meshes with finer neighbours every stage
+    adds the hanging-fine faces as the stage kernel's side extras
+    (`fine_side_extras`, from the stage's state in every mode); coarser
+    neighbours ride in the side layers.  Returns (u_next, max wave speed
+    of stage 1 as a 0-d tensor, the hanging faces' included).
 
     Raises ValueError on an unknown RK_STAGE_INPUTS, and
-    NotImplementedError for what the port does not have yet:
-    coarser/finer neighbors (AMR), viscosity, gravity, farfield
-    boundaries, other extents than 4 and 8."""
-    _require_uniform(conn)
+    NotImplementedError for what the port does not have yet: viscosity,
+    gravity, farfield boundaries, other extents than 4 and 8."""
     if float(mu) > 0.0:
         raise NotImplementedError("viscous (mu > 0) stages are not ported yet")
     if any(float(c) != 0.0 for c in gravity):
@@ -245,24 +404,37 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     dt_inv = dt * inv_cell_volume
     w = with_dt_row(weights, dt_inv)
 
+    any_fine = any(conn.has_fine)
+
     def stage(u_stage, u_prev, coeffs):
+        sides, extras, sp_f = ((), (), None)
+        if any_fine:
+            with torch.profiler.record_function(AMR_GLUE_RANGE):
+                sides, extras, sp_f = fine_side_extras(u_stage, conn, spec,
+                                                       volumes, gamma, flux)
         if mode == "fields":
             q = torch.stack(cell_fields_tuple(u_stage, gamma, flux))
             others, w_q = pallas_side_inputs(q, conn, spec, volumes,
                                              dt_inv=dt_inv, weights=weights)
-            return fused_rk_stage_fields(q, u_prev, w_q, others, gamma=gamma,
-                                         flux=flux, coeffs=coeffs)
-        if use_logs:
-            u_stage = append_log_rows(u_stage, gamma)
-        others = _state_side_layers(u_stage, conn, spec, volumes)
-        return fused_rk_stage(u_stage, u_prev, w, others, gamma=gamma,
-                              flux=flux, coeffs=coeffs)
+            u_n, sp = fused_rk_stage_fields(q, u_prev, w_q, others,
+                                            gamma=gamma, flux=flux,
+                                            coeffs=coeffs, extra_sides=sides,
+                                            extras=extras)
+        else:
+            if use_logs:
+                u_stage = append_log_rows(u_stage, gamma)
+            others = _state_side_layers(u_stage, conn, spec, volumes)
+            u_n, sp = fused_rk_stage(u_stage, u_prev, w, others, gamma=gamma,
+                                     flux=flux, coeffs=coeffs,
+                                     extra_sides=sides, extras=extras)
+        return u_n, sp, sp_f
 
     # stage 1: u_prev == u, passed as None so the kernel reads ONE state
-    u1, sp = stage(u, None, STAGE_1)
-    u2, _ = stage(u1, u, STAGE_2)
-    u3, _ = stage(u2, u, STAGE_3)
-    return u3, sp.max()
+    u1, sp, sp_f = stage(u, None, STAGE_1)
+    u2 = stage(u1, u, STAGE_2)[0]
+    u3 = stage(u2, u, STAGE_3)[0]
+    sp = sp.max()
+    return u3, sp if sp_f is None else torch.maximum(sp, sp_f)
 
 
 def _slab_add(D: torch.Tensor, contrib: torch.Tensor, axis: int,
@@ -353,7 +525,7 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
     Raises NotImplementedError on what is not ported yet: coarser/finer
     neighbors (AMR, whose hanging faces take outer_apply's first-order
     passes), farfield boundaries, extents other than 4 and 8."""
-    _require_uniform(conn)
+    _require_uniform(conn, "order 2")
     if farfield is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
     if spec.extent not in (4, 8):
@@ -421,10 +593,11 @@ def outer_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
 
     This is pass 1 of the JAX package's two (the faces at the element's
     own resolution); on uniform meshes every face is an equal-level one.
-    exclude_equal skips them (what the order-2 closure wants).  The
-    coarse window and the virtual-fine pass of AMR meshes raise
+    exclude_equal skips them (what the order-2 closure wants).  Meshes
+    with coarser or finer neighbours (its coarse window and virtual-fine
+    pass, the path of extents 2 and 16 under AMR) raise
     NotImplementedError."""
-    _require_uniform(conn)
+    _require_uniform(conn, "the torch stencil's mesh faces")
     speed = torch.zeros((), dtype=q[0].dtype, device=q[0].device)
     if exclude_equal:
         return D, speed              # uniform: every face is equal-level
@@ -455,13 +628,19 @@ def outer_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
 def outer_fine_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
                      volumes: torch.Tensor, gamma: float, flux: str):
     """The hanging-fine (2:1) faces' pass that the field-input divergence
-    kernel leaves to torch: (D, max speed).  On a uniform mesh there is
-    none (D unchanged, speed 0); finer neighbours raise
-    NotImplementedError (AMR)."""
-    if any(conn.has_fine):
-        raise NotImplementedError(
-            "hanging faces of finer neighbors (AMR) are not ported yet")
-    return D, torch.zeros((), dtype=D.dtype, device=D.device)
+    kernel leaves to torch: per side with finer neighbours, my boundary
+    layer's cell fields against the finer neighbours' facing layers in
+    the virtual fine tiling (`_fine_side_fluxes`, through the field-form
+    flux `fields_flux`), added into D.  q: the cell-fields tuple.  Returns
+    (D, max speed); D unchanged and speed 0 without finer neighbours."""
+    faces, speed = _fine_side_fluxes(
+        torch.stack(q), conn, spec, volumes,
+        lambda l, r: fields_flux(tuple(l), tuple(r), gamma=gamma, flux=flux),
+        compact=False)
+    for k, c in faces:
+        D = _slab_add(D, c.reshape(5, -1), k // 2, layer_hi=k % 2 == 0,
+                      spec=spec)
+    return D, speed
 
 
 def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
@@ -482,11 +661,12 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
         `inner_divergence_fields`, `outer_apply`, `boundary_apply`.
     CUDA tensors launch the kernels, CPU tensors run their plain versions.
     `weights`: `face_weights`, built once per mesh by the caller (or
-    here).  Farfield boundaries and AMR meshes raise
-    NotImplementedError."""
+    here).  On AMR meshes the kernel path takes the coarser neighbours in
+    its side layers and the finer ones in `outer_fine_apply`; the
+    stencil paths (extents 2 and 16, use_kernel=False) and farfield
+    boundaries raise NotImplementedError."""
     if farfield is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
-    _require_uniform(conn)
     q = cell_fields_tuple(u, gamma, flux)
     if use_kernel in (None, True) and spec.extent in (4, 8):
         qs = torch.stack(q)
@@ -507,3 +687,76 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
                                      conn, spec, gamma, flux)
             sp_o = torch.maximum(sp_o, sp_b)
     return D, torch.maximum(sp_i, sp_o)
+
+
+# -- AMR: refinement criteria and the state remap ------------------------------
+
+
+def h1_criteria(u: torch.Tensor, volumes: torch.Tensor,
+                spec: SubgridSpec) -> torch.Tensor:
+    """Density H1 seminorm over the volume, per element: [E] from u [C,
+    *ext, E] (the reference's compute_refinement_criteria); 0 on slots
+    with volume 0."""
+    rho = u[0]
+    dim = spec.dim
+    live = volumes > 0
+    vol = torch.where(live, volumes, 1.0)
+    h_cell = vol ** (1.0 / dim) / spec.extent
+    s = torch.zeros(rho.shape[-1], dtype=u.dtype, device=u.device)
+    for a in range(dim):
+        d = torch.diff(rho, dim=a)
+        s = s + (d * d).sum(dim=tuple(range(dim)))
+    return s * h_cell / vol * live
+
+
+def apply_subgrid_remap(u: torch.Tensor, src: torch.Tensor,
+                        refined: torch.Tensor, child_id: torch.Tensor,
+                        coarsened: torch.Tensor, spec: SubgridSpec,
+                        capacity: int) -> torch.Tensor:
+    """The state across one adapt pass (every element moved by at most
+    one level; the reference's adapt_variables), by gathers only:
+      keep:    new[i, e] = old[i, src]
+      refine:  new[i, e] = old[oct * ext/2 + i // 2, src]  (the parent's
+               octant child_id)
+      coarsen: new[i, e] = pooled[i & (ext/2 - 1), src + z(i)], pooled
+               the 2^dim-cell means of old and z(i) the z-order child
+               that holds coarse cell i.
+    u: [C, *ext, cap_old]; src, refined, child_id, coarsened: [capacity].
+    Returns [C, *ext, capacity]."""
+    dim = spec.dim
+    ext = spec.extent
+    half = ext // 2
+    cap_old = u.shape[-1]
+    dev = u.device
+    elem_shape = (1,) * dim + (-1,)
+
+    def cell_index(a):
+        """arange(ext) broadcastable over (*ext, capacity) at axis a."""
+        shape = [1] * (dim + 1)
+        shape[a] = ext
+        return torch.arange(ext, device=dev).reshape(shape)
+
+    child = child_id.long()
+    r = refined.reshape(elem_shape)
+    src_b = src.long().reshape(elem_shape)
+    idx_a = []
+    for a in range(dim):
+        i = cell_index(a)
+        o = (((child >> a) & 1) * half).reshape(elem_shape)
+        idx_a.append(torch.where(r, o + (i >> 1), i))
+    path_a = u[(slice(None),) + tuple(idx_a) + (src_b,)]
+
+    pool_shape = (u.shape[0],) + sum(((half, 2),) * dim, ()) + (cap_old,)
+    pooled = u.reshape(pool_shape).mean(dim=tuple(2 + 2 * a
+                                                  for a in range(dim)))
+    z = torch.zeros((1,) * (dim + 1), dtype=torch.long, device=dev)
+    idx_b = []
+    for a in range(dim):
+        i = cell_index(a)
+        z = z + ((i >> (spec.log2_extent - 1)) << a)
+        idx_b.append(i & (half - 1))
+    src_z = torch.clamp(src_b + z, max=cap_old - 1)
+    path_b = pooled[(slice(None),) + tuple(idx_b) + (src_z,)]
+
+    c = coarsened.reshape((1,) + elem_shape)
+    return torch.where(c, path_b, path_a)

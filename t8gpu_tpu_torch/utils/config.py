@@ -5,7 +5,8 @@ with the same names and defaults, so that one configuration means the
 same run in both packages.  The solver raises `NotImplementedError` for
 the values whose paths are not ported yet (mu > 0, gravity, farfield
 boundaries).  The other fields of the JAX package's config (prandtl, the
-no-slip wall model) come with the slices that read them.
+no-slip wall model) come with the slices that read them.  `AMRConfig` is
+the JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -57,3 +58,17 @@ class EulerConfig:
     mu: float = 0.0                    # dynamic viscosity
     boundary: str = "reflective"       # or "farfield"
     farfield: tuple = None             # exterior (rho, vx, vy, vz, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class AMRConfig:
+    """Adaptive-refinement parameters.  `refine_threshold` is the b of
+    the reference's adapt callback: refine where the criteria > b,
+    coarsen a family whose mean criteria < b (the subgrid solver's
+    reference value is 0.02).  `growth_factor`: the ratio of the element
+    capacity buckets (memory/store.bucket_capacity) after an adapt."""
+
+    min_level: int = 1
+    max_level: int = 4
+    refine_threshold: float = 10.0
+    growth_factor: float = 1.5

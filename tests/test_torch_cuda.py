@@ -15,7 +15,10 @@ on the real side layers of a periodic mesh (mesh-face conservation); the
 Euler solver (order 1 in each stage-input mode, with hll and hllc, and
 at extents 2 and 16, order 2) and
 the GLM-MHD solver (order 1 and 2) stepped on the card against the same
-solver on the CPU; flux_divergence's kernel dispatches.
+solver on the CPU; flux_divergence's kernel dispatches; the two stage
+kernels with the side extras of AMR meshes (bit for bit, no spills, a
+launch without extras unchanged) and an adapt cycle on the card against
+the CPU.
 """
 
 import numpy as np
@@ -755,3 +758,184 @@ def test_cuda_flux_divergence_kernel_matches_stencil(cuda, dim, level, ext,
         np.testing.assert_allclose(dk.cpu().numpy(), d.cpu().numpy(),
                                    rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(float(sk), float(sp), rtol=RTOL)
+
+
+# -- AMR: the stage kernels' side extras and an adapt cycle ---------------
+
+
+EXTRAS_INPUTS = [("state", "kepes"), ("state", "hll"), ("logs", "kepes"),
+                 ("fields", "kepes"), ("fields", "hll"), ("fields", "hllc")]
+
+
+def _stage_case(cuda, inp, flux, dim, ext, E, n_guard, seed):
+    """(kernel, plain version, u or q, u_prev, weights, side layers) of a
+    stage input on seeded card inputs."""
+    u, up, w, others = _card_stage_inputs(cuda, seed, dim, ext, E, n_guard)
+    if inp == "fields":
+        q = torch.stack(cell_fields_tuple(u, GAMMA, flux))
+        oq = [torch.stack(cell_fields_tuple(o, GAMMA, flux)) for o in others]
+        return (fused_rk_stage_fields, fused_rk_stage_fields_reference, q,
+                up, w, oq)
+    if inp == "logs":
+        u = tsg.append_log_rows(u, GAMMA)
+        others = [tsg.append_log_rows(o, GAMMA) for o in others]
+    return fused_rk_stage, fused_rk_stage_reference, u, up, w, others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp,flux", EXTRAS_INPUTS,
+                         ids=[f"{i}-{f}" for i, f in EXTRAS_INPUTS])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (2, 4)])
+def test_cuda_stage_extras_match_reference(cuda, dim, ext, inp, flux):
+    """Kernels 1 and 6 with side extras (the hanging-fine faces of AMR
+    meshes) on a subset of the sides and on all of them, every stage: bit
+    for bit against their plain versions and on repeat, counted in
+    launches_extras; no spills in the extras instantiation."""
+    E, n_guard = 1000, 37
+    kern, ref_fn, a, up, w, o = _stage_case(cuda, inp, flux, dim, ext, E,
+                                            n_guard, dim + ext + 5)
+    rng = np.random.default_rng(dim + ext)
+    for sides in ((0, 3, 4) if dim == 3 else (0, 3), tuple(range(2 * dim))):
+        xs = rng.uniform(-0.05, 0.05, (len(sides), 5) + (ext,) * (dim - 1)
+                         + (E,)).astype(np.float32)
+        xs[..., -n_guard:] = 0.0
+        xs = [torch.from_numpy(x).to(cuda) for x in xs]
+        for share_prev, coeffs in STAGES:
+            prev = None if share_prev else up
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                      extra_sides=sides, extras=xs)
+            before = kern.launches_extras
+            k1 = kern(a, prev, w, o, **kw)
+            k2 = kern(a, prev, w, o, **kw)
+            assert kern.launches_extras == before + 2
+            ref = ref_fn(a, prev, w, o, **kw)
+            _check_pair(k1, k2, ref, n_guard, guard_d_zero=False)
+            assert _bits_equal(k1[0], ref[0]) and _bits_equal(k1[1], ref[1])
+            # the extras moved the result
+            assert not torch.equal(k1[0], kern(a, prev, w, o, gamma=GAMMA,
+                                               flux=flux, coeffs=coeffs)[0])
+    for share_prev in (True, False):
+        res = (fused_rk_stage_fields_attributes(dim, ext, flux=flux,
+                                                share_prev=share_prev,
+                                                extras=True)
+               if inp == "fields" else
+               fused_rk_stage_attributes(dim, ext, flux=flux,
+                                         logs=inp == "logs",
+                                         share_prev=share_prev, extras=True))
+        assert res["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inp,flux", EXTRAS_INPUTS,
+                         ids=[f"{i}-{f}" for i, f in EXTRAS_INPUTS])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_null_extras_unchanged(cuda, dim, ext, inp, flux):
+    """A launch without extras runs the instantiation of a uniform mesh:
+    bit for bit the plain version without extras, and the extras
+    instantiation given zero extras on every side gives the same bits."""
+    E, n_guard = 1000, 37
+    kern, ref_fn, a, up, w, o = _stage_case(cuda, inp, flux, dim, ext, E,
+                                            n_guard, dim + ext + 6)
+    sides = tuple(range(2 * dim))
+    zeros = [torch.zeros((5,) + (ext,) * (dim - 1) + (E,), device=cuda)
+             for _ in sides]
+    kw = dict(gamma=GAMMA, flux=flux, coeffs=STAGE_2)
+    before = kern.launches_extras
+    null = kern(a, up, w, o, **kw)
+    assert kern.launches_extras == before
+    zero = kern(a, up, w, o, extra_sides=sides, extras=zeros, **kw)
+    ref = ref_fn(a, up, w, o, **kw)
+    torch.cuda.synchronize()
+    for n, z, r in zip(null, zero, ref):
+        assert _bits_equal(n, r) and _bits_equal(z, r)
+
+
+def _amr_pair(cuda, steps=1):
+    """The same adaptive 3D solver (noisy KH, Forest.uniform(1, dim=3),
+    Subgrid<4,4,4>, AMRConfig(1, 2, 19.0)) on the card and on the CPU,
+    one step, then adapted with the card's criteria on both."""
+    from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    pair = []
+    for dev in (cuda, "cpu"):
+        mgr = subgrid_manager(Forest.uniform(1, dim=3),
+                              SubgridSpec((4, 4, 4)), AMRConfig(1, 2, 19.0))
+        pair.append(SubgridCompressibleEulerSolver(mgr, noisy_kh(3, 0),
+                                                   device=dev))
+    gpu, cpu = pair
+    dt = cpu.compute_timestep()
+    for s in pair:
+        s.iterate_many(steps, dt)
+    crit = tsg.h1_criteria(gpu.u, gpu.volumes, gpu.spec).cpu()
+    np.testing.assert_allclose(
+        crit.numpy(), tsg.h1_criteria(cpu.u, cpu.volumes, cpu.spec).numpy(),
+        rtol=RTOL, atol=ATOL)
+    for s in pair:
+        s.adapt(criteria=crit.numpy())
+    return gpu, cpu
+
+
+@pytest.mark.cuda
+def test_cuda_amr_cycle_matches_cpu(cuda):
+    """One adapt on the card and on the CPU with the same criteria: the
+    same forest and tables, the remapped states within tolerance; then
+    one step in each stage input (3 launches with extras each) and
+    flux_divergence (kernel 2, then outer_fine_apply) within tolerance."""
+    gpu, cpu = _amr_pair(cuda)
+    fg, fc = gpu.manager.forest, cpu.manager.forest
+    assert np.array_equal(fg.level, fc.level)
+    assert np.array_equal(fg.anchor, fc.anchor)
+    for name in ("nbr", "rel", "bits", "mask", "fine_idx", "fine_inv"):
+        for a, b in zip(getattr(gpu.conn, name), getattr(cpu.conn, name)):
+            assert torch.equal(a.cpu(), b), name
+    assert any(gpu.conn.has_fine) and any(gpu.conn.has_coarse)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    u_g, u_c = gpu.u.clone(), cpu.u.clone()
+    dt = cpu.compute_timestep()
+    old = tsg.RK_STAGE_INPUTS
+    try:
+        for mode in ("state", "logs", "fields"):
+            kern = fused_rk_stage_fields if mode == "fields" else fused_rk_stage
+            gpu.u, cpu.u = u_g.clone(), u_c.clone()
+            tsg.RK_STAGE_INPUTS = mode
+            before = kern.launches_extras
+            gpu.iterate(dt)
+            cpu.iterate(dt)
+            assert kern.launches_extras == before + 3
+            np.testing.assert_allclose(gpu.conserved_state(),
+                                       cpu.conserved_state(), rtol=RTOL,
+                                       atol=ATOL)
+    finally:
+        tsg.RK_STAGE_INPUTS = old
+    before = fused_flux.launches
+    got = tsg.flux_divergence(u_g, gpu.volumes, gpu.conn, gpu.spec, GAMMA,
+                              "kepes")
+    want = tsg.flux_divergence(u_c, cpu.volumes, cpu.conn, cpu.spec, GAMMA,
+                               "kepes")
+    assert fused_flux.launches == before + 1
+    for g, c in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_adapt_prefetch_matches_adapt(cuda):
+    """On the card, adapt_prefetch() (the criteria copied to pinned host
+    memory behind an event) then adapt() gives adapt()'s forest and state
+    bit for bit."""
+    from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    solvers = []
+    for prefetch in (False, True):
+        mgr = subgrid_manager(Forest.uniform(1, dim=3),
+                              SubgridSpec((4, 4, 4)), AMRConfig(1, 2, 19.0))
+        s = SubgridCompressibleEulerSolver(mgr, noisy_kh(3, 0), device=cuda)
+        s.iterate(1e-3)
+        if prefetch:
+            s.adapt_prefetch()
+        s.adapt()
+        solvers.append(s)
+    a, b = solvers
+    assert np.array_equal(a.manager.forest.anchor, b.manager.forest.anchor)
+    assert _bits_equal(a.u, b.u)

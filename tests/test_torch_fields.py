@@ -23,9 +23,10 @@ its non-fused first-order divergence against the JAX package, on the CPU.
 (e) three solver steps with RK_STAGE_INPUTS "fields" and "logs", at
     extents 16 (2D) and 2 (3D), and in float64, against the JAX solver's
     step: rtol 2e-5, atol 2e-6;
-(f) what the port refuses: AMR meshes, farfield, unknown stage inputs.
+(f) what the port refuses: AMR meshes on the torch stencil, farfield,
+    unknown stage inputs.
 
-The JAX side runs op by op (`jax.disable_jit`), as in
+The JAX side runs op by op (tests/torch_port_jax `op_by_op`), as in
 tests/test_torch_solver.py.  Op by op, each primitive compiles once per
 shape, so the tests share four meshes and cache the JAX results they
 reuse.  The CUDA kernels themselves are held against their plain versions
@@ -61,7 +62,7 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops.rk import STAGE_2
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import GAMMA, noisy_kh, random_state
-from tests.torch_port_jax import interpret
+from tests.torch_port_jax import FAST, interpret, op_by_op
 
 torch.set_num_threads(1)
 
@@ -102,10 +103,10 @@ def _port(case, **config):
 def _jax_program(case, flux):
     """The JAX package's divergences on the shared mesh, v -> ((D, speed)
     of flux_divergence on its XLA path, (D, speed) of inner_divergence, or
-    None on the 3D extent-4 mesh).  Jitted as one program on the meshes
-    with few shapes, where one compile costs less than op by op; op by op
-    on the 3D extent-4 mesh, where the jitted program takes ~12 s to
-    compile."""
+    None on the 3D extent-4 mesh).  Jitted as one program, compiled FAST
+    (tests/torch_port_jax), on the meshes with few shapes, where one
+    compile costs less than op by op; op by op on the 3D extent-4 mesh,
+    where the jitted program takes ~12 s to compile."""
     js, _ = _pair(case)
 
     def program(v):
@@ -115,11 +116,11 @@ def _jax_program(case, flux):
             return div, None
         return div, jsg.inner_divergence(v, js.volumes, js.spec, GAMMA, flux)
     if case == WALLED_3D_4:
-        def op_by_op(v):
-            with jax.disable_jit():
+        def eager(v):
+            with op_by_op():
                 return program(v)
-        return op_by_op
-    return jax.jit(program)
+        return eager
+    return jax.jit(program).lower(js.u).compile(compiler_options=FAST)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,7 +183,7 @@ def test_recover_state_rows_matches_jax(flux):
     u = random_state(np.random.default_rng(52), (4, 300))
     q = teu.cell_fields_tuple(torch.from_numpy(u), GAMMA, flux)
     tu = kernels._recover_state_rows(q, GAMMA, flux)
-    with jax.disable_jit():
+    with op_by_op():
         ju = _recover_state_rows(tuple(jnp.asarray(r.numpy()) for r in q),
                                  GAMMA, flux)
     for t, j in zip(tu, ju):
@@ -198,7 +199,7 @@ def test_numerical_flux_matches_jax(flux):
     u_l = random_state(rng, (400,))
     u_r = random_state(rng, (400,))
     u_r[:, :100] = u_l[:, :100] * (1.0 + 1e-4 * rng.uniform(-1, 1, 100))
-    with jax.disable_jit():
+    with op_by_op():
         jf, js = jeu.numerical_flux(jnp.asarray(u_l), jnp.asarray(u_r),
                                     GAMMA, flux)
     tf, ts = teu.numerical_flux(torch.from_numpy(u_l), torch.from_numpy(u_r),
@@ -216,7 +217,7 @@ def test_pallas_side_inputs_match_jax(case):
     js, tm = _pair(case)
     ts = _port(case)
     dt = 1.25e-3
-    with jax.disable_jit():
+    with op_by_op():
         jq = jeu.cell_fields_tuple(js.u, GAMMA, "kepes")
         jo, jw = jsg.pallas_side_inputs(jq, js.conn, js.spec, js.volumes,
                                         dt_inv=dt * js.inv_cell_volume)
@@ -386,21 +387,23 @@ def test_float64_matches_jax_step():
 # -- (f) refusals -------------------------------------------------------------
 
 
-def _hanging_conn():
+def _hanging_conn(ext=4):
     jf = JForest.uniform(2, dim=2)
     flags = np.zeros(jf.n_elements, np.int8)
     flags[0] = 1
     jf, _ = jf.adapt(jf.balance_flags(flags))
     mesh = SubgridMesh.from_forest(Forest(2, jf.level, jf.anchor, jf.L),
-                                   SubgridSpec((4, 4)))
+                                   SubgridSpec((ext, ext)))
     return mesh
 
 
 @pytest.mark.parametrize("mode", ["fields", "logs"])
 def test_refusals(mode):
-    """AMR meshes, farfield boundaries and unknown stage inputs raise, in
-    every stage-input mode and in flux_divergence's dispatches."""
-    amr = SubgridCompressibleEulerSolver(_hanging_conn(),
+    """What is not ported raises, in every stage-input mode and in
+    flux_divergence's dispatches: AMR meshes on the torch stencil (extent
+    2 here; the stage kernels' extents 4 and 8 take them), farfield
+    boundaries, unknown stage inputs."""
+    amr = SubgridCompressibleEulerSolver(_hanging_conn(ext=2),
                                          noisy_kh(2, 1), device="cpu")
     ts = _port(WALLED_2D_4)
     q = torch.stack(teu.cell_fields_tuple(ts.u, GAMMA, "kepes"))
@@ -429,9 +432,11 @@ def test_refusals(mode):
     with pytest.raises(NotImplementedError, match="farfield"):
         tsg.pallas_side_inputs(q, ts.conn, ts.spec, ts.volumes,
                                ghost_fields=tuple(q[:, 0, 0, :1]))
+    amr4 = SubgridCompressibleEulerSolver(_hanging_conn(), noisy_kh(2, 1),
+                                          device="cpu")
     with pytest.raises(NotImplementedError, match="AMR"):
-        tsg.outer_fine_apply(amr.u, tuple(amr.u), amr.conn, amr.spec,
-                             amr.volumes, GAMMA, "kepes")
+        tsg.flux_divergence(amr4.u, amr4.volumes, amr4.conn, amr4.spec,
+                            GAMMA, "kepes", use_kernel=False)
 
 
 def test_kernel_input_refusals():
@@ -493,10 +498,11 @@ def test_new_libraries_declare_c_signature(monkeypatch, which):
         args = kernels._stage_fields_library().t8_fused_rk_stage_fields.argtypes
         assert loaded == ["fused_rk_stage"]       # the stage kernel's library
         assert args[:5] == [ctypes.c_int] * 5     # device, dim, ext, E, flux
-        assert args[5:16] == [ctypes.c_void_p] * 11   # q, up, w, 6 sides, out, speed
-        assert args[16] is ctypes.c_double
-        assert args[17:20] == [ctypes.c_float] * 3
-        assert args[20] is ctypes.c_void_p and len(args) == 21
+        # q, up, w, 6 sides, 6 sides' extras, out, speed
+        assert args[5:22] == [ctypes.c_void_p] * 17
+        assert args[22] is ctypes.c_double
+        assert args[23:26] == [ctypes.c_float] * 3
+        assert args[26] is ctypes.c_void_p and len(args) == 27
         assert kernels.CUDA_FLUXES == ("kepes", "hll", "hllc")
     else:
         args = kernels._inner_library().t8_inner_divergence.argtypes

@@ -81,6 +81,19 @@ def test_wrapper_on_cpu_runs_reference():
     assert fused_rk_stage.launches == before      # no kernel was launched
 
 
+def test_extras_pointers_by_side():
+    """The stage entry points take six extras pointers in side order, None
+    where a side has none; the plain version adds each side's extras onto
+    its boundary layer, in extra_sides order."""
+    x1, x4 = torch.ones((5, 4, 4, 3)), torch.full((5, 4, 4, 3), 2.0)
+    assert kernels._extras_pointers((1, 4), (x1, x4)) == [
+        None, x1.data_ptr(), None, None, x4.data_ptr(), None]
+    assert kernels._extras_pointers((), ()) == [None] * 6
+    D = kernels._add_extras(torch.zeros((5, 4, 4, 4, 3)), (1, 4), (x1, x4))
+    assert float(D[:, 0].sum()) == 5 * 16 * 3 + 2 * 5 * 4 * 3  # x1 + x4's row
+    assert bool((D[:, 1:, :, :3] == 0).all()) and float(D[0, 0, 1, 3, 0]) == 3.0
+
+
 def test_wrapper_rejects_unsupported_inputs():
     u, up, w, others = stage_inputs(2, 2, 8, 40, N_GUARD)
     ut, upt, wt = torch.from_numpy(u), torch.from_numpy(up), torch.from_numpy(w)
@@ -88,6 +101,15 @@ def test_wrapper_rejects_unsupported_inputs():
     kw = dict(gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
     with pytest.raises(ValueError, match="extras"):
         fused_rk_stage(ut, upt, wt, ot, extras=(ot[0],), **kw)
+    with pytest.raises(ValueError, match="increase"):
+        fused_rk_stage(ut, upt, wt, ot, extra_sides=(3, 0),
+                       extras=(ot[0], ot[1]), **kw)
+    with pytest.raises(ValueError, match="increase"):
+        fused_rk_stage(ut, upt, wt, ot, extra_sides=(4,), extras=(ot[0],),
+                       **kw)
+    with pytest.raises(ValueError, match="5-row side layers"):
+        fused_rk_stage(ut, upt, wt, ot, extra_sides=(1,),
+                       extras=(ot[0][:, :4],), **kw)
     with pytest.raises(ValueError, match="5 or 7 rows"):
         fused_rk_stage(torch.cat([ut, ut[:1]]), None, wt, ot, **kw)
     # 7 rows (the state and its log rows) need 7-row side layers
@@ -107,7 +129,9 @@ def test_wrapper_rejects_unsupported_inputs():
     # what only the CUDA kernel refuses (checked before any launch)
     check = kernels._check_kernel_inputs
     for flux in ("kepes", "hll", "hllc"):
-        check(ut, upt, wt, ot, flux)
+        check(ut, upt, wt, ot, flux, extras=(ot[0],))
+    with pytest.raises(ValueError, match="contiguous"):
+        check(ut, upt, wt, ot, "kepes", extras=(ot[0].transpose(1, 2),))
     with pytest.raises(ValueError, match="hllc flux, not 'roe'"):
         check(ut, upt, wt, ot, "roe")
     with pytest.raises(ValueError, match="float32"):
@@ -147,9 +171,10 @@ def test_stage_library_declares_c_signature(monkeypatch):
     lib = kernels._stage_library()
     args = lib.t8_fused_rk_stage.argtypes
     assert args[:6] == [ctypes.c_int] * 6    # device, dim, ext, E, flux, logs
-    assert args[6:17] == [ctypes.c_void_p] * 11      # u, up, w, 6 sides, out, speed
-    assert args[17] is ctypes.c_double and args[18:21] == [ctypes.c_float] * 3
-    assert args[21] is ctypes.c_void_p and len(args) == 22   # the stream
+    # u, up, w, 6 sides, 6 sides' extras, out, speed
+    assert args[6:23] == [ctypes.c_void_p] * 17
+    assert args[23] is ctypes.c_double and args[24:27] == [ctypes.c_float] * 3
+    assert args[27] is ctypes.c_void_p and len(args) == 28   # the stream
     assert lib.t8_cuda_error_string.restype is ctypes.c_char_p
 
 
@@ -187,12 +212,13 @@ def test_attributes_declare_c_signature(monkeypatch, which):
     monkeypatch.setattr(_build, "load", lambda name: fake)
     if which == "stage":
         got = kernels.fused_rk_stage_attributes(3, 8, flux="hllc",
-                                                share_prev=False)
-        case = (0, 3, 8, 2, 0, 0)     # device dim ext flux logs share_prev
+                                                share_prev=False, extras=True)
+        case = (0, 3, 8, 2, 0, 0, 1)  # device dim ext flux logs share_prev
+                                      # extras
     elif which == "stage_fields":
         got = kernels.fused_rk_stage_fields_attributes(3, 8, flux="hll",
                                                        share_prev=False)
-        case = (0, 3, 8, 1, 0)        # device dim ext flux share_prev
+        case = (0, 3, 8, 1, 0, 0)     # device dim ext flux share_prev extras
     elif which == "mhd_flux":
         got = kernels.fused_mhd_flux_attributes(2, 8)
         case = (0, 2, 8)              # device dim ext

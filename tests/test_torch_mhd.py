@@ -16,9 +16,9 @@
 (d) `SubgridMHDSolver`, 3 steps from the same state against the JAX
     solver at order 1 and 2 (minmod and none), periodic and with
     conductor walls (rtol 2e-5, atol 2e-6); `solver_arrays` with 9 rows.
-The JAX solver steps op by op (`jax.disable_jit`): the same arithmetic
-without XLA's fusion, and a fraction of the compile time of the whole
-jitted step, which keeps this file inside its time budget.  The CUDA
+The JAX solver steps op by op (tests/torch_port_jax `op_by_op`): the same
+arithmetic without XLA's fusion, and a fraction of the compile time of the
+whole jitted step, which keeps this file inside its time budget.  The CUDA
 kernels themselves are held against the plain versions in
 tests/test_torch_cuda.py (card only).
 """
@@ -56,7 +56,7 @@ from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
 from tests.torch_port_inputs import (MHD_GAMMA, mhd_flux_inputs,
                                      mhd_muscl_inputs, noisy_orszag_tang,
                                      random_mhd_state)
-from tests.torch_port_jax import interpret
+from tests.torch_port_jax import compiled, interpret, op_by_op
 
 torch.set_num_threads(1)
 
@@ -358,16 +358,17 @@ DIV_CASES = [  # (dim, level, ext, periodic, order, limiter)
 def test_divergence_matches_jax(dim, level, ext, periodic, order, limiter):
     assert kernel_mode() == "off"        # the JAX engine / muscl_core_rows
     js, ts = _pair(dim, level, ext, periodic, 72 + dim)
+    # the jitted references, compiled without backend optimisations
     if order == 1:
-        Dj, sj = jsm.mhd_subgrid_divergence(js.u, js.volumes, js.conn,
-                                            js.spec, MHD_GAMMA, ALPHA,
-                                            use_pallas=False)
+        Dj, sj = compiled(jsm.mhd_subgrid_divergence, js.u, js.volumes,
+                          js.conn, spec=js.spec, gamma=MHD_GAMMA,
+                          alpha=ALPHA, use_pallas=False)
         Dt, st = tsm.mhd_subgrid_divergence(ts.u, ts.volumes, ts.conn,
                                             ts.spec, MHD_GAMMA, ALPHA)
     else:
-        Dj, sj = jsm.mhd_subgrid_divergence_muscl(
-            js.u, js.volumes, js.conn, js.spec, MHD_GAMMA, ALPHA,
-            limiter=limiter)
+        Dj, sj = compiled(jsm.mhd_subgrid_divergence_muscl, js.u,
+                          js.volumes, js.conn, spec=js.spec, gamma=MHD_GAMMA,
+                          alpha=ALPHA, limiter=limiter)
         Dt, st = tsm.mhd_subgrid_divergence_muscl(
             ts.u, ts.volumes, ts.conn, ts.spec, MHD_GAMMA, ALPHA,
             limiter=limiter)
@@ -396,7 +397,7 @@ def test_solver_matches_jax(periodic, order, limiter):
                             np.asarray(js.inv_cell_volume))
     for key in ("u", "volumes", "inv_cell_volume"):
         assert torch.equal(getattr(ts, key), carried[key])
-    with jax.disable_jit():
+    with op_by_op():
         dt = js.compute_timestep()
         js.iterate_many(3, dt)
     np.testing.assert_allclose(ts.compute_timestep(), dt, rtol=1e-5)

@@ -13,7 +13,8 @@
     (kernel_mode() == "off", muscl_core) on periodic and walled meshes;
 (d) the order-2 solver, 3 steps from the same state against the JAX
     solver (rtol 2e-5, atol 2e-6), mass conservation and bitwise repeats.
-The JAX side of (c) and (d) runs op by op (`jax.disable_jit`), as in
+The JAX side of (c) and (d) runs op by op (tests/torch_port_jax
+`op_by_op`), as in
 tests/test_torch_solver.py: the same arithmetic, compiled one primitive
 at a time on one core instead of one large multi-threaded XLA compile
 per case; (d) reuses the primitives (c) compiled.
@@ -50,7 +51,7 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_muscl_reference
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import GAMMA, muscl_inputs, noisy_kh, random_state
-from tests.torch_port_jax import interpret
+from tests.torch_port_jax import NO_BACKEND_OPT, interpret, op_by_op
 
 torch.set_num_threads(1)
 
@@ -165,10 +166,15 @@ def _kernel_id(case):
 def test_reference_matches_pallas(case):
     dim, ext, E, space, limiter, lo, hi = case
     u, w, others = muscl_inputs(dim * 10 + ext, dim, ext, E, N_GUARD, lo, hi)
+    # compiled with the fusion emitters (NO_BACKEND_OPT, not FAST): the
+    # limiter's branches make these outputs ill-conditioned, and FAST's
+    # ulps move single outputs of the positivity inputs past the tolerance
+    # (f32 evaluations of both builds and of the plain version all lie
+    # within 3e-4 of an f64 one) and double the others' use of it
     jd, jsp = interpret(
         fused_muscl_pallas, jnp.asarray(u), jnp.asarray(w),
         tuple(jnp.asarray(o) for o in others), gamma=GAMMA, flux="kepes",
-        limiter=limiter, space=space)
+        limiter=limiter, space=space, options=NO_BACKEND_OPT)
     args = (torch.from_numpy(u), torch.from_numpy(w),
             [torch.from_numpy(o) for o in others])
     kw = dict(gamma=GAMMA, flux="kepes", limiter=limiter, space=space)
@@ -329,7 +335,7 @@ DIV_CASES = [  # (dim, level, ext, periodic, flux, limiter)
 def test_flux_divergence_matches_jax(dim, level, ext, periodic, flux, limiter):
     assert kernel_mode() == "off"         # the JAX muscl_core stencil path
     js, ts = _pair(dim, level, ext, periodic, 22 + dim)
-    with jax.disable_jit():
+    with op_by_op():
         Dj, sj = jsg.flux_divergence_muscl(js.u, js.volumes, js.conn,
                                            spec=js.spec, gamma=GAMMA,
                                            flux=flux, limiter=limiter)
@@ -353,7 +359,7 @@ SOLVER_CASES = [  # (dim, level, ext, periodic, limiter)
 def test_solver_order2_matches_jax(dim, level, ext, periodic, limiter):
     config = dict(order=2, limiter=limiter)
     js, ts = _pair(dim, level, ext, periodic, 30 + dim, config)
-    with jax.disable_jit():
+    with op_by_op():
         dt = js.compute_timestep()
         js.iterate_many(3, dt)
     ts.iterate_many(3, dt)

@@ -6,7 +6,8 @@ tests/test_pallas.py); the CFL timestep rtol 1e-5.  Also: runs repeat bit
 for bit, mass is conserved, unported options raise, the default device
 is CUDA, and no module of the port imports jax or t8gpu_tpu.
 
-The JAX solver steps op by op (`jax.disable_jit`): the same arithmetic
+The JAX solver steps op by op (tests/torch_port_jax `op_by_op`:
+`jax.disable_jit`, each primitive compiled FAST): the same arithmetic
 without XLA's fusion.  The jitted step compiles as one large XLA program
 on several threads, which test files running beside this one in other
 workers pay for; op by op, each primitive compiles once on one thread
@@ -19,7 +20,6 @@ import pathlib
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -43,6 +43,7 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.utils.config import (EulerConfig, resolve_device,
                                           resolve_dtype)
 from tests.torch_port_inputs import noisy_kh
+from tests.torch_port_jax import op_by_op
 
 torch.set_num_threads(1)
 
@@ -79,7 +80,7 @@ def test_solver_matches_jax(dim, level, ext, periodic):
     assert torch.equal(ts.volumes, carried["volumes"])
     assert torch.equal(ts.inv_cell_volume, carried["inv_cell_volume"])
 
-    with jax.disable_jit():               # op by op: see the docstring
+    with op_by_op():                      # see the docstring
         dt = js.compute_timestep()
         js.iterate_many(N_STEPS, dt)
         dt_after = js.compute_timestep()
@@ -202,14 +203,14 @@ def test_default_device_is_cuda():
                                        device=None)
 
 
-def _hanging_mesh():
+def _hanging_mesh(ext=4):
     """A 2D mesh with one refined element: 2:1 hanging faces."""
     jf = JForest.uniform(2, dim=2)
     flags = np.zeros(jf.n_elements, np.int8)
     flags[0] = 1
     jf, _ = jf.adapt(jf.balance_flags(flags))
     return SubgridMesh.from_forest(Forest(2, jf.level, jf.anchor, jf.L),
-                                   SubgridSpec((4, 4)))
+                                   SubgridSpec((ext, ext)))
 
 
 @pytest.mark.parametrize("config,hanging,match", [
@@ -238,7 +239,9 @@ def test_unknown_boundary_raises():
 
 
 def test_hanging_mesh_raises():
-    s = SubgridCompressibleEulerSolver(_hanging_mesh(),
+    """Hanging faces step at extents 4 and 8 (tests/test_torch_amr.py);
+    on the torch stencil (extents 2 and 16) they raise."""
+    s = SubgridCompressibleEulerSolver(_hanging_mesh(ext=2),
                                        lambda c: kh_planar(c, 2),
                                        device="cpu")
     with pytest.raises(NotImplementedError, match="AMR"):
@@ -263,4 +266,4 @@ def test_import_hygiene():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15     # every module was imported
+    assert int(r.stdout.split()[-1]) >= 16     # every module was imported
