@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
                                          # flagship, fields, logs, order 2
                                          # (cons and prim), mhd,
-                                         # mhd_order2 and amr (device time
+                                         # mhd_order2, amr and ns (device time
                                          # by kernel group, the AMR glue
                                          # apart, idle share);
                                          # tables and traces to DIR
@@ -113,10 +113,35 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    one step in each stage input and flux_divergence
                    (kernel 2 with coarser sides, then outer_fine_apply) on
                    the adapted mesh, each within rtol 2e-5 / atol 2e-6
+  kernel (viscous) the stage kernel's viscous instantiation (mu =
+                   VISC_MU) against its plain version, bit for bit and on
+                   repeat, every stage: at (3, 8, 4374) in kepes on the
+                   state and the log rows, hll and hllc, at (2, 4, 4374)
+                   and (3, 4, 4374) in kepes with extras on sides (0, 3)
+                   and on all; the gravity instantiation alone and the
+                   viscous one with gravity at (3, 8, 4374); each line
+                   with its time, the plain version's, the bound and the
+                   resources per block; a launch with mu = 0 and no
+                   gravity gives the inviscid kernel's bits, whose
+                   resources are printed (111,616 B, no spills)
+  ns               bench.py's bench_ns at full width: the flagship with
+                   EulerConfig(mu=1e-4), dt = compute_timestep(), 10 warm
+                   steps, ms/step as the slope of 10 and 110 steps (median
+                   of three), cell-updates/s, exactly 3 viscous stage
+                   launches per step and no other kernel, a finite state,
+                   mass drift < 1e-5 after 130 steps
+  ns_vs_cpu        one step on the card and on the CPU, each taking its
+                   own viscous timestep (rtol 1e-5 apart), within rtol
+                   2e-5 / atol 2e-6: (a) the periodic 3D extent-8 mesh at
+                   level 2 with "state" and "logs", (b) a walled 2D
+                   extent-4 mesh with moving isothermal no-slip walls, (c)
+                   amr_vs_cpu's mesh after one adapt (hanging faces), (d)
+                   gravity with mu = 0 and with mu > 0, (e) order 2 with
+                   mu > 0 (the MUSCL kernel and the torch stencil)
 Then one JSON line with the seven kernels (the stage kernel's log input,
-hll, hllc and extras as variants of its row, the field-input stage
-kernel's hll, hllc and extras as variants of its row) and, last, the
-device line
+hll, hllc, extras, viscous and gravity instantiations as variants of its
+row, the field-input stage kernel's hll, hllc and extras as variants of
+its row) and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -198,6 +223,24 @@ MHD_GAMMA = 5.0 / 3.0
 LOG_FIELD_OPS, RECOVER_OPS = 20, 6
 INNER_FLUX_OPS, INNER_FACE_OPS = 295, 16
 
+# The stage's Navier-Stokes terms (ops/kernels._tile_viscous_divergence,
+# counted the same way): T from rho and p once per cell and side-layer cell
+# (2: kepes takes 1/(rho/p)); the mask-aware central of a velocity row
+# along an axis, dim^2 per cell (2 differences, 2 masks, 2 products, 2
+# adds, a divide and a product); per interface the normal differences of
+# the 4 rows (4 + 4), the face velocity (2 per axis), the tangent means (4
+# per tangent axis), the divergence, tau (4 for the normal row, 2 per
+# tangent), the work (2 per axis) and heat (2), the weight products and
+# the divergence adds (3 per row); D_adv + D_visc, 5 per cell.  The gravity
+# source: 20 per cell (rho g, m . g, v_cell, 5 products and adds).
+VISC_PHI_OPS, VISC_DT_OPS, VISC_ADD_OPS, GRAVITY_OPS = 2, 10, 5, 20
+
+
+def visc_face_ops(dim):
+    return 8 + 2 * dim + 4 * (dim - 1) + dim + 4 + 2 * (dim - 1) \
+        + 2 * dim + 2 + 3 * (dim + 1)
+
+
 # Sizes of the phases: the kernel shapes (dim, ext, E, live elements), the
 # flagship's and the large case's forest levels, the Orszag-Tang level.
 KERNEL_SHAPES = ((3, 8, 4374, 4096), (3, 4, 4374, 4096), (2, 8, 4374, 4096))
@@ -229,6 +272,16 @@ EXT16_LEVEL = 3
 # subsets besides all 2*dim sides
 EXTRAS_SHAPES = ((3, 8, 4374, 4096), (2, 4, 4374, 4096))
 EXTRAS_SUBSETS = {3: (0, 3, 4), 2: (0, 3)}
+# the viscous and gravity stage: mu and the gravity vector of its kernel
+# lines (a viscous term of the advective one's order, so that the lines
+# test it), the shapes with side extras (sides (0, 3) and all), bench.py's
+# bench_ns (bench.py:214-250: the flagship with EulerConfig(mu=1e-4); 10
+# warm steps), and the ns_vs_cpu cases' mu, gravity and levels
+VISC_MU, VISC_GRAVITY = 3e-3, (0.0, -0.5, 0.25)
+VISC_EXTRAS_SHAPES = ((2, 4, 4374, 4096), (3, 4, 4374, 4096))
+NS_MU, NS_WARM = 1e-4, 10
+NS_CPU_MU, NS_CPU_GRAVITY, NS_CPU_LEVEL_3D, NS_CPU_LEVEL_2D = \
+    1e-3, (0.0, -0.1, 0.0), 2, 4
 # bench.py's bench_amr (bench.py:321-366): the forest level, the AMRConfig,
 # the warm steps, the timed steps, the adapt interval and the prefetch lag;
 # then AMR_TAIL steps per stage input on the last mesh
@@ -242,6 +295,7 @@ AMR_CPU_LEVEL, AMR_CPU_CONFIG = 2, dict(min_level=1, max_level=3,
 # are muscl_pencil.cuh's walk, named by their physics policy; each key
 # matches no other kernel's name
 PROFILE_KEYS = {"fused_rk_stage": "fused_rk_stage_kernel",
+                "fused_rk_stage_viscous": "fused_rk_stage_physics_kernel",
                 "fused_rk_stage_fields": "fused_rk_stage_fields_kernel",
                 "fused_muscl": "Euler", "fused_mhd_flux":
                 "fused_mhd_flux_kernel", "fused_mhd_muscl": "Mhd"}
@@ -310,11 +364,15 @@ def muscl_cost(dim, ext, E, space, flux="kepes"):
     return 4 * (read + write), ops
 
 
-def stage_cost(dim, ext, E, share_prev, flux="kepes", n_extras=0):
+def stage_cost(dim, ext, E, share_prev, flux="kepes", n_extras=0,
+               viscous=False, gravity=False):
     """(bytes, ops) the stage must move and compute: each input read once,
     each output written once; fields once per cell and side-layer cell,
     each interface's flux once; n_extras sides' extras [5, T, E] read once
-    and added once per value."""
+    and added once per value; with `viscous` the viscous weights [8, E]
+    read once and the Navier-Stokes arithmetic (phi once per cell and
+    side-layer cell, the cell centrals once, each interface's viscous
+    flux once), with `gravity` the source per cell."""
     B, T = ext ** dim, ext ** (dim - 1)
     n_state = 5 * B * E
     read = (n_state * (1 if share_prev else 2) + 8 * E
@@ -323,6 +381,14 @@ def stage_cost(dim, ext, E, share_prev, flux="kepes", n_extras=0):
     ops = E * ((B + 2 * dim * T) * STAGE_FIELD_OPS[flux]
                + dim * (ext + 1) * T * (STAGE_FLUX_OPS[flux] + FACE_OPS)
                + B * UPDATE_OPS + n_extras * 5 * T)
+    if viscous:
+        read += 8 * E
+        ops += E * ((B + 2 * dim * T) * VISC_PHI_OPS
+                    + B * dim * dim * VISC_DT_OPS
+                    + dim * (ext + 1) * T * visc_face_ops(dim)
+                    + B * VISC_ADD_OPS)
+    if gravity:
+        ops += E * B * GRAVITY_OPS
     return 4 * (read + write), ops
 
 
@@ -901,6 +967,8 @@ def reset_launches():
         fn.launches = 0
     wrappers["fused_rk_stage"].launches_logs = 0
     wrappers["fused_rk_stage"].launches_extras = 0
+    wrappers["fused_rk_stage"].launches_viscous = 0
+    wrappers["fused_rk_stage"].launches_gravity = 0
     wrappers["fused_rk_stage_fields"].launches_extras = 0
 
 
@@ -908,7 +976,9 @@ def launch_counts() -> dict:
     """Every kernel's launch count, the stage kernel's 7-row launches as
     fused_rk_stage_logs, the two stage kernels' launches with side extras
     (counted in their own counts too) as fused_rk_stage_extras and
-    fused_rk_stage_fields_extras."""
+    fused_rk_stage_fields_extras, the stage kernel's launches with mu > 0
+    and with gravity (counted in its own counts too) as
+    fused_rk_stage_viscous and fused_rk_stage_gravity."""
     wrappers = kernel_wrappers()
     counts = {n: fn.launches for n, fn in wrappers.items()}
     counts["fused_rk_stage_logs"] = wrappers["fused_rk_stage"].launches_logs
@@ -916,6 +986,10 @@ def launch_counts() -> dict:
         wrappers["fused_rk_stage"].launches_extras
     counts["fused_rk_stage_fields_extras"] = \
         wrappers["fused_rk_stage_fields"].launches_extras
+    counts["fused_rk_stage_viscous"] = \
+        wrappers["fused_rk_stage"].launches_viscous
+    counts["fused_rk_stage_gravity"] = \
+        wrappers["fused_rk_stage"].launches_gravity
     return counts
 
 
@@ -1603,17 +1677,20 @@ def phase_kernel_extras():
     return rows
 
 
-def amr_solver(level, config, device=None):
+def amr_solver(level, config, device=None, euler=None):
     """bench_amr's solver: kh_planar on subgrid_manager(Forest.uniform(level,
-    dim=3), Subgrid<8,8,8>, AMRConfig(**config))."""
-    from t8gpu_tpu_torch import (Forest, SubgridCompressibleEulerSolver,
-                                 SubgridSpec, kh_planar)
+    dim=3), Subgrid<8,8,8>, AMRConfig(**config)); `euler`: its
+    EulerConfig (the default one)."""
+    from t8gpu_tpu_torch import (EulerConfig, Forest,
+                                 SubgridCompressibleEulerSolver, SubgridSpec,
+                                 kh_planar)
     from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
     from t8gpu_tpu_torch.utils.config import AMRConfig
     mgr = subgrid_manager(Forest.uniform(level, dim=3),
                           SubgridSpec((8, 8, 8)), AMRConfig(**config))
     return SubgridCompressibleEulerSolver(mgr, lambda c: kh_planar(c, dim=3),
-                                          device=device)
+                                          device=device,
+                                          config=euler or EulerConfig())
 
 
 def check_adapted(name, before, after):
@@ -1811,6 +1888,268 @@ def phase_amr_vs_cpu():
           **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
 
 
+def viscous_weights(seed, dim, E, n_live):
+    """Seeded viscous weights [8, E] on the card (ops/subgrid.
+    viscous_weight_rows' layout): row 0 a cell size h in [0.05, 0.2],
+    rows 1..2*dim equal-level weights 0 or 1 (some sides walls, hanging
+    or dead); guard slots h = 1 and weights 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    wv = np.zeros((8, E), np.float32)
+    wv[0] = rng.uniform(0.05, 0.2, E)
+    for k in range(2 * dim):
+        wv[1 + k] = (rng.uniform(size=E) > 0.2).astype(np.float32)
+    wv[0, n_live:] = 1.0
+    wv[1:, n_live:] = 0.0
+    return torch.from_numpy(wv).cuda()
+
+
+def _bitwise(name, k1, ref):
+    """Raise unless the kernel's result k1 equals its plain version ref
+    bit for bit (`_hold` checks the repeat)."""
+    for a, r in zip(k1, ref):
+        if not torch.equal(a.view(torch.int32), r.view(torch.int32)):
+            raise AssertionError(f"{name} is not bit-identical to its plain "
+                                 f"version (max abs err "
+                                 f"{float((a - r).abs().max()):.3e})")
+
+
+def phase_kernel_viscous():
+    """The stage kernel's viscous and gravity instantiations against the
+    plain version (the docstring's kernel (viscous) lines).  Returns
+    {"viscous": row fields, "gravity": row fields}."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_rk_stage,
+                                             fused_rk_stage_attributes,
+                                             fused_rk_stage_reference)
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+    from t8gpu_tpu_torch.ops.subgrid import append_log_rows
+
+    stages = ((True, STAGE_1), (False, STAGE_2), (False, STAGE_3))
+    no_g = (0.0, 0.0, 0.0)
+    rows = {}
+
+    def hold(label, dim, ext, E, n_live, flux, logs, mu, g, sides=()):
+        u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+        if logs:
+            u, others = (append_log_rows(u, GAMMA),
+                         [append_log_rows(o, GAMMA) for o in others])
+        wv = viscous_weights(dim * 10 + ext, dim, E, n_live)
+        xs = _extras(dim + len(sides), dim, ext, E, n_live, sides)
+        errs, timing = [0.0, 0.0, 0.0], {}
+        for share_prev, coeffs in stages:
+            args = (u, None if share_prev else up, w, others)
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                      extra_sides=sides, extras=xs, viscous_weights=wv,
+                      mu=mu, prandtl=0.72, gravity=g)
+            k1 = fused_rk_stage(*args, **kw)
+            k2 = fused_rk_stage(*args, **kw)
+            ref = fused_rk_stage_reference(*args, **kw)
+            torch.cuda.synchronize()
+            name = f"fused_rk_stage {label} {flux}{' logs' if logs else ''} " \
+                   f"{dim}d ext{ext} sides {sides}"
+            _hold(name, k1, k2, ref, n_live, errs, stage=True)
+            _bitwise(name, k1, ref)
+            if coeffs != STAGE_3:
+                timing[share_prev] = (
+                    cuda_ms(lambda: fused_rk_stage(*args, **kw), reps=20),
+                    cuda_ms(lambda: fused_rk_stage_reference(*args, **kw),
+                            reps=3, warmup=1)) + stage_cost(
+                    dim, ext, E, share_prev, flux, n_extras=len(sides),
+                    viscous=mu > 0, gravity=g != no_g)
+        extra = {"flux": flux, "logs": logs, "dim": dim, "ext": ext,
+                 "sides": str(sides).replace(" ", ""), "bit_identical": True,
+                 "repeat_bit_identical": True}
+        for share_prev in (True, False):
+            extra[f"resources_stage{1 if share_prev else 23}"] = _resources(
+                fused_rk_stage_attributes(dim, ext, flux=flux, logs=logs,
+                                          share_prev=share_prev,
+                                          extras=bool(sides),
+                                          viscous=mu > 0,
+                                          gravity=g != no_g))
+        return _mixed_row(f"fused_rk_stage_{label}"
+                          + ("" if flux == "kepes" and not logs else
+                             f"_{'logs' if logs else flux}"),
+                          errs, timing, extra)
+
+    dim, ext, E, n_live = KERNEL_SHAPES[0]
+    for flux, logs in (("kepes", False), ("kepes", True), ("hll", False),
+                       ("hllc", False)):
+        r = hold("viscous", dim, ext, E, n_live, flux, logs, VISC_MU, no_g)
+        if flux == "kepes" and not logs:
+            rows["viscous"] = r
+    for d, x, e, n in VISC_EXTRAS_SHAPES:
+        for sides in ((0, 3), tuple(range(2 * d))):
+            hold("viscous", d, x, e, n, "kepes", False, VISC_MU, no_g, sides)
+    rows["gravity"] = hold("gravity", dim, ext, E, n_live, "kepes", False,
+                           0.0, VISC_GRAVITY)
+    hold("viscous_gravity", dim, ext, E, n_live, "kepes", False, VISC_MU,
+         VISC_GRAVITY)
+    # mu = 0 and no gravity: the inviscid instantiation (its resources are
+    # the parent's; PERF.md has the A/B), the bits of a launch without the
+    # physics arguments
+    u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+    wv = viscous_weights(dim * 10 + ext, dim, E, n_live)
+    kw = dict(gamma=GAMMA, flux="kepes", coeffs=STAGE_2)
+    got = fused_rk_stage(u, up, w, others, viscous_weights=wv, mu=0.0,
+                         gravity=no_g, **kw)
+    want = fused_rk_stage(u, up, w, others, **kw)
+    for g, h in zip(got, want):
+        if not torch.equal(g.view(torch.int32), h.view(torch.int32)):
+            raise AssertionError("fused_rk_stage: mu = 0 changes the bits")
+    res = {f"{f}_stage{1 if sp else 23}": _resources(
+        fused_rk_stage_attributes(dim, ext, flux=f, share_prev=sp))
+        for f in STAGE_FLUXES for sp in (True, False)}
+    if any("111616Bsmem" not in v or "0Bspill" not in v
+           for v in res.values()):
+        raise AssertionError(f"the inviscid stage's resources moved: {res}")
+    phase("kernel", kernel="fused_rk_stage mu=0", bits_of_inviscid=True,
+          resources=json.dumps(res))
+    return rows
+
+
+def ns_solver(level, device=None, mu=NS_MU, gravity=(0.0, 0.0, 0.0),
+              order=1):
+    """bench_ns's solver (bench.py:214-250): the flagship's mesh and state
+    with EulerConfig(mu=mu)."""
+    from t8gpu_tpu_torch import EulerConfig
+    return flagship_solver(level, device=device, config=EulerConfig(
+        mu=mu, gravity=gravity, order=order))
+
+
+def phase_ns(profile_dir):
+    """bench_ns on the card (the docstring's ns phase).  Returns the
+    stage kernel's viscous launches."""
+    from t8gpu_tpu_torch.ops.kernels import fused_rk_stage
+    solver = ns_solver(FLAGSHIP_LEVEL)        # device=None: the card
+    n_cells = solver.n_elements * solver.spec.size
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep()            # bench_ns: a host float
+    reset_launches()                          # count this path only
+    solver.iterate_many(NS_WARM, dt)
+    slopes = []
+    for i in range(3):
+        t10 = timed_steps(solver, 10, dt)
+        t110 = timed_steps(solver, 110, dt)
+        slopes.append((t110 - t10) / 100 * 1e3)
+        if i == 0:
+            drift = check_state("ns", solver, m0)    # after 130 steps
+    steps = NS_WARM + 3 * 120
+    counts = launch_counts()
+    want = {n: 0 for n in counts}
+    want.update(fused_rk_stage=3 * steps, fused_rk_stage_viscous=3 * steps)
+    if counts != want:
+        raise AssertionError(f"ns: launches {counts}, expected {want}")
+    ms_step = statistics.median(slopes)
+    phase("ns", elements=solver.n_elements, cells=n_cells, mu=NS_MU,
+          steps=steps, launches_per_step=f"{counts['fused_rk_stage'] / steps:.1f}",
+          viscous_launches=counts["fused_rk_stage_viscous"],
+          ms_per_step=f"{ms_step:.4f}", ms_per_step_min=f"{min(slopes):.4f}",
+          ms_per_step_max=f"{max(slopes):.4f}",
+          cell_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
+          mass_drift=f"{drift:.3e}", dt=f"{dt:.6e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "ns",
+                 PROFILE_KEYS["fused_rk_stage_viscous"])
+    return fused_rk_stage.launches_viscous
+
+
+def _step_vs_cpu(name, gpu, cpu, want_counts, steps=1):
+    """`steps` steps on the card and on the CPU from the same state, the
+    timestep taken on each device (rtol 1e-5) and the card's used; the
+    card's launches must be want_counts (others 0).  Returns the share of
+    the tolerance used."""
+    if not torch.equal(gpu.u.cpu(), cpu.u):
+        raise AssertionError(f"{name}: initial states differ")
+    dt, dt_cpu = gpu.compute_timestep(), cpu.compute_timestep()
+    if not abs(dt - dt_cpu) <= 1e-5 * abs(dt_cpu):
+        raise AssertionError(f"{name}: timestep {dt} on the card, {dt_cpu} "
+                             f"on the CPU")
+    reset_launches()
+    gpu.iterate_many(steps, dt)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: 0 for n in counts}
+    want.update({k: v * steps for k, v in want_counts.items()})
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    cpu.iterate_many(steps, dt)
+    return compare(name, torch.from_numpy(gpu.conserved_state()),
+                   torch.from_numpy(cpu.conserved_state()))[2]
+
+
+def phase_ns_vs_cpu():
+    """The docstring's ns_vs_cpu phase.  Returns the stage kernel's gravity
+    launches (case d)."""
+    import numpy as np
+    from t8gpu_tpu_torch import (EulerConfig, Forest,
+                                 SubgridCompressibleEulerSolver, SubgridMesh,
+                                 SubgridSpec, kh_planar)
+    from t8gpu_tpu_torch.ops.subgrid import h1_criteria
+    torch.set_num_threads(os.cpu_count() or 1)
+    used = {}
+    visc = dict(fused_rk_stage=3, fused_rk_stage_viscous=3)
+    # (a) periodic 3D extent 8, the state and the log-row stage inputs
+    for mode in ("state", "logs"):
+        with stage_inputs_mode(mode):
+            want = dict(visc, fused_rk_stage_logs=3, fused_rk_stage=0) \
+                if mode == "logs" else visc
+            used[f"a_{mode}"] = _step_vs_cpu(
+                f"ns_vs_cpu periodic {mode}",
+                ns_solver(NS_CPU_LEVEL_3D, mu=NS_CPU_MU),
+                ns_solver(NS_CPU_LEVEL_3D, device="cpu", mu=NS_CPU_MU), want)
+    # (b) walled 2D extent 4: moving isothermal no-slip walls (their
+    # viscous fluxes ride the side extras)
+    config = EulerConfig(mu=NS_CPU_MU, wall="noslip",
+                         wall_velocity=(0.1, 0.0, 0.0), wall_temperature=1.0)
+    mesh = SubgridMesh.from_forest(
+        Forest.uniform(NS_CPU_LEVEL_2D, dim=2, periodic=False),
+        SubgridSpec((4, 4)))
+    pair = [SubgridCompressibleEulerSolver(mesh, lambda c: kh_planar(c, dim=2),
+                                           config=config, device=d)
+            for d in (None, "cpu")]
+    used["b_noslip"] = _step_vs_cpu("ns_vs_cpu noslip", *pair,
+                                    dict(visc, fused_rk_stage_extras=3))
+    # (c) one adapt on amr_vs_cpu's mesh, then a viscous step (the hanging
+    # faces' viscous fluxes ride the side extras)
+    config = EulerConfig(mu=NS_CPU_MU)
+    gpu = amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG, euler=config)
+    cpu = amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG, device="cpu",
+                     euler=config)
+    dt = gpu.compute_timestep()
+    for s in (gpu, cpu):                      # as amr_vs_cpu, then adapt
+        s.iterate_many(2, dt)
+    crit = h1_criteria(gpu.u, gpu.volumes, gpu.spec).cpu()
+    for s in (gpu, cpu):
+        s.adapt(criteria=crit.numpy())
+    if not (np.array_equal(gpu.manager.forest.level, cpu.manager.forest.level)
+            and any(gpu.conn.has_fine)):
+        raise AssertionError("ns_vs_cpu: the adapt differs or left no "
+                             "hanging faces")
+    cpu.u = gpu.u.cpu()          # the remapped state of the card on both
+    used["c_hanging"] = _step_vs_cpu("ns_vs_cpu hanging", gpu, cpu,
+                                     dict(visc, fused_rk_stage_extras=3))
+    # (d) gravity with mu = 0 (the gravity instantiation) and mu > 0
+    grav = dict(fused_rk_stage=3, fused_rk_stage_gravity=3)
+    for mu in (0.0, NS_CPU_MU):
+        want = dict(grav, fused_rk_stage_viscous=3) if mu > 0 else grav
+        used[f"d_gravity_mu{mu:g}"] = _step_vs_cpu(
+            f"ns_vs_cpu gravity mu={mu:g}",
+            ns_solver(NS_CPU_LEVEL_3D, mu=mu, gravity=NS_CPU_GRAVITY),
+            ns_solver(NS_CPU_LEVEL_3D, device="cpu", mu=mu,
+                      gravity=NS_CPU_GRAVITY), want)
+        if mu == 0.0:
+            gravity_launches = launch_counts()["fused_rk_stage_gravity"]
+    # (e) order 2 with mu > 0: the MUSCL kernel and the torch stencil
+    used["e_order2"] = _step_vs_cpu(
+        "ns_vs_cpu order2", ns_solver(NS_CPU_LEVEL_3D, mu=NS_CPU_MU, order=2),
+        ns_solver(NS_CPU_LEVEL_3D, device="cpu", mu=NS_CPU_MU, order=2),
+        dict(fused_muscl=3))
+    phase("ns_vs_cpu", mu=NS_CPU_MU, gravity=str(NS_CPU_GRAVITY).replace(" ", ""),
+          rtol=RTOL, atol=ATOL, dt_rtol=1e-5,
+          **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
+    return gravity_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1851,6 +2190,9 @@ def main(argv=None) -> int:
     k_extras = phase_kernel_extras()
     amr_extras = phase_amr(args.profile)
     phase_amr_vs_cpu()
+    k_visc = phase_kernel_viscous()
+    ns_launches = phase_ns(args.profile)
+    gravity_launches = phase_ns_vs_cpu()
 
     def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",
@@ -1873,7 +2215,13 @@ def main(argv=None) -> int:
         # 5-row loop and tail and its 7-row tail)
         row("fused_rk_stage_extras", "t8gpu_tpu/ops/pallas_kernels.py:1154",
             amr_extras["state"] + amr_extras["logs"], k_extras["state"],
-            "fused_rk_stage")]
+            "fused_rk_stage")] + [
+        # the viscous divergence (:914, with the ns path's launches) and
+        # the gravity source (:1160, with ns_vs_cpu's mu = 0 launches)
+        row("fused_rk_stage_viscous", "t8gpu_tpu/ops/pallas_kernels.py:914",
+            ns_launches, k_visc["viscous"], "fused_rk_stage_viscous"),
+        row("fused_rk_stage_gravity", "t8gpu_tpu/ops/pallas_kernels.py:1160",
+            gravity_launches, k_visc["gravity"], "fused_rk_stage_gravity")]
     fields = row("fused_rk_stage_fields",
                  "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_launches,
                  k_fields["kepes"], "fused_rk_stage")

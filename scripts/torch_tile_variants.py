@@ -6,8 +6,10 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 scripts/torch_tile_variants.py KERNEL VARIANT [VARIANT ...]
 
 KERNEL is "fields" (the field-input stage kernel, csrc/fused_rk_stage.cu),
-"stage" (the state-input stage kernel, the same source) or "mhd" (the
-first-order GLM-MHD kernel, csrc/fused_mhd_flux.cu).  A VARIANT is "base"
+"stage" (the state-input stage kernel, the same source), "viscous" (its
+viscous instantiation, csrc/fused_rk_stage_viscous.cu, kepes on the
+state, mu = chip_smoke.VISC_MU) or "mhd" (the first-order GLM-MHD kernel,
+csrc/fused_mhd_flux.cu).  A VARIANT is "base"
 (the sources as they are) or items joined by "@@": NAME=VALUE over the
 `constexpr int` tile constants of csrc/ (for example
 FIELDS_SLOTS=256@@FIELDS_SPLIT=1 or MHD_MIN_BLOCKS=3), or OLD=>NEW, a
@@ -42,7 +44,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SOURCE = {"fields": "fused_rk_stage", "stage": "fused_rk_stage",
-          "mhd": "fused_mhd_flux"}
+          "viscous": "fused_rk_stage_viscous", "mhd": "fused_mhd_flux"}
 
 
 def variant_sources(kernel: str, n: int, spec: str) -> pathlib.Path:
@@ -145,6 +147,34 @@ def measure_stage(kernel: str) -> dict:
     return out
 
 
+def measure_viscous() -> dict:
+    """The viscous stage at the flagship shape, kepes on the state:
+    bit-identity (stage 1 and 2, and on repeat), ms per launch at stage 1
+    and 2, resources."""
+    import chip_smoke as cs
+    from t8gpu_tpu_torch.ops import kernels as K
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2
+
+    dim, ext, E, n_live = cs.KERNEL_SHAPES[0]
+    u, up, w, others = cs.stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+    wv = cs.viscous_weights(dim * 10 + ext, dim, E, n_live)
+    out, same = {}, True
+    for prev, coeffs in ((None, STAGE_1), (up, STAGE_2)):
+        kw = dict(gamma=cs.GAMMA, flux="kepes", coeffs=coeffs,
+                  viscous_weights=wv, mu=cs.VISC_MU)
+        k1 = K.fused_rk_stage(u, prev, w, others, **kw)
+        k2 = K.fused_rk_stage(u, prev, w, others, **kw)
+        r = K.fused_rk_stage_reference(u, prev, w, others, **kw)
+        torch.cuda.synchronize()
+        same &= all(_bits(a, b) and _bits(a, c) for a, b, c in zip(k1, k2, r))
+        out[f"stage{1 if prev is None else 23}_ms"] = \
+            f"{cs.cuda_ms(lambda: K.fused_rk_stage(u, prev, w, others, **kw), reps=20):.4f}"
+    out["bit_identical"] = same
+    out["resources"] = cs._resources(K.fused_rk_stage_attributes(
+        dim, ext, viscous=True))
+    return out
+
+
 def measure_mhd() -> dict:
     """The first-order MHD kernel at the Orszag-Tang shape: bit-identity
     (and on repeat), ms per launch."""
@@ -179,8 +209,9 @@ def main(argv=None) -> int:
     libs = build(args.kernel, dirs)
     for spec, lib in zip(args.variants, libs):
         use(args.kernel, lib)
-        got = (measure_mhd() if args.kernel == "mhd"
-               else measure_stage(args.kernel))
+        got = (measure_mhd() if args.kernel == "mhd" else
+               measure_viscous() if args.kernel == "viscous" else
+               measure_stage(args.kernel))
         cs.phase("variant", kernel=args.kernel, spec=spec, **got)
     return 0
 

@@ -86,8 +86,12 @@
 
 namespace t8pencil {
 
+// b^n; a loop, not a recursion, so that a call outside a constant
+// expression (an index in an unrolled loop) inlines and folds.
 __host__ __device__ constexpr int ipow(int b, int n) {
-  return n == 0 ? 1 : b * ipow(b, n - 1);
+  int r = 1;
+  for (int i = 0; i < n; ++i) r *= b;
+  return r;
 }
 
 // Stored row of frame row i in the +A face frame: the normal component is

@@ -22,11 +22,20 @@ forest 2:1 balanced, and remaps the state).
            and a plain torch stage update (ops/rk.ssp_rk3).
 On the CPU each kernel's plain PyTorch version runs instead.
 
+Navier-Stokes (`EulerConfig(mu > 0, prandtl, wall, wall_velocity,
+wall_temperature)`) and the gravity source (`gravity`): on the fused path
+the stage kernel adds the viscous divergence and the source itself, the
+hanging 2:1 and no-slip wall viscous fluxes riding its side extras; the
+other paths add the torch stencil (ops/subgrid_viscous.
+viscous_divergence, viscous_wall_sides) and the source
+(ops/source.with_gravity) to their divergence.  mu > 0 sums the
+diffusive rate into the CFL speed.
+
 The solver runs on CUDA unless the caller passes device="cpu", and raises
 when CUDA is asked for and missing.  The kernels are float32; float64 runs
-only on the CPU.  Viscosity, gravity and farfield boundaries raise
-NotImplementedError when the solver steps, and so do meshes with hanging
-faces at order 2 or on the torch stencil (extents 2 and 16).
+only on the CPU.  Farfield boundaries raise NotImplementedError when the
+solver steps, and so do meshes with hanging faces at order 2 or on the
+torch stencil (extents 2 and 16).
 """
 
 from __future__ import annotations
@@ -43,12 +52,50 @@ from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.ops import rk
 from t8gpu_tpu_torch.ops import subgrid as sg
 from t8gpu_tpu_torch.ops.euler import cfl_sum_speed
+from t8gpu_tpu_torch.ops.source import (has_gravity, volume_from_inverse,
+                                        with_gravity)
+from t8gpu_tpu_torch.ops.subgrid_viscous import (viscous_divergence,
+                                                 viscous_wall_sides)
 from t8gpu_tpu_torch.utils.config import (AMRConfig, EulerConfig,
                                           resolve_device, resolve_dtype)
 
 GUARD_STATE = np.array([1.0, 0.0, 0.0, 0.0, 2.5], np.float32)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def validate_subgrid_bc(config, plain_pointer: str) -> dict:
+    """The boundary and wall options of an EulerConfig, validated and
+    normalised into keyword arguments of the step functions.  The subgrid
+    wall model takes a uniform wall velocity tuple; per-face callables
+    belong to the plain-element path (`plain_pointer` names its solver in
+    the error)."""
+    wv = getattr(config, "wall_velocity", (0.0, 0.0, 0.0))
+    if callable(wv):
+        raise ValueError(
+            "the subgrid path takes a uniform wall_velocity tuple; "
+            f"per-face callables run on the plain-element path "
+            f"({plain_pointer})")
+    wt = getattr(config, "wall_temperature", None)
+    wall = getattr(config, "wall", "slip")
+    b = getattr(config, "boundary", "reflective")
+    ff = getattr(config, "farfield", None)
+    if b == "farfield":
+        if ff is None:
+            raise ValueError("boundary='farfield' needs farfield="
+                             "(rho, vx, vy, vz, p)")
+        if wall == "noslip":
+            raise ValueError("farfield boundaries are open — no-slip "
+                             "walls do not compose with them")
+        ff = tuple(float(x) for x in ff)
+    elif b != "reflective":
+        raise ValueError(f"unknown boundary model: {b!r}")
+    else:
+        ff = None
+    return dict(wall=wall,
+                wall_velocity=tuple(float(x) for x in wv),
+                wall_temperature=None if wt is None else float(wt),
+                farfield=ff)
 
 
 class SubgridCompressibleEulerSolver:
@@ -61,8 +108,9 @@ class SubgridCompressibleEulerSolver:
         (`subgrid_manager`) for dynamic AMR.
     ic: callable mapping cell centers [N*B, dim] -> conservative state
         [5, N*B] (cells in element-major C-order).
-    config: EulerConfig (order 1 or 2); options not ported yet raise
-        NotImplementedError when the solver steps.
+    config: EulerConfig (order 1 or 2; mu, prandtl and the wall model,
+        gravity); farfield boundaries raise NotImplementedError when the
+        solver steps.
     device: "cuda" (the default, also for None), or "cpu" for the plain
         PyTorch path.
     """
@@ -131,6 +179,7 @@ class SubgridCompressibleEulerSolver:
         self.inv_cell_volume = torch.as_tensor(inv).to(self.device)
         self._muscl_w = None      # MUSCL weights, built at first use
         self._face_w = None       # first-order kernels' mesh weights
+        self._visc_w = None       # the stage kernel's viscous weights
         u = u.to(device=self.device, dtype=self.dtype)
         if u.shape[-1] != cap:
             guard = torch.as_tensor(GUARD_STATE, dtype=self.dtype,
@@ -167,6 +216,59 @@ class SubgridCompressibleEulerSolver:
                                            self.volumes)
         return self._face_w
 
+    def _viscous_weights(self) -> torch.Tensor:
+        if self._visc_w is None:
+            self._visc_w = sg.viscous_weight_rows(self.conn, self.spec,
+                                                  self.volumes)
+        return self._visc_w
+
+    def _flux_fn(self, bc: dict):
+        """The (divergence, speed) closure of the non-fused paths (the JAX
+        package's _base_flux_fn): order 1 over ops/subgrid.flux_divergence
+        or order 2 over flux_divergence_muscl, plus the viscous stencil
+        (and the no-slip wall shear) with the diffusive rate summed into
+        the speed when mu > 0, plus the gravity source."""
+        c = self.config
+        if c.order == 1:
+            weights = self._face_weights()
+
+            def flux_fn(v):
+                return sg.flux_divergence(v, self.volumes, self.conn,
+                                          self.spec, c.gamma, c.flux,
+                                          weights=weights)
+        else:
+            limiter = self._sg_limiter()
+            weights = self._muscl_weights()
+
+            def flux_fn(v):
+                return sg.flux_divergence_muscl(v, self.volumes, self.conn,
+                                                self.spec, c.gamma, c.flux,
+                                                limiter=limiter,
+                                                weights=weights)
+        mu, prandtl = float(c.mu), float(c.prandtl)
+        if mu > 0.0:
+            base = flux_fn
+            noslip = bc["wall"] == "noslip" and bool(self.conn.b_groups)
+
+            def flux_fn(v):
+                d, sp = base(v)
+                d = d + viscous_divergence(v, self.volumes, self.conn,
+                                           self.spec, c.gamma, mu, prandtl)
+                if noslip:
+                    ws, wx = viscous_wall_sides(
+                        v, self.volumes, self.conn, self.spec, c.gamma, mu,
+                        prandtl, bc["wall_velocity"], bc["wall_temperature"])
+                    for k, x in zip(ws, wx):
+                        d = sg._slab_add(d, x.reshape(5, -1), k // 2,
+                                         layer_hi=(k % 2 == 0),
+                                         spec=self.spec)
+                return d, sp + sg.viscous_speed(v, self.volumes, self.spec,
+                                                c.gamma, mu, prandtl)
+        if has_gravity(c.gravity):
+            flux_fn = with_gravity(flux_fn, c.gravity,
+                                   volume_from_inverse(self.inv_cell_volume))
+        return flux_fn
+
     def _fused_path(self) -> bool:
         """Order 1 in float32 at a block extent of the stage kernels (4
         or 8) steps through ops/subgrid.ssp_rk3_fused; everything else
@@ -178,33 +280,19 @@ class SubgridCompressibleEulerSolver:
         c = self.config
         if c.boundary == "farfield":
             raise NotImplementedError("farfield boundaries are not ported yet")
+        bc = validate_subgrid_bc(c, "CompressibleEulerSolver")
         if self._fused_path():
-            return sg.ssp_rk3_fused(u, self.volumes, self.conn, self.spec,
-                                    c.gamma, c.flux, dt, self.inv_cell_volume,
-                                    mu=float(c.mu),
-                                    gravity=tuple(c.gravity),
-                                    weights=self._face_weights())[0]
-        if float(c.mu) > 0.0:
-            raise NotImplementedError("viscous (mu > 0) stepping is not "
-                                      "ported yet")
-        if any(float(g) != 0.0 for g in c.gravity):
-            raise NotImplementedError("the gravity source is not ported yet")
-        if c.order == 1:
-            weights = self._face_weights()
-
-            def flux_fn(v):
-                return sg.flux_divergence(v, self.volumes, self.conn,
-                                          self.spec, c.gamma, c.flux,
-                                          weights=weights)
-            return rk.ssp_rk3(u, flux_fn, dt, self.inv_cell_volume)[0]
-        limiter = self._sg_limiter()
-        weights = self._muscl_weights()
-
-        def flux_fn(v):
-            return sg.flux_divergence_muscl(v, self.volumes, self.conn,
-                                            self.spec, c.gamma, c.flux,
-                                            limiter=limiter, weights=weights)
-        return rk.ssp_rk3(u, flux_fn, dt, self.inv_cell_volume)[0]
+            viscous = float(c.mu) > 0.0
+            return sg.ssp_rk3_fused(
+                u, self.volumes, self.conn, self.spec, c.gamma, c.flux, dt,
+                self.inv_cell_volume, mu=float(c.mu),
+                prandtl=float(c.prandtl), wall=bc["wall"],
+                wall_velocity=bc["wall_velocity"],
+                wall_temperature=bc["wall_temperature"],
+                gravity=tuple(c.gravity), weights=self._face_weights(),
+                viscous_weights=self._viscous_weights() if viscous else None
+            )[0]
+        return rk.ssp_rk3(u, self._flux_fn(bc), dt, self.inv_cell_volume)[0]
 
     def iterate(self, dt):
         """One SSP-RK3 step of size dt (a float or a 0-d device tensor)."""
@@ -299,12 +387,15 @@ class SubgridCompressibleEulerSolver:
 
     def compute_timestep_device(self) -> torch.Tensor:
         """CFL timestep as a 0-d device tensor: cfl * h_cell_min over the
-        axis-summed wave speed (ops/euler.cfl_sum_speed)."""
+        axis-summed wave speed (ops/euler.cfl_sum_speed), plus the summed
+        diffusive rate when mu > 0 (ops/subgrid.viscous_speed)."""
         c = self.config
-        if float(c.mu) > 0.0:
-            raise NotImplementedError("the viscous timestep is not ported yet")
         speed = cfl_sum_speed(self.u, c.gamma, self.spec.dim,
                               live=self.volumes > 0)
+        if float(c.mu) > 0.0:
+            speed = speed + sg.viscous_speed(self.u, self.volumes, self.spec,
+                                             c.gamma, float(c.mu),
+                                             float(c.prandtl))
         h_min = 0.5 ** self.mesh.max_level / self.spec.extent
         # cfl * h_min rounded to the state dtype, then one true division
         return torch.full_like(speed, c.cfl * h_min) / speed

@@ -19,6 +19,16 @@ cell's fields derived once, each interface evaluated once (once more at
 a slab boundary; csrc/fused_rk_stage.cu has the details and PERF.md its
 times).
 
+fused_rk_stage with mu > 0 or a gravity vector — the viscous
+(_tile_viscous_divergence, :914) and gravity (:1160-1178) branches of the
+same TPU kernel: csrc/fused_rk_stage_viscous.cu adds the Navier-Stokes
+divergence of the interior and equal-level faces (a pass over whole
+elements in shared memory after the walk) and the gravity source as a
+runtime switch, csrc/fused_rk_stage_gravity.cu the source alone; a
+launch with mu = 0 and no gravity runs the inviscid kernel.  Counted in
+`launches_viscous` and `launches_gravity`.  Bound: the bytes, the
+inviscid stage's plus the viscous weights [8, E].
+
 fused_muscl — replaces fused_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:848): the order-2 MUSCL flux divergence
 of the interior and equal-level mesh faces (per-axis minmod or unlimited
@@ -417,12 +427,31 @@ def _rows(t: torch.Tensor, first: int = 0, n: int = 5) -> tuple:
 # -- the RK-stage kernel -----------------------------------------------------
 
 
+def _check_physics(viscous_weights, mu: float, prandtl: float, gravity,
+                   E: int):
+    """Raise ValueError on viscous or gravity arguments no version of the
+    stage takes; returns (viscous, gravity as a 3-tuple of floats)."""
+    viscous = float(mu) > 0.0
+    g = tuple(float(c) for c in gravity)
+    if len(g) != 3:
+        raise ValueError(f"gravity must have 3 components, got {gravity}")
+    if viscous:
+        shape = None if viscous_weights is None else viscous_weights.shape
+        if shape is None or tuple(shape) != (8, E):
+            raise ValueError(f"mu > 0 needs viscous_weights [8, {E}], got "
+                             f"{shape}")
+        if not float(prandtl) > 0.0:
+            raise ValueError(f"prandtl must be positive, got {prandtl}")
+    return viscous, g
+
+
 def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
                    others, gamma: float, flux: str, coeffs, extra_sides=(),
-                   extras=()):
+                   extras=(), viscous_weights=None, mu: float = 0.0,
+                   prandtl: float = 0.72, gravity=(0.0, 0.0, 0.0)):
     """One SSP-RK stage: (u_next, speed) with
-    u_next = a*u_prev + b*u_stage + c*w[7]*(D(u_stage) + extras) and speed
-    [E] the per-element max interface wave speed.
+    u_next = a*u_prev + b*u_stage + c*w[7]*(D(u_stage) + extras + S) and
+    speed [E] the per-element max interface wave speed.
 
     u_stage: [5, *(ext,)*dim, E], or [7, ...] with rows 5-6 log rho and
     log p (the "logs" input, kepes: the fields are then derived
@@ -434,47 +463,78 @@ def fused_rk_stage(u_stage: torch.Tensor, u_prev, weights: torch.Tensor,
     u_stage), side k = 2*axis + (0 hi, 1 lo); extras: per side of
     extra_sides (increasing) an additive layer [5, *(ext,)*(dim-1), E]
     onto that side's boundary cell layer (the hanging-fine faces of AMR
-    meshes, ops/subgrid.fine_side_extras).  CUDA tensors launch the
-    kernel (a 7-row launch counts in `launches_logs`, a 5-row one in
-    `launches`, a launch with extras in `launches_extras` too), CPU
+    meshes, ops/subgrid.fine_side_extras, and the viscous hanging and
+    no-slip wall fluxes).  mu > 0 adds the Navier-Stokes divergence of
+    the interior and equal-level faces (viscous_weights [8, E],
+    ops/subgrid.viscous_weight_rows: row 0 the cell size h, rows 1+k
+    side k's equal-level weight; prandtl the Prandtl number); a nonzero
+    gravity adds the source S = (0, rho g, m . g) times the cell volume
+    (w[0]^(dim/(dim-1))).  CUDA tensors launch the kernel (a 7-row
+    launch counts in `launches_logs`, a 5-row one in `launches`, a
+    launch with extras in `launches_extras` too, one with mu > 0 in
+    `launches_viscous` and one with gravity in `launches_gravity`), CPU
     tensors run fused_rk_stage_reference."""
     dim, ext, E = _check_stage_shapes(u_stage, u_prev, weights, others, flux,
                                       extra_sides=extra_sides, extras=extras)
+    viscous, g = _check_physics(viscous_weights, mu, prandtl, gravity, E)
     dev = u_stage.device
     if dev.type == "cpu":
-        return fused_rk_stage_reference(u_stage, u_prev, weights, others,
-                                        gamma=gamma, flux=flux, coeffs=coeffs,
-                                        extra_sides=extra_sides,
-                                        extras=extras)
+        return fused_rk_stage_reference(
+            u_stage, u_prev, weights, others, gamma=gamma, flux=flux,
+            coeffs=coeffs, extra_sides=extra_sides, extras=extras,
+            viscous_weights=viscous_weights, mu=mu, prandtl=prandtl,
+            gravity=g)
     if dev.type != "cuda":
         raise ValueError(f"no stage kernel for device {dev}")
-    _check_kernel_inputs(u_stage, u_prev, weights, others, flux, extras)
+    _check_kernel_inputs(u_stage, u_prev, weights, others, flux,
+                         list(extras) + ([viscous_weights] if viscous else []))
+    if viscous and viscous_weights.device != dev:
+        raise ValueError("viscous_weights lie on another device")
 
     logs = u_stage.shape[0] == 7
     out = torch.empty((5,) + u_stage.shape[1:], dtype=u_stage.dtype,
                       device=dev)
     speed = _speed_bits(E, dev)
     a_c, b_c, c_c = (float(x) for x in coeffs)
-    _launch(_stage_library(), "t8_fused_rk_stage", dev,
-            [dim, ext, E, CUDA_FLUXES.index(flux), int(logs),
-             u_stage.data_ptr(),
-             None if u_prev is None else u_prev.data_ptr(),
-             weights.data_ptr(), *_side_pointers(others),
-             *_extras_pointers(extra_sides, extras), out.data_ptr(),
-             speed.data_ptr(), float(gamma), a_c, b_c, c_c],
-            "fused_rk_stage")
+    grav = any(c != 0.0 for c in g)
+    args = [dim, ext, E, CUDA_FLUXES.index(flux), int(logs),
+            u_stage.data_ptr(),
+            None if u_prev is None else u_prev.data_ptr(),
+            weights.data_ptr(), *_side_pointers(others),
+            *_extras_pointers(extra_sides, extras), out.data_ptr(),
+            speed.data_ptr(), float(gamma), a_c, b_c, c_c]
+    if viscous:
+        kappa = float(mu) * gamma / ((gamma - 1.0) * float(prandtl))
+        _launch(_stage_physics_library("viscous"), "t8_fused_rk_stage_viscous",
+                dev, args + [viscous_weights.data_ptr(), float(mu), kappa,
+                             int(grav), *g], "fused_rk_stage")
+    elif grav:
+        _launch(_stage_physics_library("gravity"), "t8_fused_rk_stage_gravity",
+                dev, args + [None, 0.0, 0.0, 1, *g], "fused_rk_stage")
+    else:
+        _launch(_stage_library(), "t8_fused_rk_stage", dev, args,
+                "fused_rk_stage")
     if logs:
         fused_rk_stage.launches_logs += 1
     else:
         fused_rk_stage.launches += 1
     if extras:
         fused_rk_stage.launches_extras += 1
+    if viscous:
+        fused_rk_stage.launches_viscous += 1
+    if grav:
+        fused_rk_stage.launches_gravity += 1
     return out, speed.view(torch.float32)
 
 
 fused_rk_stage.launches = 0
 fused_rk_stage.launches_logs = 0
 fused_rk_stage.launches_extras = 0
+fused_rk_stage.launches_viscous = 0
+fused_rk_stage.launches_gravity = 0
+
+_STAGE_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 17
+                   + [ctypes.c_double] + [ctypes.c_float] * 3)
 
 
 def _stage_library() -> ctypes.CDLL:
@@ -483,21 +543,39 @@ def _stage_library() -> ctypes.CDLL:
     sides' extras, out, speed) and the stream as c_void_p; gamma double,
     coefficients float."""
     return _library("fused_rk_stage", "t8_fused_rk_stage",
-                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 17
-                    + [ctypes.c_double] + [ctypes.c_float] * 3
-                    + [ctypes.c_void_p])
+                    _STAGE_ARGTYPES + [ctypes.c_void_p])
+
+
+def _stage_physics_library(which: str) -> ctypes.CDLL:
+    """The library of the stage's viscous ("viscous": mu > 0, gravity as
+    a runtime switch) or gravity-only ("gravity") instantiations: the
+    stage kernel's arguments, then the viscous weights' pointer, mu and
+    kappa (float), gravity on (int), g_x, g_y, g_z (float) and the
+    stream."""
+    return _library(f"fused_rk_stage_{which}", f"t8_fused_rk_stage_{which}",
+                    _STAGE_ARGTYPES + [ctypes.c_void_p, ctypes.c_float,
+                                       ctypes.c_float, ctypes.c_int]
+                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
 def fused_rk_stage_attributes(dim: int, ext: int, flux: str = "kepes",
                               logs: bool = False, share_prev: bool = True,
-                              extras: bool = False, device: int = 0) -> dict:
+                              extras: bool = False, viscous: bool = False,
+                              gravity: bool = False, device: int = 0) -> dict:
     """The resources of the stage kernel of one case on a card (builds the
     library), as fused_muscl_attributes; `extras`: the instantiation that
-    adds side extras."""
+    adds side extras; `viscous`: the one with the Navier-Stokes divergence
+    (and the runtime gravity switch); `gravity` alone: the inviscid one
+    with the gravity source."""
+    case = [dim, ext, CUDA_FLUXES.index(flux), int(bool(logs)),
+            int(bool(share_prev)), int(bool(extras))]
+    if viscous or gravity:
+        which = "viscous" if viscous else "gravity"
+        return _attributes(_stage_physics_library(which),
+                           f"t8_fused_rk_stage_{which}_attributes", device,
+                           case)
     return _attributes(_stage_library(), "t8_fused_rk_stage_attributes",
-                       device, [dim, ext, CUDA_FLUXES.index(flux),
-                                int(bool(logs)), int(bool(share_prev)),
-                                int(bool(extras))])
+                       device, case)
 
 
 def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
@@ -511,17 +589,156 @@ def _stage_update(u_rows, up_rows, weights, D, coeffs) -> torch.Tensor:
                         for i in range(5)])
 
 
+def _lay_dt(row: torch.Tensor, d: int, inv_h: torch.Tensor) -> torch.Tensor:
+    """Within-layer derivative of a layer row [*(ext,)*(dim-1), E] along
+    layer axis d: central inside, one-sided at the layer borders."""
+    n = row.shape[d]
+    dif = row.narrow(d, 1, n - 1) - row.narrow(d, 0, n - 1)
+    zpad = torch.zeros_like(row.narrow(d, 0, 1))
+    d_hi = torch.cat([dif, zpad], dim=d)
+    d_lo = torch.cat([zpad, dif], dim=d)
+    li = torch.arange(n, device=row.device).reshape(
+        (n,) + (1,) * (row.dim() - 1 - d))
+    w_hi = (li < n - 1).to(row.dtype)
+    w_lo = (li > 0).to(row.dtype)
+    return (d_hi * w_hi + d_lo * w_lo) / (w_hi + w_lo) * inv_h
+
+
+def _tile_viscous_divergence(q, others_q, wv, surface, dim: int, ext: int,
+                             flux: str, mu: float, prandtl: float,
+                             gamma: float) -> list:
+    """The stage's Navier-Stokes divergence rows (a list of 5 [*blk]) to
+    add to the advective divergence: the tile math of the TPU kernel
+    (_tile_viscous_divergence, t8gpu_tpu/ops/pallas_kernels.py:914) over
+    the whole element axis.  q: the cell-field rows [*blk]; others_q: per
+    side the facing layer's field rows [*t_ext, E]; wv [8, E] the viscous
+    weights; surface [E] the interior face area.  The scheme is
+    ops/subgrid_viscous.viscous_divergence's with 1/h taken once and T =
+    1/(rho/p) (kepes) or p/rho (hll/hllc) from the fields."""
+    dtype = q[0].dtype
+    blk = tuple(q[0].shape)
+    kappa = mu * gamma / ((gamma - 1.0) * prandtl)
+    inv_h = 1.0 / wv[0]
+    eq = [wv[1 + k] for k in range(2 * dim)]
+
+    def phi_rows(f):
+        T = 1.0 / f[5] if flux == "kepes" else f[4] / f[0]
+        return (f[1], f[2], f[3], T)
+
+    phi = phi_rows(q)
+    lay = [phi_rows(o) for o in others_q]
+
+    def iota(a):
+        return torch.arange(ext, device=q[0].device).reshape(
+            (ext,) + (1,) * (dim - a))            # broadcasts along axis a
+
+    def cell_dt(r, hi_row, lo_row, w_hi, w_lo, t):
+        # mask-aware central derivative along block axis t; the outward
+        # edge differences use the facing layers, eq-masked
+        d_hi = _shift_next(r, hi_row, t, ext) - r
+        d_lo = r - _shift_prev(r, lo_row, t, ext)
+        it = iota(t)
+        m_hi = torch.where(it == ext - 1, w_hi, 1.0)
+        m_lo = torch.where(it == 0, w_lo, 1.0)
+        return (d_hi * m_hi + d_lo * m_lo) / (m_hi + m_lo) * inv_h
+
+    cell_d = [[cell_dt(phi[j], lay[2 * t][j], lay[2 * t + 1][j],
+                       eq[2 * t], eq[2 * t + 1], t)
+               for j in range(dim)] for t in range(dim)]
+
+    zero_lay = torch.zeros(blk[1:], dtype=dtype, device=q[0].device)
+    D = [torch.zeros(blk, dtype=dtype, device=q[0].device) for _ in range(5)]
+    for a in range(dim):
+        t_axes = [t for t in range(dim) if t != a]
+        hi_lay, lo_lay = lay[2 * a], lay[2 * a + 1]
+        w_hi_f = eq[2 * a] * surface                 # [E] face weights
+        w_lo_f = eq[2 * a + 1] * surface
+        at_end = iota(a) == ext - 1
+        my_hi = [phi[j].select(a, ext - 1) for j in range(4)]
+        my_lo = [phi[j].select(a, 0) for j in range(4)]
+
+        # interfaces i+1/2 (i = ext-1: the hi mesh face)
+        nxt = [_shift_next(phi[j], hi_lay[j], a, ext) for j in range(4)]
+        dn = [(nxt[j] - phi[j]) * inv_h for j in range(4)]
+        v_f = [0.5 * (phi[j] + nxt[j]) for j in range(dim)]
+        face_dt = {}
+        for t in t_axes:
+            d_lay = t_axes.index(t)          # layer axis of tangent axis t
+            rows = {}
+            for j in {t, a}:
+                interior = 0.5 * (cell_d[t][j]
+                                  + _shift_next(cell_d[t][j], zero_lay, a,
+                                                ext))
+                mesh = 0.5 * (_lay_dt(my_hi[j], d_lay, inv_h).unsqueeze(a)
+                              + _lay_dt(hi_lay[j], d_lay, inv_h).unsqueeze(a))
+                rows[j] = torch.where(at_end, mesh, interior)
+            face_dt[t] = rows
+
+        div_f = dn[a] + sum(face_dt[t][t] for t in t_axes)
+        tau = {a: mu * (2.0 * dn[a] - (2.0 / 3.0) * div_f)}
+        for t in t_axes:
+            tau[t] = mu * (dn[t] + face_dt[t][a])
+        work = sum(v_f[j] * tau[j] for j in range(dim))
+        heat = kappa * dn[3]
+        wgt = torch.where(at_end, w_hi_f, surface)
+        f = [torch.zeros(blk, dtype=dtype, device=q[0].device)]
+        for j in range(3):
+            f.append(tau[j] * wgt if j < dim else torch.zeros_like(f[0]))
+        f.append((work + heat) * wgt)
+
+        # the lo mesh face (layer-shaped)
+        dn_lo = [(my_lo[j] - lo_lay[j]) * inv_h for j in range(4)]
+        v_lo = [0.5 * (lo_lay[j] + my_lo[j]) for j in range(dim)]
+        fdt_lo = {}
+        for t in t_axes:
+            d_lay = t_axes.index(t)
+            fdt_lo[t] = {j: 0.5 * (_lay_dt(my_lo[j], d_lay, inv_h)
+                                   + _lay_dt(lo_lay[j], d_lay, inv_h))
+                         for j in {t, a}}
+        div_lo = dn_lo[a] + sum(fdt_lo[t][t] for t in t_axes)
+        tau_lo = {a: mu * (2.0 * dn_lo[a] - (2.0 / 3.0) * div_lo)}
+        for t in t_axes:
+            tau_lo[t] = mu * (dn_lo[t] + fdt_lo[t][a])
+        work_lo = sum(v_lo[j] * tau_lo[j] for j in range(dim))
+        heat_lo = kappa * dn_lo[3]
+        f_lo = [torch.zeros_like(div_lo)]
+        for j in range(3):
+            f_lo.append(tau_lo[j] * w_lo_f if j < dim
+                        else torch.zeros_like(div_lo))
+        f_lo.append((work_lo + heat_lo) * w_lo_f)
+
+        # D_visc[i] += f[i] - f[i-1]; f[-1] is the lo mesh-face flux (the
+        # opposite sign pattern of the advective divergence)
+        for i in range(5):
+            prev = _shift_prev(f[i], f_lo[i], a, ext)
+            D[i] = D[i] + f[i] - prev
+    return D
+
+
+def _cell_volume(surface: torch.Tensor, dim: int) -> torch.Tensor:
+    """The cell volume from the interior face area w[0] (0 on guard
+    slots): s*s in 2D, s*sqrt(s) in 3D."""
+    return surface * surface if dim == 2 else surface * torch.sqrt(surface)
+
+
 def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
                              weights: torch.Tensor, others, gamma: float,
-                             flux: str, coeffs, extra_sides=(), extras=()):
+                             flux: str, coeffs, extra_sides=(), extras=(),
+                             viscous_weights=None, mu: float = 0.0,
+                             prandtl: float = 0.72,
+                             gravity=(0.0, 0.0, 0.0)):
     """Plain PyTorch version of the stage: the tile math of the TPU
-    kernel (_fused_rk_kernel / _tile_flux_divergence) over the whole
-    element axis, for kepes, hll and hllc, from a 5-row state or (kepes)
-    a 7-row state with its log rows, with the side extras.  Same
+    kernel (_fused_rk_kernel / _tile_flux_divergence /
+    _tile_viscous_divergence) over the whole element axis, for kepes, hll
+    and hllc, from a 5-row state or (kepes) a 7-row state with its log
+    rows: D = D_adv + D_visc (mu > 0), the side extras in side order,
+    the gravity source times the cell volume, the update.  Same
     signature and result as fused_rk_stage; runs on any device and
     dtype."""
-    dim, _, _ = _check_stage_shapes(u_stage, u_prev, weights, others, flux,
-                                    extra_sides=extra_sides, extras=extras)
+    dim, ext, E = _check_stage_shapes(u_stage, u_prev, weights, others,
+                                      flux, extra_sides=extra_sides,
+                                      extras=extras)
+    viscous, g = _check_physics(viscous_weights, mu, prandtl, gravity, E)
     logs7 = u_stage.shape[0] == 7
 
     def fields(t):
@@ -530,11 +747,20 @@ def fused_rk_stage_reference(u_stage: torch.Tensor, u_prev,
 
     def iface(l, r):
         return fields_flux(l, r, gamma=gamma, flux=flux)
-    D, speed = _first_order_divergence(fields(u_stage),
-                                       [fields(o) for o in others], weights,
-                                       5, fields_axis_rotate,
+    q = fields(u_stage)
+    others_q = [fields(o) for o in others]
+    D, speed = _first_order_divergence(q, others_q, weights, 5,
+                                       fields_axis_rotate,
                                        flux_axis_unrotate, iface)
+    if viscous:
+        D = D + torch.stack(_tile_viscous_divergence(
+            q, others_q, viscous_weights, weights[0], dim, ext, flux,
+            float(mu), float(prandtl), gamma))
     D = _add_extras(D, extra_sides, extras)
+    if any(c != 0.0 for c in g):
+        from t8gpu_tpu_torch.ops.source import gravity_source
+        D = D + gravity_source(_rows(u_stage), g) * _cell_volume(weights[0],
+                                                                 dim)
     u_next = _stage_update(_rows(u_stage),
                            None if u_prev is None else _rows(u_prev),
                            weights, D, coeffs)

@@ -24,6 +24,12 @@ Counterpart of t8gpu_tpu/ops/subgrid.py, for the solvers' paths:
     fluxes (`boundary_apply`), and update the state with plain torch ops
     (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
 
+Navier-Stokes and gravity: `ssp_rk3_fused` passes mu, the viscous side
+table (`viscous_weight_rows`, once per mesh) and the gravity vector to the
+stage kernel, merges the hanging and no-slip wall viscous fluxes into its
+side extras (ops/subgrid_viscous.merge_viscous_extras) and sums the
+diffusive rate into the returned speed (`viscous_speed`).
+
 AMR meshes (2:1 balanced, coarser and finer neighbours): the order-1 paths
 at extents 4 and 8 take them.  A coarser neighbour's facing layer enters
 the side layers sampled at my resolution (`_coarse_window`); the faces to
@@ -216,6 +222,25 @@ def face_weights(conn, spec: SubgridSpec, volumes: torch.Tensor):
     return torch.stack(rows + [torch.zeros_like(rows[0])])
 
 
+def viscous_weight_rows(conn, spec: SubgridSpec,
+                        volumes: torch.Tensor) -> torch.Tensor:
+    """The stage kernel's viscous side table [8, E] (ops/kernels.
+    fused_rk_stage with mu > 0): row 0 the subgrid cell size h (1.0 on
+    dead slots: it is only used as a reciprocal), rows 1..2*dim the
+    per-side equal-level weights mask*(rel==0), 0 at walls (zero viscous
+    wall flux), at hanging sides and on dead slots; the other rows zero.
+    It depends on the mesh only."""
+    dim = spec.dim
+    h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
+    h_cell = h_e / spec.extent
+    rows = [torch.where(volumes > 0, h_cell, 1.0)]
+    for k in range(2 * dim):
+        rows.append((conn.mask[k] * (conn.rel[k] == 0)).to(volumes.dtype))
+    while len(rows) < 8:
+        rows.append(torch.zeros_like(h_cell))
+    return torch.stack(rows)
+
+
 def with_dt_row(weights: torch.Tensor, dt_inv) -> torch.Tensor:
     """`weights` [8, E] with row 7 replaced by dt_inv [E]."""
     return torch.cat([weights[:7], dt_inv.reshape(1, -1)])
@@ -366,29 +391,55 @@ def fine_side_extras(u: torch.Tensor, conn, spec: SubgridSpec,
             speed)
 
 
+def viscous_speed(u: torch.Tensor, volumes: torch.Tensor, spec: SubgridSpec,
+                  gamma: float, mu: float, prandtl: float) -> torch.Tensor:
+    """The diffusive dt rate as a speed, 2 dim nu / h_min with nu = mu /
+    rho_min * max(1, gamma / prandtl), a 0-d device tensor (no host
+    sync); the callers add it to the wave speed (summed, not maxed)."""
+    dim = spec.dim
+    live = volumes > 0
+    rho_min = torch.where(live, u[0].amin(dim=tuple(range(u.dim() - 2))),
+                          torch.inf).min()
+    h_min = (torch.where(live, volumes, torch.inf).min()
+             ** (1.0 / dim)) / spec.extent
+    # mu / rho_min as one true division (a Python scalar over a tensor
+    # would be a product with the reciprocal)
+    nu = ((torch.full_like(rho_min, float(mu)) / rho_min)
+          * max(1.0, gamma / float(prandtl)))
+    return 2.0 * dim * nu / h_min
+
+
 def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
                   spec: SubgridSpec, gamma: float, flux: str, dt,
                   inv_cell_volume: torch.Tensor, mu: float = 0.0,
-                  farfield=None, gravity=(0.0, 0.0, 0.0), weights=None):
+                  prandtl: float = 0.72, wall: str = "slip",
+                  wall_velocity=(0.0, 0.0, 0.0), wall_temperature=None,
+                  farfield=None, gravity=(0.0, 0.0, 0.0), weights=None,
+                  viscous_weights=None):
     """One SSP-RK3 step, every stage one call of a stage kernel; the side
     layers are regathered between stages.  RK_STAGE_INPUTS, read here,
     selects what the stages read: "state", "logs" (kepes; other fluxes
     take "state") or "fields" (see RK_STAGE_INPUTS).  `dt` may be a 0-d
     device tensor: it enters only through weight row 7, so the step never
     waits for the device.  `weights`: `face_weights`, built once per mesh
-    by the caller (or here).  On meshes with finer neighbours every stage
-    adds the hanging-fine faces as the stage kernel's side extras
+    by the caller (or here); `viscous_weights`: `viscous_weight_rows`, the
+    same.  On meshes with finer neighbours every stage adds the
+    hanging-fine faces as the stage kernel's side extras
     (`fine_side_extras`, from the stage's state in every mode); coarser
-    neighbours ride in the side layers.  Returns (u_next, max wave speed
-    of stage 1 as a 0-d tensor, the hanging faces' included).
+    neighbours ride in the side layers.
+
+    mu > 0 adds the stage kernel's viscous divergence (equal-level
+    faces), with the hanging 2:1 and no-slip wall viscous fluxes merged
+    into the side extras (ops/subgrid_viscous.merge_viscous_extras), and
+    sums the diffusive rate into the returned speed (`viscous_speed`);
+    `gravity` adds the kernel's gravity source.  Either forces the state
+    input ("logs" still applies with kepes): the field-input kernel has
+    neither.  Returns (u_next, max wave speed of stage 1 as a 0-d tensor,
+    the hanging faces' included).
 
     Raises ValueError on an unknown RK_STAGE_INPUTS, and
-    NotImplementedError for what the port does not have yet: viscosity,
-    gravity, farfield boundaries, other extents than 4 and 8."""
-    if float(mu) > 0.0:
-        raise NotImplementedError("viscous (mu > 0) stages are not ported yet")
-    if any(float(c) != 0.0 for c in gravity):
-        raise NotImplementedError("the gravity source is not ported yet")
+    NotImplementedError for what the port does not have yet: farfield
+    boundaries, other extents than 4 and 8."""
     if farfield is not None:
         raise NotImplementedError("farfield boundaries are not ported yet")
     mode = RK_STAGE_INPUTS
@@ -398,13 +449,27 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     if not can_fuse_rk(conn, spec):
         raise NotImplementedError(
             f"the stage kernels take extents 4 and 8, not {spec.extent}")
+    viscous = float(mu) > 0.0
+    grav = tuple(float(c) for c in gravity)
+    has_grav = any(c != 0.0 for c in grav)
+    use_fields = mode == "fields" and not viscous and not has_grav
     use_logs = mode == "logs" and flux == "kepes"
     if weights is None:
         weights = face_weights(conn, spec, volumes)
+    if viscous and viscous_weights is None:
+        viscous_weights = viscous_weight_rows(conn, spec, volumes)
     dt_inv = dt * inv_cell_volume
     w = with_dt_row(weights, dt_inv)
 
     any_fine = any(conn.has_fine)
+    any_hang = any_fine or any(conn.has_coarse)
+    noslip = viscous and wall == "noslip" and bool(conn.b_groups)
+    physics = {}
+    if viscous:
+        physics = dict(viscous_weights=viscous_weights, mu=float(mu),
+                       prandtl=float(prandtl))
+    if has_grav:
+        physics["gravity"] = grav
 
     def stage(u_stage, u_prev, coeffs):
         sides, extras, sp_f = ((), (), None)
@@ -412,7 +477,13 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
             with torch.profiler.record_function(AMR_GLUE_RANGE):
                 sides, extras, sp_f = fine_side_extras(u_stage, conn, spec,
                                                        volumes, gamma, flux)
-        if mode == "fields":
+        if viscous and (any_hang or noslip):
+            from t8gpu_tpu_torch.ops.subgrid_viscous import \
+                merge_viscous_extras
+            sides, extras = merge_viscous_extras(
+                sides, extras, u_stage, volumes, conn, spec, gamma, mu,
+                prandtl, wall, wall_velocity, wall_temperature)
+        if use_fields:
             q = torch.stack(cell_fields_tuple(u_stage, gamma, flux))
             others, w_q = pallas_side_inputs(q, conn, spec, volumes,
                                              dt_inv=dt_inv, weights=weights)
@@ -426,7 +497,8 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
             others = _state_side_layers(u_stage, conn, spec, volumes)
             u_n, sp = fused_rk_stage(u_stage, u_prev, w, others, gamma=gamma,
                                      flux=flux, coeffs=coeffs,
-                                     extra_sides=sides, extras=extras)
+                                     extra_sides=sides, extras=extras,
+                                     **physics)
         return u_n, sp, sp_f
 
     # stage 1: u_prev == u, passed as None so the kernel reads ONE state
@@ -434,7 +506,11 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     u2 = stage(u1, u, STAGE_2)[0]
     u3 = stage(u2, u, STAGE_3)[0]
     sp = sp.max()
-    return u3, sp if sp_f is None else torch.maximum(sp, sp_f)
+    if sp_f is not None:
+        sp = torch.maximum(sp, sp_f)
+    if viscous:
+        sp = sp + viscous_speed(u, volumes, spec, gamma, mu, prandtl)
+    return u3, sp
 
 
 def _slab_add(D: torch.Tensor, contrib: torch.Tensor, axis: int,

@@ -1,12 +1,12 @@
 """Runtime configuration (counterpart of t8gpu_tpu/utils/config.py).
 
-`EulerConfig` carries the JAX package's fields that this slice reads,
-with the same names and defaults, so that one configuration means the
-same run in both packages.  The solver raises `NotImplementedError` for
-the values whose paths are not ported yet (mu > 0, gravity, farfield
-boundaries).  The other fields of the JAX package's config (prandtl, the
-no-slip wall model) come with the slices that read them.  `AMRConfig` is
-the JAX package's, field for field.
+`EulerConfig` carries the JAX package's fields that the port reads, with
+the same names and defaults, so that one configuration means the same run
+in both packages: the Navier-Stokes terms (mu, prandtl), the viscous wall
+model (wall, a uniform wall_velocity tuple, wall_temperature) and the
+gravity source among them.  The solver raises `NotImplementedError` for
+farfield boundaries, whose path is not ported yet.  `AMRConfig` is the
+JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -56,6 +56,18 @@ class EulerConfig:
     # suffix ("bj-prim") reconstructs in primitive space (kepes only).
     limiter: str = "bj"
     mu: float = 0.0                    # dynamic viscosity
+    # Prandtl number: thermal conductivity kappa = mu*cp/Pr, cp =
+    # gamma/(gamma-1) (R = 1).
+    prandtl: float = 0.72
+    # Viscous wall model (mu > 0 only): "slip" (free-slip adiabatic, zero
+    # viscous wall flux) or "noslip" (one-sided wall shear).
+    wall: str = "slip"
+    # Velocity of no-slip walls, a uniform (vx, vy, vz) tuple (the
+    # tangential projection acts; the normal component is dropped).
+    wall_velocity: tuple = (0.0, 0.0, 0.0)
+    # No-slip wall thermal condition: None adiabatic, a float the
+    # isothermal wall temperature (T = p/rho units).
+    wall_temperature: float = None
     boundary: str = "reflective"       # or "farfield"
     farfield: tuple = None             # exterior (rho, vx, vy, vz, p)
 

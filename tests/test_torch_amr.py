@@ -22,8 +22,9 @@
     `adapt_prefetch` + `adapt` bit for bit `adapt`.
 
 Tolerance rtol 2e-5, atol 2e-6 (tests/test_pallas.py's), unless a line
-says otherwise.  The JAX side runs op by op, and the tests share two
-adapted meshes, so that each primitive compiles once.
+says otherwise.  The JAX side runs op by op (its solver's steps through
+`solver_steps`, the divergence closure compiled once per mesh), and the
+tests share two adapted meshes, so that each primitive compiles once.
 """
 
 import functools
@@ -57,7 +58,7 @@ from t8gpu_tpu_torch.ops.rk import STAGE_2
 from t8gpu_tpu_torch.utils.config import AMRConfig
 from tests.torch_port_inputs import (GAMMA, noisy_kh, random_state,
                                      stage_inputs)
-from tests.torch_port_jax import interpret, op_by_op
+from tests.torch_port_jax import interpret, op_by_op, solver_steps
 
 torch.set_num_threads(1)
 
@@ -307,8 +308,9 @@ SCHEDULE = {"kh": (3, 3, 3), "noisy3d": (0, 1)}
 
 @functools.lru_cache(maxsize=None)
 def _jax_run(case):
-    """The JAX solver's run on the CPU, op by op: per cycle (dt, forest
-    levels and anchors, conserved state after its steps and adapt)."""
+    """The JAX solver's run on the CPU, op by op, its steps through
+    `solver_steps`: per cycle (dt, forest levels and anchors, conserved
+    state after its steps and adapt)."""
     dim, level, ext, amr, ic = SOLVER_CASES[case]
     out = []
     with op_by_op():
@@ -319,8 +321,9 @@ def _jax_run(case):
         steps = SCHEDULE[case]
         for i, n in enumerate(steps):
             dt = s.compute_timestep()
-            for _ in range(n):
-                s.iterate(dt)
+            if n:
+                with jax.disable_jit(False):
+                    solver_steps(s, n, dt)
             if i < len(steps) - 1:
                 s.adapt()
             out.append((dt, np.array(mgr.forest.level),

@@ -939,3 +939,178 @@ def test_cuda_adapt_prefetch_matches_adapt(cuda):
     a, b = solvers
     assert np.array_equal(a.manager.forest.anchor, b.manager.forest.anchor)
     assert _bits_equal(a.u, b.u)
+
+
+# -- the stage kernel's viscous and gravity instantiations ---------------------
+
+VISC_MU, VISC_GRAVITY = 3e-3, (0.0, -0.5, 0.25)
+
+
+def _viscous_weights(seed, dim, E, n_guard, dev):
+    """Seeded viscous weights [8, E] (row 0 h, rows 1+k 0/1 side
+    weights), guard slots h = 1 and weights 0."""
+    rng = np.random.default_rng(seed)
+    wv = np.zeros((8, E), np.float32)
+    wv[0] = rng.uniform(0.05, 0.2, E)
+    for k in range(2 * dim):
+        wv[1 + k] = (rng.uniform(size=E) > 0.2).astype(np.float32)
+    wv[0, E - n_guard:] = 1.0
+    wv[1:, E - n_guard:] = 0.0
+    return torch.from_numpy(wv).to(dev)
+
+
+def _physics_case(dev, dim, ext, E, n_guard, logs, seed=3):
+    u, up, w, others = stage_inputs(seed + dim + ext, dim, ext, E, n_guard)
+    u, up, w = (torch.from_numpy(a).to(dev) for a in (u, up, w))
+    others = [torch.from_numpy(o).to(dev) for o in others]
+    if logs:
+        u = tsg.append_log_rows(u, GAMMA)
+        others = [tsg.append_log_rows(o, GAMMA) for o in others]
+    return u, up, w, others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux,logs", [("kepes", False), ("kepes", True),
+                                       ("hll", False), ("hllc", False)])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_viscous_stage_matches_reference(cuda, dim, ext, flux, logs):
+    """The viscous instantiation (mu > 0, gravity off and on, no extras,
+    sides (0, 3) and all sides) in every stage, bit for bit against its
+    plain version and on repeat, counted in launches_viscous; no
+    spills."""
+    E, n_guard = 1000, 37
+    u, up, w, others = _physics_case(cuda, dim, ext, E, n_guard, logs)
+    wv = _viscous_weights(dim * 10 + ext, dim, E, n_guard, cuda)
+    rng = np.random.default_rng(dim + ext)
+    for sides in ((), (0, 3), tuple(range(2 * dim))):
+        xs = [torch.from_numpy(rng.uniform(
+            -0.05, 0.05, (5,) + (ext,) * (dim - 1) + (E,)).astype(
+                np.float32)).to(cuda) for _ in sides]
+        for g in ((0.0, 0.0, 0.0), VISC_GRAVITY):
+            for share_prev, coeffs in STAGES:
+                prev = None if share_prev else up
+                kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                          extra_sides=sides, extras=xs, viscous_weights=wv,
+                          mu=VISC_MU, prandtl=0.72, gravity=g)
+                before = fused_rk_stage.launches_viscous
+                k1 = fused_rk_stage(u, prev, w, others, **kw)
+                k2 = fused_rk_stage(u, prev, w, others, **kw)
+                assert fused_rk_stage.launches_viscous == before + 2
+                ref = fused_rk_stage_reference(u, prev, w, others, **kw)
+                torch.cuda.synchronize()
+                for a, b, r in zip(k1, k2, ref):
+                    assert _bits_equal(a, b) and _bits_equal(a, r)
+                assert bool(torch.isfinite(k1[0]).all())
+    for share_prev in (True, False):
+        for extras in (False, True):
+            res = fused_rk_stage_attributes(dim, ext, flux=flux, logs=logs,
+                                            share_prev=share_prev,
+                                            extras=extras, viscous=True)
+            assert res["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_gravity_stage_matches_reference(cuda, dim, ext, flux):
+    """The gravity instantiation (mu = 0), with and without extras, in
+    every stage, bit for bit against its plain version and on repeat,
+    counted in launches_gravity; a launch with mu = 0 and no gravity
+    gives the bits of one without these arguments (the inviscid
+    instantiation, whose resources stay those of the uniform kernel)."""
+    E, n_guard = 1000, 37
+    u, up, w, others = _physics_case(cuda, dim, ext, E, n_guard, False)
+    wv = _viscous_weights(dim * 10 + ext, dim, E, n_guard, cuda)
+    xs = [torch.from_numpy(np.full((5,) + (ext,) * (dim - 1) + (E,), 0.01,
+                                   np.float32)).to(cuda) for _ in (0, 3)]
+    for sides, extras in (((), []), ((0, 3), xs)):
+        for share_prev, coeffs in STAGES:
+            prev = None if share_prev else up
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                      extra_sides=sides, extras=extras, gravity=VISC_GRAVITY)
+            before = fused_rk_stage.launches_gravity
+            k1 = fused_rk_stage(u, prev, w, others, **kw)
+            k2 = fused_rk_stage(u, prev, w, others, **kw)
+            assert fused_rk_stage.launches_gravity == before + 2
+            ref = fused_rk_stage_reference(u, prev, w, others, **kw)
+            torch.cuda.synchronize()
+            for a, b, r in zip(k1, k2, ref):
+                assert _bits_equal(a, b) and _bits_equal(a, r)
+    kw = dict(gamma=GAMMA, flux=flux, coeffs=STAGE_2)
+    before = (fused_rk_stage.launches_viscous, fused_rk_stage.launches_gravity)
+    got = fused_rk_stage(u, up, w, others, viscous_weights=wv, mu=0.0,
+                         gravity=(0.0, 0.0, 0.0), **kw)
+    want = fused_rk_stage(u, up, w, others, **kw)
+    assert before == (fused_rk_stage.launches_viscous,
+                      fused_rk_stage.launches_gravity)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+    for share_prev in (True, False):
+        res = fused_rk_stage_attributes(dim, ext, flux=flux,
+                                        share_prev=share_prev, gravity=True)
+        assert res["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [4, 8])
+def test_cuda_viscous_stage_conserves_mesh_faces(cuda, ext):
+    """The viscous stage on a periodic Forest.uniform(2) in 3D with the
+    real side layers and viscous weights, coefficients (0, 0, 1) and w[7]
+    = 1 (it returns D): both elements of a mesh face assemble the same
+    viscous flux, so the sum of D over all cells vanishes per row to
+    float32 round-off; the plain version's bits."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(2, dim=3, periodic=True),
+                                   SubgridSpec((ext,) * 3))
+    s = SubgridCompressibleEulerSolver(mesh, _smooth_ic(3, 41 + ext, False))
+    w = tsg.face_weights(s.conn, s.spec, s.volumes).clone()
+    w[7] = 1.0
+    wv = tsg.viscous_weight_rows(s.conn, s.spec, s.volumes)
+    others = tsg._state_side_layers(s.u, s.conn, s.spec, s.volumes)
+    kw = dict(gamma=GAMMA, flux="kepes", coeffs=(0.0, 0.0, 1.0),
+              viscous_weights=wv, mu=0.05, prandtl=0.72)
+    kd, ksp = fused_rk_stage(s.u, None, w, others, **kw)
+    rd, rsp = fused_rk_stage_reference(s.u, None, w, others, **kw)
+    inviscid, _ = fused_rk_stage(s.u, None, w, others, gamma=GAMMA,
+                                 flux="kepes", coeffs=(0.0, 0.0, 1.0))
+    torch.cuda.synchronize()
+    assert not torch.equal(kd, inviscid)
+    d = kd.double().reshape(5, -1)
+    total, scale = d.sum(dim=1).abs(), d.abs().sum(dim=1)
+    assert bool((total <= 1e-6 * scale).all()), (total, scale)
+    assert _bits_equal(kd, rd) and _bits_equal(ksp, rsp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,level,ext,periodic,kw", [
+    (3, 1, 8, True, dict(mu=1e-3)),
+    (2, 3, 4, False, dict(mu=1e-3, wall="noslip",
+                          wall_velocity=(0.1, 0.0, 0.0),
+                          wall_temperature=1.0)),
+    (3, 1, 4, False, dict(gravity=(0.0, -0.5, 0.0))),
+    (2, 3, 8, True, dict(mu=1e-3, gravity=(0.2, -0.5, 0.0), flux="hll")),
+    (3, 1, 8, True, dict(mu=1e-3, order=2)),
+    (2, 2, 16, True, dict(mu=1e-3))],
+    ids=["periodic", "noslip", "gravity", "hll-gravity", "order2", "ext16"])
+def test_cuda_viscous_solver_matches_cpu(cuda, dim, level, ext, periodic, kw):
+    """Three steps with viscosity, no-slip walls or gravity on the card
+    against the CPU, the viscous timestep of both within rtol 1e-5; the
+    fused path steps through the viscous or gravity instantiation."""
+    mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=dim,
+                                                  periodic=periodic),
+                                   SubgridSpec((ext,) * dim))
+    config = EulerConfig(**kw)
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 7), config=config)
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 7), config=config,
+                                         device="cpu")
+    dt = cpu.compute_timestep()
+    np.testing.assert_allclose(gpu.compute_timestep(), dt, rtol=1e-5)
+    before = (fused_rk_stage.launches_viscous, fused_rk_stage.launches_gravity)
+    gpu.iterate_many(3, dt)
+    cpu.iterate_many(3, dt)
+    fused = config.order == 1 and ext in (4, 8)
+    viscous = fused and config.mu > 0
+    gravity = fused and any(c != 0 for c in config.gravity)
+    assert fused_rk_stage.launches_viscous == before[0] + 9 * viscous
+    assert fused_rk_stage.launches_gravity == before[1] + 9 * gravity
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)

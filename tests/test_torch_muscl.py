@@ -13,11 +13,10 @@
     (kernel_mode() == "off", muscl_core) on periodic and walled meshes;
 (d) the order-2 solver, 3 steps from the same state against the JAX
     solver (rtol 2e-5, atol 2e-6), mass conservation and bitwise repeats.
-The JAX side of (c) and (d) runs op by op (tests/torch_port_jax
-`op_by_op`), as in
-tests/test_torch_solver.py: the same arithmetic, compiled one primitive
-at a time on one core instead of one large multi-threaded XLA compile
-per case; (d) reuses the primitives (c) compiled.
+The JAX side of (c) runs op by op (tests/torch_port_jax `op_by_op`): the
+same arithmetic, compiled one primitive at a time on one core instead of
+one large multi-threaded XLA compile per case; (d) steps the JAX solver
+through `solver_steps`, its divergence closure compiled once per case.
 The CUDA kernel itself is held against the plain version in
 tests/test_torch_cuda.py (card only).
 """
@@ -51,7 +50,8 @@ from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops.kernels import fused_muscl, fused_muscl_reference
 from t8gpu_tpu_torch.utils.config import EulerConfig
 from tests.torch_port_inputs import GAMMA, muscl_inputs, noisy_kh, random_state
-from tests.torch_port_jax import NO_BACKEND_OPT, interpret, op_by_op
+from tests.torch_port_jax import (NO_BACKEND_OPT, interpret, op_by_op,
+                                  solver_steps)
 
 torch.set_num_threads(1)
 
@@ -359,9 +359,8 @@ SOLVER_CASES = [  # (dim, level, ext, periodic, limiter)
 def test_solver_order2_matches_jax(dim, level, ext, periodic, limiter):
     config = dict(order=2, limiter=limiter)
     js, ts = _pair(dim, level, ext, periodic, 30 + dim, config)
-    with op_by_op():
-        dt = js.compute_timestep()
-        js.iterate_many(3, dt)
+    dt = js.compute_timestep()
+    solver_steps(js, 3, dt)
     ts.iterate_many(3, dt)
     np.testing.assert_allclose(ts.conserved_state(), js.conserved_state(),
                                rtol=RTOL, atol=ATOL)

@@ -192,3 +192,20 @@ def noisy_orszag_tang(seed):
              b0 * np.sin(4 * np.pi * x) + noise(0.05), noise(0.05))
         return mhd_state(rho, v, p, B, psi=noise(0.05), gamma=MHD_GAMMA)
     return ic
+
+
+def wavy_ic(c, gamma=GAMMA):
+    """A smooth state that exercises every stress component of the
+    viscous terms (tests/test_subgrid_viscous_kernel.py's wavy_ic):
+    centers [N, dim] -> conservative rows [5, N]."""
+    dim = c.shape[1]
+    x, y = c[:, 0], c[:, 1]
+    z = c[:, 2] if dim == 3 else np.zeros_like(x)
+    rho = 1.0 + 0.1 * np.sin(2 * np.pi * x) * np.cos(2 * np.pi * z)
+    vx = 0.2 * np.sin(2 * np.pi * y)
+    vy = 0.1 * np.cos(2 * np.pi * x)
+    vz = (0.05 * np.sin(2 * np.pi * x)) if dim == 3 else np.zeros_like(x)
+    p = 1.0 + 0.05 * np.cos(2 * np.pi * y)
+    e = p / (gamma - 1) + 0.5 * rho * (vx**2 + vy**2 + vz**2)
+    return np.stack([rho, rho * vx, rho * vy, rho * vz, e]).astype(
+        np.float32)
