@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
                                          # flagship, fields, logs, order 2
                                          # (cons and prim), mhd,
-                                         # mhd_order2, amr and ns (device time
+                                         # mhd_order2, amr, ns and
+                                         # farfield (device time
                                          # by kernel group, the AMR glue
                                          # apart, idle share);
                                          # tables and traces to DIR
@@ -33,10 +34,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    whole-wave time too), then the stage kernel's 7-row log
                    input, the field-input divergence kernel and the
                    field-input stage kernel (at the stage kernel's shapes;
-                   the stage in kepes, hll and hllc, one line each, with
-                   its resources and a whole-wave time) and the inner-only
-                   kernel (Subgrid<16,16,16> with 512 live elements, and
-                   2D extent 16, 3D extents 2 and 4; its resources and a
+                   each in kepes, hll and hllc, one line each, the stage
+                   with its resources and a whole-wave time) and the
+                   inner-only kernel (kepes, hll and hllc, one line each;
+                   Subgrid<16,16,16> with 512 live elements, and 2D extent
+                   16, 3D extents 2 and 4; its resources and, in kepes, a
                    whole-wave time)
   flagship         the main path: 3D KH, Forest.uniform(4), Subgrid<8,8,8>
                    (4096 elements, 2.1M cells), KEPES, SSP-RK3, stepped by
@@ -55,15 +57,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    CPU from the same state, and one "fields" step with
                    EulerConfig(flux="hll") and one with "hllc": 3 launches
                    of the mode's kernel per step, none of any other
-  divergence       ops/subgrid.flux_divergence at the flagship's state: one
-                   field-input divergence launch per call, against the torch
-                   stencil (use_kernel=False) on the card and the CPU; ms
-                   per call
+  divergence       ops/subgrid.flux_divergence at the flagship's state in
+                   kepes, hll and hllc (one line each): one field-input
+                   divergence launch per call, against the torch stencil
+                   (use_kernel=False) on the card (kepes also the CPU); ms
+                   per call; then one line with open boundaries (hllc,
+                   farfield=FARFIELD on the farfield phase's mesh and
+                   state) against the stencil and the CPU
   ext16            the order-1 solver on Forest.uniform(3, dim=3) with
                    Subgrid<16,16,16> (512 elements, 2.1M cells) on the torch
                    stencil path: ms/step, mass drift; and
-                   flux_divergence(use_kernel=True) there, one inner-only
-                   kernel launch per call, against use_kernel=False
+                   flux_divergence(use_kernel=True) there in kepes, hll and
+                   hllc, one inner-only kernel launch per call, against
+                   use_kernel=False
   large            the same at Forest.uniform(5): 32768 elements, 16.8M cells
   hll, hllc        the flagship at order 1 with EulerConfig(flux="hll" /
                    "hllc"): every stage one stage-kernel launch; ms/step (slope
@@ -138,10 +144,29 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    amr_vs_cpu's mesh after one adapt (hanging faces), (d)
                    gravity with mu = 0 and with mu > 0, (e) order 2 with
                    mu > 0 (the MUSCL kernel and the torch stencil)
+  farfield         open boundaries at full width: Forest.uniform(4, dim=3,
+                   periodic=False) (the flagship's 4096 elements, 2.1M
+                   cells, walls on all six faces made open), Subgrid<8,8,8>,
+                   EulerConfig(flux="hllc", boundary="farfield",
+                   farfield=FARFIELD), order 1, stage input "state", the
+                   free stream plus a Gaussian bump, dt =
+                   compute_timestep(): ms/step as the slope of 10 and 110
+                   steps (median of three), cell-updates/s, exactly 3 stage
+                   launches per step and no other kernel, a finite state,
+                   max |u - the farfield state| before and after; a uniform
+                   farfield state kept within 1e-5 over 10 steps (no mass
+                   check: open boundaries do not conserve mass)
+  farfield_vs_cpu  one step on open boundaries on the card and on the CPU,
+                   within rtol 2e-5 / atol 2e-6, on Forest.uniform(2, dim=3,
+                   periodic=False) x Subgrid<8,8,8> from a noisy KH state:
+                   "state" in kepes, hll and hllc, "logs", "fields" (hllc),
+                   order 2, mu > 0, gravity, and amr_vs_cpu's forest walled
+                   and adapted once (hllc from here on)
 Then one JSON line with the seven kernels (the stage kernel's log input,
 hll, hllc, extras, viscous and gravity instantiations as variants of its
 row, the field-input stage kernel's hll, hllc and extras as variants of
-its row) and, last, the device line
+its row, the hll and hllc fluxes of the field-input divergence and the
+inner-only kernel as variants of theirs) and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -221,7 +246,13 @@ MHD_GAMMA = 5.0 / 3.0
 # states 64 with their four logs, the dissipation 113) per interior face,
 # 295, plus 5 weight products, 10 divergence adds and a max.
 LOG_FIELD_OPS, RECOVER_OPS = 20, 6
-INNER_FLUX_OPS, INNER_FACE_OPS = 295, 16
+INNER_FACE_OPS = 16
+# its hll flux (ops/euler.hll_flux) per interface: the primitives, h, c
+# and sqrt(rho) of both states (24 each), _roe_speeds 33 and the HLL
+# combination 57; hllc: cell_fields_tuple("hllc") of both states (21
+# each) and hllc_fields_flux as the stage's 166
+INNER_FLUX_OPS = {"kepes": 295, "hll": 2 * 24 + 33 + 57,
+                  "hllc": 2 * HLL_FIELD_OPS + 166}
 
 # The stage's Navier-Stokes terms (ops/kernels._tile_viscous_divergence,
 # counted the same way): T from rho and p once per cell and side-layer cell
@@ -291,6 +322,12 @@ AMR_WARM, AMR_STEPS, AMR_EVERY, AMR_LAG, AMR_TAIL = 50, 300, 50, 5, 10
 # amr_vs_cpu: a smaller forest, one adapt on both devices
 AMR_CPU_LEVEL, AMR_CPU_CONFIG = 2, dict(min_level=1, max_level=3,
                                         refine_threshold=0.02)
+# open boundaries: the exterior state (rho, vx, vy, vz, p) of the JAX
+# package's farfield configuration (tests/test_farfield.py: flux hllc), the
+# farfield phase on the flagship's forest walled on all six faces, and the
+# walled forest level of farfield_vs_cpu
+FARFIELD = (1.0, 0.5, 0.0, 0.0, 1.0)
+FF_CPU_LEVEL = 2
 # what the profiler's name of a path's kernel contains: the MUSCL kernels
 # are muscl_pencil.cuh's walk, named by their physics policy; each key
 # matches no other kernel's name
@@ -438,13 +475,14 @@ def fields_cost(dim, ext, E, rk, share_prev, flux="kepes", n_extras=0):
     return 4 * (read + write), ops
 
 
-def inner_cost(dim, ext, E):
+def inner_cost(dim, ext, E, flux="kepes"):
     """(bytes, ops) of the inner-only kernel: u and the per-element face
     area read once, D and the scalar speed written once; each interior
     face's state-form flux once."""
     B, T = ext ** dim, ext ** (dim - 1)
     nbytes = 4 * (5 * B * E + E + 5 * B * E + 1)
-    return nbytes, E * dim * (ext - 1) * T * (INNER_FLUX_OPS + INNER_FACE_OPS)
+    return nbytes, E * dim * (ext - 1) * T * (INNER_FLUX_OPS[flux]
+                                              + INNER_FACE_OPS)
 
 
 def mhd_kernel_shapes():
@@ -821,33 +859,43 @@ def _field_inputs(seed, dim, ext, E, n_live, flux="kepes"):
 
 
 def phase_kernel_fields():
-    """The field-input divergence kernel (kepes) and the field-input stage
-    kernel (kepes, hll and hllc; three stage-coefficient sets) against
+    """The field-input divergence kernel and the field-input stage kernel
+    (three stage-coefficient sets), each in kepes, hll and hllc, against
     their plain versions at the stage kernel's shapes, on the fields of
-    seeded states; timed at the flagship shape, the stage per flux (stage
-    1 and stages 2-3) with the resources of those instantiations and, in
-    kepes, a time at FIELDS_WAVE_E elements (whole waves of blocks).
-    Returns (the divergence's row fields, {flux: the stage's})."""
+    seeded states; timed at the flagship shape (the stage per flux, stage
+    1 and stages 2-3, with the resources of those instantiations and, in
+    kepes, a time at FIELDS_WAVE_E elements: whole waves of blocks).
+    Returns ({flux: the divergence's row fields}, {flux: the stage's})."""
     from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
                                              fused_rk_stage_fields,
                                              fused_rk_stage_fields_attributes,
                                              fused_rk_stage_fields_reference)
     from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
 
-    errs_d = [0.0, 0.0, 0.0]
-    for i, (dim, ext, E, n_live) in enumerate(KERNEL_SHAPES):
-        q, _, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live)
-        kw = dict(gamma=GAMMA, flux="kepes")
-        k1 = fused_flux(q, w, oq, **kw)
-        k2 = fused_flux(q, w, oq, **kw)
-        ref = fused_flux_reference(q, w, oq, **kw)
-        torch.cuda.synchronize()
-        _hold(f"fused_flux {dim}d ext{ext}", k1, k2, ref, n_live, errs_d)
-        if i == 0:
-            t_flux = (cuda_ms(lambda: fused_flux(q, w, oq, **kw), reps=20),
-                      cuda_ms(lambda: fused_flux_reference(q, w, oq, **kw),
-                              reps=3, warmup=1)) \
-                + fields_cost(dim, ext, E, rk=False, share_prev=True)
+    flux_rows = {}
+    for flux in STAGE_FLUXES:
+        errs_d = [0.0, 0.0, 0.0]
+        for i, (dim, ext, E, n_live) in enumerate(KERNEL_SHAPES):
+            q, _, w, oq = _field_inputs(dim * 10 + ext, dim, ext, E, n_live,
+                                        flux)
+            kw = dict(gamma=GAMMA, flux=flux)
+            k1 = fused_flux(q, w, oq, **kw)
+            k2 = fused_flux(q, w, oq, **kw)
+            ref = fused_flux_reference(q, w, oq, **kw)
+            torch.cuda.synchronize()
+            _hold(f"fused_flux {flux} {dim}d ext{ext}", k1, k2, ref, n_live,
+                  errs_d)
+            if i == 0:
+                t_flux = (cuda_ms(lambda: fused_flux(q, w, oq, **kw),
+                                  reps=20),
+                          cuda_ms(lambda: fused_flux_reference(q, w, oq,
+                                                               **kw),
+                                  reps=3, warmup=1)) \
+                    + fields_cost(dim, ext, E, rk=False, share_prev=True,
+                                  flux=flux)
+        flux_rows[flux] = _kernel_row(
+            "fused_flux" + ("" if flux == "kepes" else f"_{flux}"), errs_d,
+            t_flux, {"bit_identical": errs_d[0] == 0.0})
     rows = {}
     for flux in STAGE_FLUXES:
         errs, timing = [0.0, 0.0, 0.0], {}
@@ -887,56 +935,66 @@ def phase_kernel_fields():
         name = "fused_rk_stage_fields" + ("" if flux == "kepes"
                                           else f"_{flux}")
         rows[flux] = _mixed_row(name, errs, timing, extra)
-    return _kernel_row("fused_flux", errs_d, t_flux), rows
+    return flux_rows, rows
 
 
 def phase_kernel_inner():
-    """The inner-only kernel against its plain version at
-    INNER_KERNEL_SHAPES (seeded states; dead slots with volume 0 get D = 0
-    and add no speed); timed at the first, the ext16 phase's shape."""
+    """The inner-only kernel in kepes, hll and hllc against its plain
+    version at INNER_KERNEL_SHAPES (seeded states; dead slots with volume
+    0 get D = 0 and add no speed); timed per flux at the first, the ext16
+    phase's shape, with the resources there and, in kepes, a time at
+    INNER_WAVE_E elements (whole waves of blocks).  Returns {flux: row
+    fields}."""
     from tests.torch_port_inputs import GUARD_STATE, random_state
     from t8gpu_tpu_torch.ops.kernels import (inner_divergence,
                                              inner_divergence_attributes,
                                              inner_divergence_reference)
     import numpy as np
 
-    errs = [0.0, 0.0, 0.0]
-    for i, (dim, ext, E, n_live) in enumerate(INNER_KERNEL_SHAPES):
-        rng = np.random.default_rng(dim * 100 + ext)
-        u = random_state(rng, (ext,) * dim + (E,))
-        u[..., n_live:] = GUARD_STATE.reshape((5,) + (1,) * (dim + 1))
-        vol = np.zeros(E, np.float32)
-        vol[:n_live] = rng.uniform(0.5, 1.0, n_live) ** dim
-        u, vol = torch.from_numpy(u).cuda(), torch.from_numpy(vol).cuda()
-        args = (u, vol, GAMMA, "kepes")
-        k1 = inner_divergence(*args)
-        k2 = inner_divergence(*args)
-        ref = inner_divergence_reference(*args)
-        torch.cuda.synchronize()
-        name = f"inner_divergence {dim}d ext{ext}"
-        for a, b in zip(k1, k2):
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                raise AssertionError(f"{name} is not bit-identical on repeat")
-        if not bool((k1[0][..., n_live:] == 0).all()):
-            raise AssertionError(f"{name}: dead slots have a divergence")
-        for got, want in zip(k1, ref):
-            a, r, t = compare(name, got, want)
-            errs[:] = [max(errs[0], a), max(errs[1], r), max(errs[2], t)]
-        if i == 0:
-            nbytes, ops = inner_cost(dim, ext, E)
-            timing = (cuda_ms(lambda: inner_divergence(*args), reps=20),
-                      cuda_ms(lambda: inner_divergence_reference(*args),
-                              reps=3, warmup=1), nbytes, ops)
-            res = _resources(inner_divergence_attributes(dim, ext))
-            wave = (u[..., :INNER_WAVE_E].contiguous(),
-                    vol[:INNER_WAVE_E].contiguous(), GAMMA, "kepes")
-            t_wave = cuda_ms(lambda: inner_divergence(*wave), reps=20)
-    t_bytes = timing[2] / HBM_BYTES_PER_S * 1e3
-    t_ops = timing[3] / FP32_OPS_PER_S * 1e3
-    return _kernel_row("inner_divergence", errs, timing,
-                       dict(bytes_bound_ms=f"{t_bytes:.4f}",
-                            ops_bound_ms=f"{t_ops:.4f}", resources=res,
-                            **{f"E{INNER_WAVE_E}_kernel_ms": f"{t_wave:.4f}"}))
+    rows = {}
+    for flux in STAGE_FLUXES:
+        errs, extra = [0.0, 0.0, 0.0], {}
+        for i, (dim, ext, E, n_live) in enumerate(INNER_KERNEL_SHAPES):
+            rng = np.random.default_rng(dim * 100 + ext)
+            u = random_state(rng, (ext,) * dim + (E,))
+            u[..., n_live:] = GUARD_STATE.reshape((5,) + (1,) * (dim + 1))
+            vol = np.zeros(E, np.float32)
+            vol[:n_live] = rng.uniform(0.5, 1.0, n_live) ** dim
+            u, vol = torch.from_numpy(u).cuda(), torch.from_numpy(vol).cuda()
+            args = (u, vol, GAMMA, flux)
+            k1 = inner_divergence(*args)
+            k2 = inner_divergence(*args)
+            ref = inner_divergence_reference(*args)
+            torch.cuda.synchronize()
+            name = f"inner_divergence {flux} {dim}d ext{ext}"
+            for a, b in zip(k1, k2):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"{name} is not bit-identical on "
+                                         f"repeat")
+            if not bool((k1[0][..., n_live:] == 0).all()):
+                raise AssertionError(f"{name}: dead slots have a divergence")
+            for got, want in zip(k1, ref):
+                a, r, t = compare(name, got, want)
+                errs[:] = [max(errs[0], a), max(errs[1], r), max(errs[2], t)]
+            if i == 0:
+                nbytes, ops = inner_cost(dim, ext, E, flux)
+                timing = (cuda_ms(lambda: inner_divergence(*args), reps=20),
+                          cuda_ms(lambda: inner_divergence_reference(*args),
+                                  reps=3, warmup=1), nbytes, ops)
+                extra["resources"] = _resources(
+                    inner_divergence_attributes(dim, ext, flux))
+                if flux == "kepes":
+                    wave = (u[..., :INNER_WAVE_E].contiguous(),
+                            vol[:INNER_WAVE_E].contiguous(), GAMMA, flux)
+                    t_wave = cuda_ms(lambda: inner_divergence(*wave), reps=20)
+                    extra[f"E{INNER_WAVE_E}_kernel_ms"] = f"{t_wave:.4f}"
+        extra.update(bit_identical=errs[0] == 0.0,
+                     bytes_bound_ms=f"{timing[2] / HBM_BYTES_PER_S * 1e3:.4f}",
+                     ops_bound_ms=f"{timing[3] / FP32_OPS_PER_S * 1e3:.4f}")
+        rows[flux] = _kernel_row(
+            "inner_divergence" + ("" if flux == "kepes" else f"_{flux}"),
+            errs, timing, extra)
+    return rows
 
 
 def flagship_solver(level, device=None, config=None):
@@ -1227,40 +1285,66 @@ def _hold_divergence(name, got, want):
 
 
 def phase_divergence():
-    """ops/subgrid.flux_divergence at the flagship's state: one
-    field-input divergence launch per call (use_kernel None), within
-    tolerance of the torch stencil on the card (use_kernel=False) and of
-    the CPU; ms per call, glue included."""
+    """ops/subgrid.flux_divergence at the flagship's state, per flux (kepes,
+    hll, hllc): one field-input divergence launch per call (use_kernel
+    None), within tolerance of the torch stencil on the card
+    (use_kernel=False), kepes also of the CPU; ms per call, glue included.
+    Then open boundaries: the same in hllc with farfield=FARFIELD on the
+    farfield phase's walled mesh and state, against the stencil and the
+    CPU.  Returns {flux: launches} (hllc's with the open-boundary
+    calls)."""
     from t8gpu_tpu_torch.ops.subgrid import flux_divergence
     torch.set_num_threads(os.cpu_count() or 1)
-    gpu = flagship_solver(FLAGSHIP_LEVEL)
-    cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu")
-    args = (gpu.u, gpu.volumes, gpu.conn, gpu.spec, GAMMA, "kepes")
-    reset_launches()                        # count this path only
     n_calls = 10
-    for _ in range(n_calls):
-        got = flux_divergence(*args)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    want = {n: n_calls if n == "fused_flux" else 0 for n in counts}
-    if counts != want:
-        raise AssertionError(f"divergence: launches {counts} for {n_calls} "
-                             f"calls, expected {want}")
-    launches = counts["fused_flux"]
-    stencil = flux_divergence(*args, use_kernel=False)
-    on_cpu = flux_divergence(cpu.u, cpu.volumes, cpu.conn, cpu.spec, GAMMA,
-                             "kepes")
-    used_s = _hold_divergence("divergence vs stencil", got, stencil)
-    used_c = _hold_divergence("divergence vs cpu", got, on_cpu)
-    ms = cuda_ms(lambda: flux_divergence(*args), reps=20)
-    ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False), reps=5,
-                   warmup=1)
-    phase("divergence", cells=gpu.n_elements * gpu.spec.size,
-          calls=n_calls, launches=launches,
-          launches_per_call=launches / n_calls, ms_per_call=f"{ms:.4f}",
-          stencil_ms_per_call=f"{ms_s:.4f}",
-          tolerance_used_vs_stencil=f"{used_s:.3f}",
-          tolerance_used_vs_cpu=f"{used_c:.3f}", rtol=RTOL, atol=ATOL)
+
+    def calls(solver, flux, **kw):
+        args = (solver.u, solver.volumes, solver.conn, solver.spec, GAMMA,
+                flux)
+        reset_launches()                    # count this path only
+        for _ in range(n_calls):
+            got = flux_divergence(*args, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {n: n_calls if n == "fused_flux" else 0 for n in counts}
+        if counts != want:
+            raise AssertionError(f"divergence {flux} {kw}: launches {counts} "
+                                 f"for {n_calls} calls, expected {want}")
+        used_s = _hold_divergence(f"divergence {flux} {kw} vs stencil", got,
+                                  flux_divergence(*args, use_kernel=False,
+                                                  **kw))
+        ms = cuda_ms(lambda: flux_divergence(*args, **kw), reps=20)
+        ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False,
+                                               **kw), reps=5, warmup=1)
+        return got, dict(cells=solver.n_elements * solver.spec.size,
+                         calls=n_calls, launches=counts["fused_flux"],
+                         launches_per_call=counts["fused_flux"] / n_calls,
+                         ms_per_call=f"{ms:.4f}",
+                         stencil_ms_per_call=f"{ms_s:.4f}",
+                         tolerance_used_vs_stencil=f"{used_s:.3f}")
+
+    gpu = flagship_solver(FLAGSHIP_LEVEL)
+    launches = {}
+    for flux in STAGE_FLUXES:
+        got, line = calls(gpu, flux)
+        if flux == "kepes":
+            cpu = flagship_solver(FLAGSHIP_LEVEL, device="cpu")
+            used = _hold_divergence("divergence vs cpu", got, flux_divergence(
+                cpu.u, cpu.volumes, cpu.conn, cpu.spec, GAMMA, flux))
+            line["tolerance_used_vs_cpu"] = f"{used:.3f}"
+        launches[flux] = line["launches"]
+        phase("divergence", flux=flux, **line, rtol=RTOL, atol=ATOL)
+    gpu = farfield_solver(FLAGSHIP_LEVEL)
+    got, line = calls(gpu, "hllc", farfield=FARFIELD)
+    cpu = farfield_solver(FLAGSHIP_LEVEL, device="cpu")
+    used = _hold_divergence("divergence farfield vs cpu", got,
+                            flux_divergence(cpu.u, cpu.volumes, cpu.conn,
+                                            cpu.spec, GAMMA, "hllc",
+                                            farfield=FARFIELD))
+    line["tolerance_used_vs_cpu"] = f"{used:.3f}"
+    launches["hllc"] += line["launches"]
+    phase("divergence", flux="hllc", boundary="farfield",
+          farfield=str(FARFIELD).replace(" ", ""), **line, rtol=RTOL,
+          atol=ATOL)
     return launches
 
 
@@ -1269,8 +1353,8 @@ def phase_ext16():
     (the flagship's 2.1M cells in 512 elements): it steps on the torch
     stencil (the stage kernels take extents 4 and 8); ms/step as the slope
     of 3 and 13 steps, mass drift.  Then flux_divergence(use_kernel=True)
-    there: one inner-only kernel launch per call, within tolerance of
-    use_kernel=False."""
+    there in each flux: one inner-only kernel launch per call, within
+    tolerance of use_kernel=False.  Returns {flux: launches}."""
     from t8gpu_tpu_torch import (EulerConfig, Forest,
                                  SubgridCompressibleEulerSolver, SubgridMesh,
                                  SubgridSpec, kh_planar)
@@ -1292,35 +1376,39 @@ def phase_ext16():
     drift = check_state("ext16", solver, m0)
     ms_step = (t13 - t3) / 10 * 1e3
 
-    args = (solver.u, solver.volumes, solver.conn, solver.spec, GAMMA,
-            "kepes")
-    reset_launches()                        # count this path only
     n_calls = 5
-    for _ in range(n_calls):
-        got = flux_divergence(*args, use_kernel=True)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    want = {n: n_calls if n == "inner_divergence" else 0 for n in counts}
-    if counts != want:
-        raise AssertionError(f"ext16: launches {counts} for {n_calls} calls, "
-                             f"expected {want}")
-    used = _hold_divergence("ext16 inner kernel vs stencil", got,
-                            flux_divergence(*args, use_kernel=False))
-    ms_k = cuda_ms(lambda: flux_divergence(*args, use_kernel=True), reps=5,
-                   warmup=1)
-    ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False), reps=5,
-                   warmup=1)
+    line, launches = {}, {}
+    for flux in STAGE_FLUXES:
+        args = (solver.u, solver.volumes, solver.conn, solver.spec, GAMMA,
+                flux)
+        reset_launches()                    # count this path only
+        for _ in range(n_calls):
+            got = flux_divergence(*args, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {n: n_calls if n == "inner_divergence" else 0 for n in counts}
+        if counts != want:
+            raise AssertionError(f"ext16 {flux}: launches {counts} for "
+                                 f"{n_calls} calls, expected {want}")
+        launches[flux] = counts["inner_divergence"]
+        used = _hold_divergence(f"ext16 inner kernel {flux} vs stencil", got,
+                                flux_divergence(*args, use_kernel=False))
+        ms_k = cuda_ms(lambda: flux_divergence(*args, use_kernel=True),
+                       reps=5, warmup=1)
+        tag = "" if flux == "kepes" else f"{flux}_"
+        line.update({f"{tag}kernel_div_ms_per_call": f"{ms_k:.4f}",
+                     f"{tag}tolerance_used_vs_stencil": f"{used:.3f}"})
+        if flux == "kepes":
+            ms_s = cuda_ms(lambda: flux_divergence(*args, use_kernel=False),
+                           reps=5, warmup=1)
+            line["stencil_div_ms_per_call"] = f"{ms_s:.4f}"
     phase("ext16", elements=solver.n_elements, cells=n_cells,
           capacity=solver.conn.element_capacity, steps=17,
           ms_per_step=f"{ms_step:.4f}",
           dof_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
-          mass_drift=f"{drift:.3e}", calls=n_calls,
-          launches=counts["inner_divergence"],
-          launches_per_call=counts["inner_divergence"] / n_calls,
-          kernel_div_ms_per_call=f"{ms_k:.4f}",
-          stencil_div_ms_per_call=f"{ms_s:.4f}",
-          tolerance_used_vs_stencil=f"{used:.3f}", rtol=RTOL, atol=ATOL)
-    return counts["inner_divergence"]
+          mass_drift=f"{drift:.3e}", calls_per_flux=n_calls,
+          launches=sum(launches.values()), **line, rtol=RTOL, atol=ATOL)
+    return launches
 
 
 def phase_large():
@@ -1677,16 +1765,16 @@ def phase_kernel_extras():
     return rows
 
 
-def amr_solver(level, config, device=None, euler=None):
+def amr_solver(level, config, device=None, euler=None, periodic=True):
     """bench_amr's solver: kh_planar on subgrid_manager(Forest.uniform(level,
     dim=3), Subgrid<8,8,8>, AMRConfig(**config)); `euler`: its
-    EulerConfig (the default one)."""
+    EulerConfig (the default one); periodic=False: walls on all sides."""
     from t8gpu_tpu_torch import (EulerConfig, Forest,
                                  SubgridCompressibleEulerSolver, SubgridSpec,
                                  kh_planar)
     from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
     from t8gpu_tpu_torch.utils.config import AMRConfig
-    mgr = subgrid_manager(Forest.uniform(level, dim=3),
+    mgr = subgrid_manager(Forest.uniform(level, dim=3, periodic=periodic),
                           SubgridSpec((8, 8, 8)), AMRConfig(**config))
     return SubgridCompressibleEulerSolver(mgr, lambda c: kh_planar(c, dim=3),
                                           device=device,
@@ -2150,6 +2238,153 @@ def phase_ns_vs_cpu():
     return gravity_launches
 
 
+def farfield_state(n):
+    """The exterior state FARFIELD as conservative rows [5, n]."""
+    import numpy as np
+    rho, vx, vy, vz, p = FARFIELD
+    e = p / (GAMMA - 1.0) + 0.5 * rho * (vx * vx + vy * vy + vz * vz)
+    row = np.array([rho, rho * vx, rho * vy, rho * vz, e], np.float32)
+    return np.tile(row[:, None], (1, n))
+
+
+def farfield_bump(c):
+    """The free stream plus a Gaussian density and energy bump at the
+    domain's centre: the JAX package's bump_ic (tests/test_farfield.py)
+    with a z term."""
+    import numpy as np
+    u = farfield_state(len(c))
+    g = 0.3 * np.exp(-200 * ((c[:, 0] - 0.5) ** 2 + (c[:, 1] - 0.5) ** 2
+                             + (c[:, 2] - 0.5) ** 2)).astype(np.float32)
+    u[0] += g
+    u[4] += g / (GAMMA - 1.0)
+    return u
+
+
+def farfield_solver(level, device=None, ic=farfield_bump, **config):
+    """The 3D solver on Forest.uniform(level, dim=3, periodic=False) (walls
+    on all six faces made open) x Subgrid<8,8,8> with
+    EulerConfig(boundary="farfield", farfield=FARFIELD, flux="hllc",
+    **config)."""
+    from t8gpu_tpu_torch import (EulerConfig, Forest,
+                                 SubgridCompressibleEulerSolver, SubgridMesh,
+                                 SubgridSpec)
+    config = dict(dict(flux="hllc"), **config)
+    mesh = SubgridMesh.from_forest(Forest.uniform(level, dim=3,
+                                                  periodic=False),
+                                   SubgridSpec((8, 8, 8)))
+    return SubgridCompressibleEulerSolver(
+        mesh, ic, config=EulerConfig(boundary="farfield", farfield=FARFIELD,
+                                     **config), device=device)
+
+
+def _off_farfield(solver) -> float:
+    """max |u - the FARFIELD state| over the live elements."""
+    ff = torch.from_numpy(farfield_state(1)).to(solver.u.device)
+    live = solver.u[..., : solver.n_elements]
+    return float((live - ff.reshape((5,) + (1,) * (live.dim() - 1))).abs()
+                 .max())
+
+
+def phase_farfield(profile_dir):
+    """Open boundaries at the flagship's size: the docstring's farfield
+    phase.  Returns the stage kernel's launches."""
+    solver = farfield_solver(FLAGSHIP_LEVEL)      # device=None: the card
+    n_cells = solver.n_elements * solver.spec.size
+    off0 = _off_farfield(solver)
+    dt = solver.compute_timestep()
+    reset_launches()                              # count this path only
+    warm = 2
+    solver.iterate_many(warm, dt)
+    slopes = []
+    for _ in range(3):
+        t10 = timed_steps(solver, 10, dt)
+        t110 = timed_steps(solver, 110, dt)
+        slopes.append((t110 - t10) / 100 * 1e3)
+    steps = warm + 3 * 120
+    counts = launch_counts()
+    want = {n: 3 * steps if n == "fused_rk_stage" else 0 for n in counts}
+    if counts != want:
+        raise AssertionError(f"farfield: launches {counts} for {steps} "
+                             f"steps, expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("farfield: non-finite state")
+    off1 = _off_farfield(solver)
+    ms_step = statistics.median(slopes)
+    # the free stream through the open boundaries (the JAX package's
+    # test_subgrid_free_stream_passes_through and its limit)
+    uni = farfield_solver(FLAGSHIP_LEVEL, ic=lambda c: farfield_state(len(c)))
+    u0 = uni.u.clone()
+    uni.iterate_many(10, uni.compute_timestep())
+    kept = float((uni.u - u0)[..., : uni.n_elements].abs().max())
+    if not kept < 1e-5:
+        raise AssertionError(f"farfield: the free stream moved by {kept:.3e}")
+    phase("farfield", elements=solver.n_elements, cells=n_cells,
+          flux=solver.config.flux, farfield=str(FARFIELD).replace(" ", ""),
+          steps=steps, launches=counts["fused_rk_stage"],
+          launches_per_step=counts["fused_rk_stage"] / steps,
+          ms_per_step=f"{ms_step:.4f}", ms_per_step_min=f"{min(slopes):.4f}",
+          ms_per_step_max=f"{max(slopes):.4f}",
+          cell_updates_per_s=f"{n_cells / (ms_step / 1e3):.4e}",
+          max_off_farfield_before=f"{off0:.4e}",
+          max_off_farfield_after=f"{off1:.4e}",
+          free_stream_moved_after_10_steps=f"{kept:.3e}", dt=f"{dt:.6e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "farfield",
+                 PROFILE_KEYS["fused_rk_stage"])
+    return counts["fused_rk_stage"]
+
+
+def phase_farfield_vs_cpu():
+    """One step on open boundaries on the card and on the CPU (the
+    docstring's farfield_vs_cpu phase)."""
+    import numpy as np
+    from tests.torch_port_inputs import noisy_kh
+    from t8gpu_tpu_torch.ops.subgrid import h1_criteria
+    torch.set_num_threads(os.cpu_count() or 1)
+    used = {}
+
+    def pair(**config):
+        return [farfield_solver(FF_CPU_LEVEL, device=d, ic=noisy_kh(3, 13),
+                                **config) for d in (None, "cpu")]
+    stage = dict(fused_rk_stage=3)
+    cases = [("state", "state", dict(flux=f), stage)
+             for f in STAGE_FLUXES] + [
+        ("logs", "logs", dict(flux="kepes"), dict(fused_rk_stage_logs=3)),
+        ("fields", "fields", dict(), dict(fused_rk_stage_fields=3)),
+        ("order2", "state", dict(order=2), dict(fused_muscl=3)),
+        ("viscous", "state", dict(mu=NS_CPU_MU),
+         dict(stage, fused_rk_stage_viscous=3)),
+        ("gravity", "state", dict(gravity=NS_CPU_GRAVITY),
+         dict(stage, fused_rk_stage_gravity=3))]
+    for name, mode, config, want in cases:
+        with stage_inputs_mode(mode):
+            tag = f"{name}_{config['flux']}" if name == "state" else name
+            used[tag] = _step_vs_cpu(f"farfield_vs_cpu {tag}",
+                                     *pair(**config), want)
+    # amr_vs_cpu's forest walled and adapted once, then a step
+    from t8gpu_tpu_torch import EulerConfig
+    euler = EulerConfig(flux="hllc", boundary="farfield", farfield=FARFIELD)
+    gpu, cpu = (amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG, device=d,
+                           euler=euler, periodic=False)
+                for d in (None, "cpu"))
+    dt = gpu.compute_timestep()
+    for s in (gpu, cpu):
+        s.iterate_many(2, dt)
+    crit = h1_criteria(gpu.u, gpu.volumes, gpu.spec).cpu()
+    for s in (gpu, cpu):
+        s.adapt(criteria=crit.numpy())
+    if not (np.array_equal(gpu.manager.forest.level, cpu.manager.forest.level)
+            and any(gpu.conn.has_fine) and gpu.conn.b_groups):
+        raise AssertionError("farfield_vs_cpu: the adapt differs or left no "
+                             "hanging faces or no boundary")
+    cpu.u = gpu.u.cpu()          # the remapped state of the card on both
+    used["amr"] = _step_vs_cpu("farfield_vs_cpu amr", gpu, cpu,
+                               dict(stage, fused_rk_stage_extras=3))
+    phase("farfield_vs_cpu", level=FF_CPU_LEVEL,
+          farfield=str(FARFIELD).replace(" ", ""), rtol=RTOL, atol=ATOL,
+          **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2193,6 +2428,8 @@ def main(argv=None) -> int:
     k_visc = phase_kernel_viscous()
     ns_launches = phase_ns(args.profile)
     gravity_launches = phase_ns_vs_cpu()
+    phase_farfield(args.profile)
+    phase_farfield_vs_cpu()
 
     def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",
@@ -2236,10 +2473,25 @@ def main(argv=None) -> int:
         row("fused_rk_stage_fields_extras",
             "t8gpu_tpu/ops/pallas_kernels.py:1309", amr_extras["fields"],
             k_extras["fields"], "fused_rk_stage")]
+    # the fluxes of the field-input divergence (kernel 2) and the
+    # inner-only kernel (7), each with the launches of its own calls in
+    # the divergence and ext16 phases (kernel 2's hllc with the
+    # open-boundary calls)
+    flux_row = row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",
+                   flux_launches["kepes"], k_flux["kepes"], "fused_fields")
+    flux_row["variants"] = [
+        row(f"fused_flux_{f}", "t8gpu_tpu/ops/pallas_kernels.py:193",
+            flux_launches[f], k_flux[f], "fused_fields")
+        for f in ("hll", "hllc")]
+    inner_row = row("inner_divergence", "t8gpu_tpu/ops/pallas_kernels.py:1425",
+                    inner_launches["kepes"], k_inner["kepes"])
+    inner_row["variants"] = [
+        row(f"inner_divergence_{f}", "t8gpu_tpu/ops/pallas_kernels.py:1425",
+            inner_launches[f], k_inner[f], "inner_divergence")
+        for f in ("hll", "hllc")]
     print(json.dumps({"kernels": [
         stage,
-        row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",
-            flux_launches, k_flux, "fused_fields"),
+        flux_row,
         row("fused_muscl", "t8gpu_tpu/ops/pallas_kernels.py:848",
             muscl_launches, k_muscl),
         row("fused_mhd_flux", "t8gpu_tpu/ops/pallas_kernels.py:365",
@@ -2247,8 +2499,7 @@ def main(argv=None) -> int:
         row("fused_mhd_muscl", "t8gpu_tpu/ops/pallas_kernels.py:777",
             mhd_muscl_launches, k_mhd_muscl),
         fields,
-        row("inner_divergence", "t8gpu_tpu/ops/pallas_kernels.py:1425",
-            inner_launches, k_inner)]}), flush=True)
+        inner_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

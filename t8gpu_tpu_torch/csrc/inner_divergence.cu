@@ -2,20 +2,25 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel inner_divergence_pallas
-// (t8gpu_tpu/ops/pallas_kernels.py:1425, body _kernel :1394) for flux
-// "kepes": per element e and cell c of its [EXT]^DIM block, EXT in 2, 4, 8,
-// 16,
+// (t8gpu_tpu/ops/pallas_kernels.py:1425, body _kernel :1394) for the
+// fluxes kepes, hll and hllc: per element e and cell c of its [EXT]^DIM
+// block, EXT in 2, 4, 8, 16,
 //   D(c)  = sum over axes a of  s F(c-1 -> c) - s F(c -> c+1)
 // over the faces inside the block only (the mesh faces and walls are the
 // caller's: ops/subgrid.outer_apply, boundary_apply), s the element's
 // interior face area (given per element, ops/kernels.interior_surface, 0
 // on dead slots), and the max wave speed over all interior faces of the
-// live elements, one scalar.  F is the state-form entropy-stable KEPES
-// flux (kepes_es_flux of t8gpu_tpu_torch/ops/euler.py, the same arithmetic
-// in the same order): per face two logarithmic means with one log each and
-// the entropy variables of both states with two logs each, evaluated per
-// face as the TPU kernel does (the rotation into the face frame reorders
-// the kinetic-energy sum, so they cannot be taken per cell).
+// live elements, one scalar.  F is the state-form flux numerical_flux of
+// t8gpu_tpu_torch/ops/euler.py (the same arithmetic in the same order),
+// the flux a template parameter: the entropy-stable KEPES flux
+// kepes_es_flux (per face two logarithmic means with one log each and the
+// entropy variables of both states with two logs each, evaluated per face
+// as the TPU kernel does: the rotation into the face frame reorders the
+// kinetic-energy sum, so they cannot be taken per cell), hll_flux (the
+// per-side primitives of a face-frame state, the Roe-averaged fan, the
+// state jump) or hllc_flux (the hll cell fields of each face-frame state,
+// euler_hll.cuh's hllc_fields_flux).  hll and hllc take each cell's
+// face-frame quantities once per axis, from the staged state.
 //
 // Layout (element-minor): u and D are [5, EXT^DIM, E]; surface [E]; speed
 // one uint32 (float bits).
@@ -24,7 +29,8 @@
 // moves ~94 MB (u 47.2 read, D 47.2 written): 28 us at 3.35 TB/s; its
 // arithmetic, ~290 operations per interface with 6 logs and 8 divides over
 // 6.6M interfaces (1.9 GFLOP), takes ~29 us at the 67 TFLOP/s fp32 peak.
-// The two bounds meet.
+// The two bounds meet.  hll and hllc, ~130-210 operations per face and no
+// log, are bound by the bytes.
 //
 // Design: the first-order pencil walk of muscl_pencil.cuh (walk1) over the
 // interior faces: a block loads its elements' states into shared memory
@@ -46,7 +52,7 @@
 
 #include <cuda_runtime.h>
 
-#include "euler_kepes.cuh"
+#include "euler_hll.cuh"
 #include "muscl_pencil.cuh"
 
 namespace {
@@ -148,14 +154,26 @@ __device__ __forceinline__ float kepes_es_flux(const float L[5],
   return fabsf(uh) + ah;
 }
 
-// The state-form flux on staged states: a cell's five state rows, rotated
-// into the +A face frame for each face.
+// The state-form flux FLUX on staged states: a cell's five state rows,
+// rotated into the +A face frame for each face (kepes: the rotated state;
+// hll: with its primitives, as ops/euler.hll_flux takes them; hllc: its
+// hll cell fields, ops/euler.cell_fields_tuple of the rotated state).
+template <int FLUX>
 struct StateForm {
   static constexpr int RIN = 5, RS = 5, RD = 5;
   using Params = Consts;
-  struct Cell {
+  struct Rotated {
     float s[5];
   };
+  // ops/euler.primitives and hll_flux's per-side terms of a face-frame
+  // state s: v = m / rho (as a product with 1 / rho), p, h = (e + p) / rho,
+  // c, sqrt(rho)
+  struct Prims {
+    float s[5];
+    HllFields q;
+  };
+  using Cell = std::conditional_t<FLUX == KEPES, Rotated,
+                                  std::conditional_t<FLUX == HLL, Prims, HllFields>>;
 
   __device__ static __forceinline__ void convert(const float* r, float s[5],
                                                  const Consts&) {
@@ -164,21 +182,69 @@ struct StateForm {
   }
 
   template <int A>
-  __device__ static __forceinline__ Cell cell(const float s[5], const Consts&) {
-    Cell q;
+  __device__ static __forceinline__ Cell cell(const float s[5], const Consts& k) {
+    float r[5];
 #pragma unroll
-    for (int i = 0; i < 5; ++i) q.s[i] = s[t8pencil::frame_row(A, i)];
-    return q;
+    for (int i = 0; i < 5; ++i) r[i] = s[t8pencil::frame_row(A, i)];
+    if constexpr (FLUX == KEPES) {
+      Rotated q;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) q.s[i] = r[i];
+      return q;
+    } else if constexpr (FLUX == HLL) {
+      Prims q;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) q.s[i] = r[i];
+      const float s_rho = 1.0f / r[0];
+      const float v0 = r[1] * s_rho, v1 = r[2] * s_rho, v2 = r[3] * s_rho;
+      const float kinetic = 0.5f * (r[1] * v0 + r[2] * v1 + r[3] * v2);
+      const float p = k.km1 * (r[4] - kinetic);
+      const float h = (r[4] + p) / r[0];
+      q.q = {r[0], v0, v1, v2, p, h,
+             sqrtf(k.km1 * (h - 0.5f * (v0 * v0 + v1 * v1 + v2 * v2))),
+             sqrtf(r[0]), 0.0f};
+      return q;
+    } else {
+      return hll_fields(r, 1.0f / r[0], k);
+    }
   }
 
   template <int A>
   __device__ static __forceinline__ float flux(const Cell& L, const Cell& R,
                                                float, const Consts& k, float f[5]) {
-    float fr[5];
-    const float sp = kepes_es_flux(L.s, R.s, k, fr);
+    if constexpr (FLUX == KEPES) {
+      float fr[5];
+      const float sp = kepes_es_flux(L.s, R.s, k, fr);
 #pragma unroll
-    for (int i = 0; i < 5; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
-    return sp;
+      for (int i = 0; i < 5; ++i) f[t8pencil::frame_row(A, i)] = fr[i];
+      return sp;
+    } else if constexpr (FLUX == HLL) {
+      return hll_state_flux<A>(L, R, k, f);
+    } else {
+      return hll_family_flux<HLLC, A>(L, R, k, f);
+    }
+  }
+
+  // ops/euler.hll_flux on two face-frame states with their primitives: the
+  // Roe-averaged fan (roe_speeds) over the physical fluxes and the state
+  // jump; f in x, y, z rows; returns max(|s_l|, |s_r|)
+  template <int A>
+  __device__ static __forceinline__ float hll_state_flux(const Prims& L,
+                                                         const Prims& R,
+                                                         const Consts& k,
+                                                         float f[5]) {
+    float s_l, s_r;
+    roe_speeds(L.q, R.q, k, s_l, s_r);
+    const float ml = L.s[1], mr = R.s[1];
+    const float fl[5] = {ml, ml * L.q.u + L.q.p, ml * L.q.v, ml * L.q.w, ml * L.q.h};
+    const float fr[5] = {mr, mr * R.q.u + R.q.p, mr * R.q.v, mr * R.q.w, mr * R.q.h};
+    const float slc = t8pencil::nan_min(s_l, 0.0f), src = t8pencil::nan_max(s_r, 0.0f);
+    const float ss = src * slc, den = src - slc;
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      f[t8pencil::frame_row(A, i)] =
+          ((src * fl[i] - slc * fr[i]) + ss * (R.s[i] - L.s[i])) / den;
+    return t8pencil::nan_max(fabsf(s_l), fabsf(s_r));
   }
 };
 
@@ -198,7 +264,7 @@ template <int DIM, int EXT>
 using InnerTile = t8pencil::Tile<5, DIM, EXT, InnerBlock<DIM, EXT>,
                                  slab_planes(DIM, EXT), 5>;
 
-template <int DIM, int EXT>
+template <int FLUX, int DIM, int EXT>
 __global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
                                   InnerBlock<DIM, EXT>::MIN_BLOCKS)
     inner_divergence_kernel(const float* __restrict__ u,
@@ -238,6 +304,7 @@ __global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
       });
   __syncthreads();
 
+  using P = StateForm<FLUX>;
   float spd = 0.0f;
   const float surface = live ? __ldg(surf + e) : 0.0f;
   // axis 0: pencil t is cell t of each plane of the slab; its neighbours
@@ -250,16 +317,16 @@ __global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
   };
   auto none = [](int, End& lo, End& hi) { lo = hi = End{nullptr, 0, 0.0f, 0.0f}; };
   if (live)
-    t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 0>(st, sd, x, y, planes, surface,
+    t8pencil::walk1_axis<P, Tl, DIM, EXT, 0>(st, sd, x, y, planes, surface,
                                                      1.0f, 0.0f, k, spd);
   __syncthreads();
   if (live)
-    t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 1>(st, sd, x, y, none, surface,
+    t8pencil::walk1_axis<P, Tl, DIM, EXT, 1>(st, sd, x, y, none, surface,
                                                      1.0f, 0.0f, k, spd);
   if constexpr (DIM == 3) {
     __syncthreads();
     if (live)
-      t8pencil::walk1_axis<StateForm, Tl, DIM, EXT, 2>(st, sd, x, y, none, surface,
+      t8pencil::walk1_axis<P, Tl, DIM, EXT, 2>(st, sd, x, y, none, surface,
                                                        1.0f, 0.0f, k, spd);
   }
   __syncthreads();
@@ -286,24 +353,34 @@ __global__ void __launch_bounds__(InnerTile<DIM, EXT>::THREADS,
   }
 }
 
-// Call fn.template run<DIM, EXT>() for the case; cudaErrorInvalidValue
+// Call fn.template run<FLUX, DIM, EXT>() for the case; cudaErrorInvalidValue
 // for a case none takes.
-template <class Fn>
-int with_case(int dim, int ext, const Fn& fn) {
+template <int FLUX, class Fn>
+int with_shape(int dim, int ext, const Fn& fn) {
   if (dim == 3) {
     switch (ext) {
-      case 2: return fn.template run<3, 2>();
-      case 4: return fn.template run<3, 4>();
-      case 8: return fn.template run<3, 8>();
-      case 16: return fn.template run<3, 16>();
+      case 2: return fn.template run<FLUX, 3, 2>();
+      case 4: return fn.template run<FLUX, 3, 4>();
+      case 8: return fn.template run<FLUX, 3, 8>();
+      case 16: return fn.template run<FLUX, 3, 16>();
     }
   } else if (dim == 2) {
     switch (ext) {
-      case 2: return fn.template run<2, 2>();
-      case 4: return fn.template run<2, 4>();
-      case 8: return fn.template run<2, 8>();
-      case 16: return fn.template run<2, 16>();
+      case 2: return fn.template run<FLUX, 2, 2>();
+      case 4: return fn.template run<FLUX, 2, 4>();
+      case 8: return fn.template run<FLUX, 2, 8>();
+      case 16: return fn.template run<FLUX, 2, 16>();
     }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class Fn>
+int with_case(int flux, int dim, int ext, const Fn& fn) {
+  switch (flux) {
+    case KEPES: return with_shape<KEPES>(dim, ext, fn);
+    case HLL: return with_shape<HLL>(dim, ext, fn);
+    case HLLC: return with_shape<HLLC>(dim, ext, fn);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -317,10 +394,10 @@ struct Launcher {
   int E;
   const Consts& k;
   cudaStream_t stream;
-  template <int DIM, int EXT>
+  template <int FLUX, int DIM, int EXT>
   int run() const {
     using Tl = InnerTile<DIM, EXT>;
-    auto kern = inner_divergence_kernel<DIM, EXT>;
+    auto kern = inner_divergence_kernel<FLUX, DIM, EXT>;
     static bool raised[64] = {};
     const int err = t8pencil::raise_smem((const void*)kern, Tl::SMEM, device, raised);
     if (err != 0) return err;
@@ -333,39 +410,43 @@ struct Launcher {
 
 struct Attributes {
   int* out;
-  template <int DIM, int EXT>
+  template <int FLUX, int DIM, int EXT>
   int run() const {
     using Tl = InnerTile<DIM, EXT>;
-    return t8pencil::kernel_attributes((const void*)inner_divergence_kernel<DIM, EXT>,
-                                       Tl::THREADS, Tl::SMEM, out);
+    return t8pencil::kernel_attributes(
+        (const void*)inner_divergence_kernel<FLUX, DIM, EXT>, Tl::THREADS,
+        Tl::SMEM, out);
   }
 };
 
 }  // namespace
 
-// Launch the interior divergence on `stream`.  speed must be one zero-filled
-// uint32 (the float bits of the max).  Returns the cudaError_t of the
-// launch (0 on success); never synchronizes.
+// Launch the interior divergence on `stream`; flux is 0 kepes, 1 hll, 2
+// hllc.  speed must be one zero-filled uint32 (the float bits of the max).
+// Returns the cudaError_t of the launch (0 on success); never
+// synchronizes.
 extern "C" int t8_inner_divergence(int device, int dim, int ext, int E,
-                                   const float* u, const float* surface,
-                                   float* D, unsigned int* speed,
-                                   double gamma, void* stream) {
+                                   int flux, const float* u,
+                                   const float* surface, float* D,
+                                   unsigned int* speed, double gamma,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(gamma);
-  return with_case(dim, ext, Launcher{device, u, surface, D, speed, E, k,
-                                      static_cast<cudaStream_t>(stream)});
+  return with_case(flux, dim, ext,
+                   Launcher{device, u, surface, D, speed, E, k,
+                            static_cast<cudaStream_t>(stream)});
 }
 
 // Registers, spilled (local) bytes per thread, threads per block and
 // shared memory per block of the case's kernel, into out[0..3].  Returns
 // a cudaError_t.
 extern "C" int t8_inner_divergence_attributes(int device, int dim, int ext,
-                                              int* out) {
+                                              int flux, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return with_case(dim, ext, Attributes{out});
+  return with_case(flux, dim, ext, Attributes{out});
 }
 
 extern "C" const char* t8_cuda_error_string(int err) {

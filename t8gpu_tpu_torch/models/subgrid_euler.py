@@ -31,11 +31,17 @@ viscous_divergence, viscous_wall_sides) and the source
 (ops/source.with_gravity) to their divergence.  mu > 0 sums the
 diffusive rate into the CFL speed.
 
+Open boundaries (`EulerConfig(boundary="farfield", farfield=(rho, vx, vy,
+vz, p))`): every path puts the exterior state's ghost in place of the
+mirrored wall layer (ops/subgrid.farfield_state_rows,
+farfield_field_rows), at both orders, in every stage input, with mu > 0,
+gravity and AMR.
+
 The solver runs on CUDA unless the caller passes device="cpu", and raises
 when CUDA is asked for and missing.  The kernels are float32; float64 runs
-only on the CPU.  Farfield boundaries raise NotImplementedError when the
-solver steps, and so do meshes with hanging faces at order 2 or on the
-torch stencil (extents 2 and 16).
+only on the CPU.  Meshes with hanging faces at order 2 or on the torch
+stencil (extents 2 and 16) raise NotImplementedError when the solver
+steps.
 """
 
 from __future__ import annotations
@@ -109,8 +115,8 @@ class SubgridCompressibleEulerSolver:
     ic: callable mapping cell centers [N*B, dim] -> conservative state
         [5, N*B] (cells in element-major C-order).
     config: EulerConfig (order 1 or 2; mu, prandtl and the wall model,
-        gravity); farfield boundaries raise NotImplementedError when the
-        solver steps.
+        gravity; boundary "reflective" or "farfield" with the exterior
+        state `farfield`).
     device: "cuda" (the default, also for None), or "cpu" for the plain
         PyTorch path.
     """
@@ -179,6 +185,7 @@ class SubgridCompressibleEulerSolver:
         self.inv_cell_volume = torch.as_tensor(inv).to(self.device)
         self._muscl_w = None      # MUSCL weights, built at first use
         self._face_w = None       # first-order kernels' mesh weights
+        self._walls = None        # the boundary sides (ops/subgrid.wall_sides)
         self._visc_w = None       # the stage kernel's viscous weights
         u = u.to(device=self.device, dtype=self.dtype)
         if u.shape[-1] != cap:
@@ -216,6 +223,11 @@ class SubgridCompressibleEulerSolver:
                                            self.volumes)
         return self._face_w
 
+    def _wall_sides(self):
+        if self._walls is None and self.conn.b_groups:
+            self._walls = sg.wall_sides(self.conn, self.spec, self.volumes)
+        return self._walls
+
     def _viscous_weights(self) -> torch.Tensor:
         if self._visc_w is None:
             self._visc_w = sg.viscous_weight_rows(self.conn, self.spec,
@@ -225,17 +237,19 @@ class SubgridCompressibleEulerSolver:
     def _flux_fn(self, bc: dict):
         """The (divergence, speed) closure of the non-fused paths (the JAX
         package's _base_flux_fn): order 1 over ops/subgrid.flux_divergence
-        or order 2 over flux_divergence_muscl, plus the viscous stencil
-        (and the no-slip wall shear) with the diffusive rate summed into
-        the speed when mu > 0, plus the gravity source."""
+        or order 2 over flux_divergence_muscl (open boundaries against
+        bc["farfield"]), plus the viscous stencil (and the no-slip wall
+        shear) with the diffusive rate summed into the speed when mu > 0,
+        plus the gravity source."""
         c = self.config
+        ff = bc["farfield"]
         if c.order == 1:
             weights = self._face_weights()
 
             def flux_fn(v):
                 return sg.flux_divergence(v, self.volumes, self.conn,
                                           self.spec, c.gamma, c.flux,
-                                          weights=weights)
+                                          farfield=ff, weights=weights)
         else:
             limiter = self._sg_limiter()
             weights = self._muscl_weights()
@@ -243,7 +257,7 @@ class SubgridCompressibleEulerSolver:
             def flux_fn(v):
                 return sg.flux_divergence_muscl(v, self.volumes, self.conn,
                                                 self.spec, c.gamma, c.flux,
-                                                limiter=limiter,
+                                                limiter=limiter, farfield=ff,
                                                 weights=weights)
         mu, prandtl = float(c.mu), float(c.prandtl)
         if mu > 0.0:
@@ -278,8 +292,6 @@ class SubgridCompressibleEulerSolver:
 
     def _step(self, u: torch.Tensor, dt: torch.Tensor):
         c = self.config
-        if c.boundary == "farfield":
-            raise NotImplementedError("farfield boundaries are not ported yet")
         bc = validate_subgrid_bc(c, "CompressibleEulerSolver")
         if self._fused_path():
             viscous = float(c.mu) > 0.0
@@ -289,7 +301,8 @@ class SubgridCompressibleEulerSolver:
                 prandtl=float(c.prandtl), wall=bc["wall"],
                 wall_velocity=bc["wall_velocity"],
                 wall_temperature=bc["wall_temperature"],
-                gravity=tuple(c.gravity), weights=self._face_weights(),
+                farfield=bc["farfield"], gravity=tuple(c.gravity),
+                weights=self._face_weights(), walls=self._wall_sides(),
                 viscous_weights=self._viscous_weights() if viscous else None
             )[0]
         return rk.ssp_rk3(u, self._flux_fn(bc), dt, self.inv_cell_volume)[0]

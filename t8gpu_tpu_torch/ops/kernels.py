@@ -55,11 +55,12 @@ every field log-free.  Counted apart, in `fused_rk_stage.launches_logs`.
 
 fused_flux — replaces fused_flux_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:193): the first-order flux divergence D
-and the per-element max wave speed from precomputed kepes cell-field rows
-(the interior faces, the equal-level mesh faces and the walls, whose
-mirrored field layers ride in as side layers); one thread per cell
-(csrc/fused_fields.cu).  Bound: the bytes, ~202 MB at the flagship shape
-(60 us at 3.35 TB/s).
+and the per-element max wave speed from precomputed kepes, hll or hllc
+cell-field rows (the interior faces, the equal-level mesh faces and the
+walls or open boundaries, whose mirrored or farfield field layers ride in
+as side layers); one thread per cell (csrc/fused_fields.cu, the flux a
+template parameter).  Bound: the bytes, ~202 MB at the flagship shape in
+kepes, ~184 MB in hll/hllc (60 and 55 us at 3.35 TB/s).
 
 fused_rk_stage_fields — replaces fused_rk_stage_fields_pallas (:1329):
 the same divergence from kepes, hll or hllc field rows, the side extras
@@ -72,11 +73,11 @@ Bound: the bytes, ~202 MB (stage 1) and ~246 MB (stages 2-3) at the
 flagship shape (60 and 74 us at 3.35 TB/s).
 
 inner_divergence — replaces inner_divergence_pallas (:1425): the interior
-faces' divergence of a 5-row state through the state-form KEPES flux (six
-logs per face) at extents 2, 4, 8 and 16, and the scalar max wave speed of
-the live elements: the same pencil walk over the interior faces, each
-evaluated once, in slabs of 2 planes at 3D extent 16
-(csrc/inner_divergence.cu).
+faces' divergence of a 5-row state through the state-form flux (KEPES, six
+logs per face; hll; hllc) at extents 2, 4, 8 and 16, and the scalar max
+wave speed of the live elements: the same pencil walk over the interior
+faces, each evaluated once, in slabs of 2 planes at 3D extent 16
+(csrc/inner_divergence.cu, the flux a template parameter).
 
 fused_mhd_muscl — replaces fused_mhd_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:777): the order-2 GLM-MHD divergence of
@@ -107,9 +108,8 @@ KERNEL_EXTENTS = (4, 8)
 INNER_EXTENTS = (2, 4, 8, 16)     # the inner-only kernel's block extents
 MUSCL_LIMITERS = ("minmod", "none")
 MUSCL_SPACES = ("cons", "prim")
-# the fluxes of the stage, field-input stage and MUSCL kernels, by their
-# index in the C entry points (MUSCL: hll/hllc in "cons" only; stage: the
-# 7-row input kepes only)
+# the fluxes of the Euler kernels, by their index in the C entry points
+# (MUSCL: hll/hllc in "cons" only; stage: the 7-row input kepes only)
 CUDA_FLUXES = ("kepes", "hll", "hllc")
 
 
@@ -209,8 +209,8 @@ def _check_f32_contiguous(tensors, what: str):
 
 def _check_cuda_tensors(tensors, flux: str, what: str, fluxes=("kepes",)):
     """Raise ValueError on what an Euler CUDA kernel does not take: a flux
-    outside `fluxes` (kepes alone, but for the MUSCL kernel), another dtype
-    than float32, strided tensors."""
+    outside `fluxes` (the kernels pass CUDA_FLUXES), another dtype than
+    float32, strided tensors."""
     if flux not in fluxes:
         raise ValueError(f"the {what} kernel computes the "
                          f"{'/'.join(fluxes)} flux, not {flux!r}")
@@ -818,9 +818,10 @@ def fused_flux(q: torch.Tensor, weights: torch.Tensor, others, gamma: float,
     C = 10 kepes, 9 hll/hllc); weights [8, E] (row 0 interior cell-face
     area, rows 1+k side k's face weight with the wall area on wall sides,
     row 7 unused); others: 2*dim field side layers [C, *(ext,)*(dim-1), E]
-    (the neighbour's facing layer, or the mirrored own layer on a wall
-    side), side k = 2*axis + (0 hi, 1 lo).  CUDA tensors launch the kernel
-    (kepes), CPU tensors run fused_flux_reference."""
+    (the neighbour's facing layer, the mirrored own layer on a wall side
+    or the farfield ghost's fields on an open one), side k = 2*axis + (0
+    hi, 1 lo).  CUDA tensors launch the kernel (kepes, hll, hllc), CPU
+    tensors run fused_flux_reference."""
     dim, ext, E = _check_fields_inputs(q, None, weights, others, flux)
     dev = q.device
     if dev.type == "cpu":
@@ -828,12 +829,13 @@ def fused_flux(q: torch.Tensor, weights: torch.Tensor, others, gamma: float,
                                     flux=flux)
     if dev.type != "cuda":
         raise ValueError(f"no flux kernel for device {dev}")
-    _check_cuda_tensors([q, weights, *others], flux, "flux")
+    _check_cuda_tensors([q, weights, *others], flux, "flux", CUDA_FLUXES)
 
     D = torch.empty((5,) + q.shape[1:], dtype=q.dtype, device=dev)
     speed = _speed_bits(E, dev)
     _launch(_fields_library(), "t8_fused_fields", dev,
-            [dim, ext, E, q.data_ptr(), weights.data_ptr(),
+            [dim, ext, E, CUDA_FLUXES.index(flux), q.data_ptr(),
+             weights.data_ptr(),
              *_side_pointers(others), D.data_ptr(), speed.data_ptr(),
              float(gamma)], "fused_flux")
     fused_flux.launches += 1
@@ -903,10 +905,11 @@ fused_rk_stage_fields.launches_extras = 0
 
 
 def _fields_library() -> ctypes.CDLL:
-    """The field-input divergence kernel's library: device, dim, ext, E as
-    int; every pointer and the stream as c_void_p; gamma double."""
+    """The field-input divergence kernel's library: device, dim, ext, E,
+    flux (the index in CUDA_FLUXES) as int; every pointer and the stream as
+    c_void_p; gamma double."""
     return _library("fused_fields", "t8_fused_fields",
-                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10
                     + [ctypes.c_double, ctypes.c_void_p])
 
 
@@ -993,8 +996,8 @@ def inner_divergence(u: torch.Tensor, volumes: torch.Tensor, gamma: float,
     state-form flux (ops/euler.numerical_flux): (D [5, *(ext,)*dim, E],
     max wave speed over the interior faces of live elements, a 0-d
     tensor).  u: [5, *(ext,)*dim, E] with ext in 2, 4, 8, 16; volumes
-    [E] (0 on dead slots).  Mesh faces and walls are the caller's.  CUDA
-    tensors launch the kernel (kepes), CPU tensors run
+    [E] (0 on dead slots).  Mesh faces and boundaries are the caller's.
+    CUDA tensors launch the kernel (kepes, hll, hllc), CPU tensors run
     inner_divergence_reference."""
     dim, ext, E = _check_inner_inputs(u, volumes)
     dev = u.device
@@ -1003,13 +1006,15 @@ def inner_divergence(u: torch.Tensor, volumes: torch.Tensor, gamma: float,
     if dev.type != "cuda":
         raise ValueError(f"no inner-divergence kernel for device {dev}")
     surface = interior_surface(volumes, dim, ext)
-    _check_cuda_tensors([u, surface], flux, "inner divergence")
+    _check_cuda_tensors([u, surface], flux, "inner divergence",
+                        CUDA_FLUXES)
 
     D = torch.empty_like(u)
     speed = _speed_bits(1, dev)
     _launch(_inner_library(), "t8_inner_divergence", dev,
-            [dim, ext, E, u.data_ptr(), surface.data_ptr(), D.data_ptr(),
-             speed.data_ptr(), float(gamma)], "inner_divergence")
+            [dim, ext, E, CUDA_FLUXES.index(flux), u.data_ptr(),
+             surface.data_ptr(), D.data_ptr(), speed.data_ptr(),
+             float(gamma)], "inner_divergence")
     inner_divergence.launches += 1
     return D, speed.view(torch.float32)[0]
 
@@ -1018,18 +1023,20 @@ inner_divergence.launches = 0
 
 
 def _inner_library() -> ctypes.CDLL:
-    """The inner-only kernel's library: device, dim, ext, E as int; every
-    pointer and the stream as c_void_p; gamma double."""
+    """The inner-only kernel's library: device, dim, ext, E, flux (the
+    index in CUDA_FLUXES) as int; every pointer and the stream as
+    c_void_p; gamma double."""
     return _library("inner_divergence", "t8_inner_divergence",
-                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
                     + [ctypes.c_double, ctypes.c_void_p])
 
 
-def inner_divergence_attributes(dim: int, ext: int, device: int = 0) -> dict:
-    """The resources of the inner-only kernel at one shape on a card
-    (builds the library), as fused_muscl_attributes."""
+def inner_divergence_attributes(dim: int, ext: int, flux: str = "kepes",
+                                device: int = 0) -> dict:
+    """The resources of the inner-only kernel of one case on a card (builds
+    the library), as fused_muscl_attributes."""
     return _attributes(_inner_library(), "t8_inner_divergence_attributes",
-                       device, [dim, ext])
+                       device, [dim, ext, CUDA_FLUXES.index(flux)])
 
 
 def inner_divergence_reference(u: torch.Tensor, volumes: torch.Tensor,

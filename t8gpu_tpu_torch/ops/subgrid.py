@@ -20,9 +20,14 @@ Counterpart of t8gpu_tpu/ops/subgrid.py, for the solvers' paths:
   * second order (MUSCL): per RK stage, gather each side's neighbor facing
     and second layer (`muscl_side_slabs`; the kernel's weights,
     `muscl_weights`, are built once per mesh), run one divergence kernel
-    (`ops/kernels.fused_muscl`), add the reflective walls' first-order
+    (`ops/kernels.fused_muscl`), add the boundaries' first-order
     fluxes (`boundary_apply`), and update the state with plain torch ops
     (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
+
+Open (farfield) boundaries: every path takes `farfield` (rho, vx, vy, vz,
+p), the exterior state whose ghost column (`farfield_state_rows`,
+`farfield_field_rows`) takes the mirrored layer's place on the boundary
+sides of the kernels' side layers and in `boundary_apply`.
 
 Navier-Stokes and gravity: `ssp_rk3_fused` passes mu, the viscous side
 table (`viscous_weight_rows`, once per mesh) and the gravity vector to the
@@ -47,6 +52,9 @@ order.  Side k = 2*axis + (0 for the +axis side, 1 for the -axis side).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
@@ -144,12 +152,22 @@ def _expand_compact(contrib: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 
 def _wall_masks(conn, spec: SubgridSpec, volumes: torch.Tensor):
-    """Per side, 1.0 where a live element's side is a reflective wall
-    (side-table mask 0), else 0.  None on meshes without walls."""
+    """Per side, 1.0 where a live element's side is a domain boundary
+    (side-table mask 0: a reflective wall or an open side), else 0.  None
+    on meshes without boundaries."""
     if not conn.b_groups:
         return None
     live = (volumes > 0).to(volumes.dtype)
     return tuple((conn.mask[k] == 0) * live for k in range(2 * spec.dim))
+
+
+def wall_sides(conn, spec: SubgridSpec, volumes: torch.Tensor):
+    """Per side, a bool [E]: True where a live element's side is a domain
+    boundary; None on meshes without boundaries.  It depends on the mesh
+    only, so the solver builds it once per mesh (`_state_side_layers`
+    takes it)."""
+    walls = _wall_masks(conn, spec, volumes)
+    return None if walls is None else tuple(w > 0 for w in walls)
 
 
 def _mirror_rows(layer: torch.Tensor, axis: int) -> torch.Tensor:
@@ -162,16 +180,22 @@ def _mirror_rows(layer: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
-                       volumes: torch.Tensor) -> tuple:
+                       volumes: torch.Tensor, ghost: torch.Tensor = None,
+                       walls=None) -> tuple:
     """Per side, the resolved equal-level or coarser neighbour's facing
     layer as slabs [C, *t_ext, E] (C the rows of u: 5, or 7 with the log
     rows, or cell-field rows): the +axis side reads the neighbour's cell
     0 along the axis, the -axis side its cell ext-1; a coarser
     neighbour's layer is sampled at my resolution (`_coarse_window`, a
-    cell selection, so exact on states and fields alike).  Wall sides get
-    the mirrored own facing layer."""
+    cell selection, so exact on states and fields alike).  Boundary sides
+    get the mirrored own facing layer (reflective walls) or, when `ghost`
+    ([C], `farfield_state_rows` or the stacked `farfield_field_rows`) is
+    given, the prescribed exterior column (open boundaries).  `walls`:
+    `wall_sides`, built once per mesh by the caller (or here).  The JAX
+    package's _state_side_layers (t8gpu_tpu/ops/subgrid.py:424)."""
     ext = spec.extent
-    walls = _wall_masks(conn, spec, volumes)
+    if walls is None:
+        walls = wall_sides(conn, spec, volumes)
     others = []
     for a in range(spec.dim):
         for s_i, hi in ((0, True), (1, False)):
@@ -184,9 +208,12 @@ def _state_side_layers(u: torch.Tensor, conn, spec: SubgridSpec,
                                    _coarse_window(base, conn.bits[k], spec),
                                    base)
             if walls is not None:
-                wall_b = walls[k] > 0
-                own_layer = u.select(1 + a, ext - 1 if hi else 0)
-                base = torch.where(wall_b, _mirror_rows(own_layer, a), base)
+                if ghost is not None:
+                    sub = ghost.reshape((-1,) + (1,) * (base.dim() - 1))
+                else:
+                    sub = _mirror_rows(u.select(1 + a, ext - 1 if hi else 0),
+                                       a)
+                base = torch.where(walls[k], sub, base)
             others.append(base)
     return tuple(others)
 
@@ -284,26 +311,73 @@ def append_log_rows(u: torch.Tensor, gamma: float) -> torch.Tensor:
     return torch.cat([u, torch.log(rho)[None], torch.log(p)[None]], dim=0)
 
 
+def farfield_state_rows(farfield, gamma: float, n_rows: int, dtype,
+                        device=None) -> torch.Tensor:
+    """The ghost state column [C] of open (farfield) boundaries: the
+    prescribed exterior primitive (rho, vx, vy, vz, p) as conservative
+    rows, plus [log rho, log p] for the 7-row "logs" stage input, computed
+    in float64 and rounded to dtype once.  The JAX package's
+    farfield_state_rows (t8gpu_tpu/ops/subgrid.py:792).  Built once per
+    case and device and kept: a host-to-device copy in every step would
+    wait for the device."""
+    return _farfield_state_rows(tuple(float(x) for x in farfield),
+                                float(gamma), int(n_rows), dtype,
+                                torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _farfield_state_rows(farfield, gamma, n_rows, dtype, device):
+    rho, vx, vy, vz, p = farfield
+    e = p / (gamma - 1.0) + 0.5 * rho * (vx * vx + vy * vy + vz * vz)
+    rows = [rho, rho * vx, rho * vy, rho * vz, e]
+    if n_rows == 7:
+        rows += [np.log(rho), np.log(p)]
+    return torch.as_tensor(np.array(rows, np.float64)).to(dtype=dtype,
+                                                          device=device)
+
+
+def farfield_field_rows(farfield, gamma: float, flux: str, dtype,
+                        device=None) -> tuple:
+    """The ghost cell-field rows (a tuple of [1] rows, unrotated) of the
+    prescribed exterior state: the ghost operand of the field-input paths
+    (`pallas_side_inputs`, `boundary_apply`).  The JAX package's
+    farfield_field_rows (t8gpu_tpu/ops/subgrid.py:807); kept per case and
+    device as farfield_state_rows."""
+    return _farfield_field_rows(tuple(float(x) for x in farfield),
+                                float(gamma), flux, dtype,
+                                torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _farfield_field_rows(farfield, gamma, flux, dtype, device):
+    u = _farfield_state_rows(farfield, gamma, 5, dtype, device)[:, None]
+    return cell_fields_tuple(tuple(u[i] for i in range(5)), gamma, flux)
+
+
 def pallas_side_inputs(q, conn, spec: SubgridSpec, volumes: torch.Tensor,
-                       dt_inv=None, ghost_fields=None, weights=None):
+                       dt_inv=None, ghost_fields=None, weights=None,
+                       walls=None):
     """Inputs of the field-input kernels (ops/kernels.fused_flux,
     fused_rk_stage_fields): per side the equal-level neighbour's facing
-    layer of the cell-field rows [C, *t_ext, E] (unrotated; a wall side
-    carries the mirrored own layer), and the packed weights [8, E]: rows
-    0-6 `face_weight_rows` (the wall area on wall sides), row 7 dt_inv
-    (dt * inv_cell_volume, for the stage kernel) or zero.
+    layer of the cell-field rows [C, *t_ext, E] (unrotated; a boundary
+    side carries the mirrored own layer, or the exterior state's field
+    rows `ghost_fields`, a tuple of [1] rows from `farfield_field_rows`:
+    open boundaries), and the packed weights [8, E]: rows 0-6
+    `face_weight_rows` (the wall area on boundary sides), row 7 dt_inv
+    (dt * inv_cell_volume, for the stage kernel) or zero.  The JAX
+    package's pallas_side_inputs (t8gpu_tpu/ops/subgrid.py:309).
 
     q: the cell fields, a stacked [C, *ext, E] tensor or a tuple of rows.
-    weights: `face_weights`, which depends on the mesh only and may be
-    built once by the caller.  A coarser neighbour's layer is sampled at
-    my resolution (`_state_side_layers`); hanging-fine faces are not in
-    these inputs (`fine_side_extras`, `outer_fine_apply`).  Prescribed
-    exterior fields (`ghost_fields`, farfield) raise NotImplementedError."""
-    if ghost_fields is not None:
-        raise NotImplementedError("farfield boundaries are not ported yet")
+    weights: `face_weights`, and walls: `wall_sides`, which depend on the
+    mesh only and may be built once by the caller.  A coarser neighbour's
+    layer is sampled at my resolution (`_state_side_layers`); hanging-fine
+    faces are not in these inputs (`fine_side_extras`,
+    `outer_fine_apply`)."""
     if isinstance(q, tuple):
         q = torch.stack(q)
-    others = _state_side_layers(q, conn, spec, volumes)
+    ghost = None if ghost_fields is None else torch.cat(ghost_fields)
+    others = _state_side_layers(q, conn, spec, volumes, ghost=ghost,
+                                walls=walls)
     if weights is None:
         weights = face_weights(conn, spec, volumes)
     if dt_inv is not None:
@@ -415,18 +489,18 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
                   prandtl: float = 0.72, wall: str = "slip",
                   wall_velocity=(0.0, 0.0, 0.0), wall_temperature=None,
                   farfield=None, gravity=(0.0, 0.0, 0.0), weights=None,
-                  viscous_weights=None):
+                  viscous_weights=None, walls=None):
     """One SSP-RK3 step, every stage one call of a stage kernel; the side
     layers are regathered between stages.  RK_STAGE_INPUTS, read here,
     selects what the stages read: "state", "logs" (kepes; other fluxes
     take "state") or "fields" (see RK_STAGE_INPUTS).  `dt` may be a 0-d
     device tensor: it enters only through weight row 7, so the step never
     waits for the device.  `weights`: `face_weights`, built once per mesh
-    by the caller (or here); `viscous_weights`: `viscous_weight_rows`, the
-    same.  On meshes with finer neighbours every stage adds the
-    hanging-fine faces as the stage kernel's side extras
-    (`fine_side_extras`, from the stage's state in every mode); coarser
-    neighbours ride in the side layers.
+    by the caller (or here); `viscous_weights`: `viscous_weight_rows`, and
+    `walls`: `wall_sides`, the same.  On meshes with finer neighbours
+    every stage adds the hanging-fine faces as the stage kernel's side
+    extras (`fine_side_extras`, from the stage's state in every mode);
+    coarser neighbours ride in the side layers.
 
     mu > 0 adds the stage kernel's viscous divergence (equal-level
     faces), with the hanging 2:1 and no-slip wall viscous fluxes merged
@@ -437,11 +511,12 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
     neither.  Returns (u_next, max wave speed of stage 1 as a 0-d tensor,
     the hanging faces' included).
 
+    `farfield` (rho, vx, vy, vz, p): open boundaries, whose sides read the
+    exterior state's ghost column (`farfield_state_rows`; 7 rows with
+    "logs", field rows with "fields") in place of the mirrored layer.
+
     Raises ValueError on an unknown RK_STAGE_INPUTS, and
-    NotImplementedError for what the port does not have yet: farfield
-    boundaries, other extents than 4 and 8."""
-    if farfield is not None:
-        raise NotImplementedError("farfield boundaries are not ported yet")
+    NotImplementedError for other extents than 4 and 8."""
     mode = RK_STAGE_INPUTS
     if mode not in STAGE_INPUT_MODES:
         raise ValueError(f"unknown RK_STAGE_INPUTS {mode!r}; expected one "
@@ -458,12 +533,23 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
         weights = face_weights(conn, spec, volumes)
     if viscous and viscous_weights is None:
         viscous_weights = viscous_weight_rows(conn, spec, volumes)
+    if walls is None:
+        walls = wall_sides(conn, spec, volumes)
     dt_inv = dt * inv_cell_volume
     w = with_dt_row(weights, dt_inv)
 
     any_fine = any(conn.has_fine)
     any_hang = any_fine or any(conn.has_coarse)
     noslip = viscous and wall == "noslip" and bool(conn.b_groups)
+    ghost = ghost_q = None
+    if farfield is not None and conn.b_groups:
+        if use_fields:
+            ghost_q = farfield_field_rows(farfield, gamma, flux, u.dtype,
+                                          u.device)
+        else:
+            ghost = farfield_state_rows(farfield, gamma,
+                                        7 if use_logs else 5, u.dtype,
+                                        u.device)
     physics = {}
     if viscous:
         physics = dict(viscous_weights=viscous_weights, mu=float(mu),
@@ -486,7 +572,9 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
         if use_fields:
             q = torch.stack(cell_fields_tuple(u_stage, gamma, flux))
             others, w_q = pallas_side_inputs(q, conn, spec, volumes,
-                                             dt_inv=dt_inv, weights=weights)
+                                             dt_inv=dt_inv,
+                                             ghost_fields=ghost_q,
+                                             weights=weights, walls=walls)
             u_n, sp = fused_rk_stage_fields(q, u_prev, w_q, others,
                                             gamma=gamma, flux=flux,
                                             coeffs=coeffs, extra_sides=sides,
@@ -494,7 +582,8 @@ def ssp_rk3_fused(u: torch.Tensor, volumes: torch.Tensor, conn,
         else:
             if use_logs:
                 u_stage = append_log_rows(u_stage, gamma)
-            others = _state_side_layers(u_stage, conn, spec, volumes)
+            others = _state_side_layers(u_stage, conn, spec, volumes,
+                                        ghost=ghost, walls=walls)
             u_n, sp = fused_rk_stage(u_stage, u_prev, w, others, gamma=gamma,
                                      flux=flux, coeffs=coeffs,
                                      extra_sides=sides, extras=extras,
@@ -526,18 +615,28 @@ def _slab_add(D: torch.Tensor, contrib: torch.Tensor, axis: int,
 
 
 def boundary_apply(D: torch.Tensor, q_flat: tuple, conn, spec: SubgridSpec,
-                   gamma: float, flux: str):
-    """Reflective-wall fluxes added into the block divergence: per wall
-    group, the owner's cell fields against their mirror (negated normal
-    velocity), weighted by the wall face area and scattered back by the
-    group's receive map.  q_flat: the cell-fields tuple with each row
-    flattened to [cells].  Returns (D, max wall wave speed)."""
+                   gamma: float, flux: str, ghost_fields=None):
+    """Boundary fluxes added into the block divergence: per boundary
+    group, the owner's cell fields against a ghost, weighted by the face
+    area and scattered back by the group's receive map.  The ghost is the
+    owner's mirror (negated normal velocity: reflective walls) or, with
+    `ghost_fields` (a tuple of [1] field rows, unrotated:
+    `farfield_field_rows`), the prescribed exterior state rotated into
+    the face frame (open boundaries; the upwind flux sorts inflow from
+    outflow).  The owner is the left state on +axis sides, the right one
+    on -axis sides.  q_flat: the cell-fields tuple with each row flattened
+    to [cells].  Returns (D, max boundary wave speed).  The JAX package's
+    boundary_apply (t8gpu_tpu/ops/subgrid.py:822)."""
     speed = torch.zeros((), dtype=D.dtype, device=D.device)
     for (axis, sign), bc, ar, br in zip(conn.b_groups, conn.b_cell,
                                         conn.b_area, conn.b_recv):
         q_own = axis_rotate(tuple(torch.index_select(r, 0, bc)
                                   for r in q_flat), axis)
-        q_ghost = fields_mirror(q_own)
+        if ghost_fields is None:
+            q_ghost = fields_mirror(q_own)
+        else:
+            q_ghost = axis_rotate(tuple(g.expand(o.shape) for g, o in
+                                        zip(ghost_fields, q_own)), axis)
         if sign > 0:   # outward normal +axis: the owner is the left state
             f, sp = fields_flux(q_own, q_ghost, gamma=gamma, flux=flux)
         else:
@@ -594,16 +693,15 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
 
     Per-axis limited linear reconstruction ("minmod" or "none"; a "-prim"
     suffix reconstructs in primitive space).  Interior and equal-level
-    mesh faces are one call of the MUSCL kernel; reflective walls add the
-    first-order closure (`boundary_apply`).  `weights` (muscl_weights)
-    may be passed in, since they depend on the mesh only.
+    mesh faces are one call of the MUSCL kernel; the boundaries add the
+    first-order closure (`boundary_apply`: reflective walls, or open ones
+    against the `farfield` state).  `weights` (muscl_weights) may be
+    passed in, since they depend on the mesh only.
 
     Raises NotImplementedError on what is not ported yet: coarser/finer
     neighbors (AMR, whose hanging faces take outer_apply's first-order
-    passes), farfield boundaries, extents other than 4 and 8."""
+    passes), extents other than 4 and 8."""
     _require_uniform(conn, "order 2")
-    if farfield is not None:
-        raise NotImplementedError("farfield boundaries are not ported yet")
     if spec.extent not in (4, 8):
         raise NotImplementedError(
             f"the MUSCL kernel takes extents 4 and 8, not {spec.extent}")
@@ -617,8 +715,11 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
     speed = sp_e.max()
     if conn.b_groups:
         q = cell_fields_tuple(u, gamma, flux)
+        ghost_f = (None if farfield is None else
+                   farfield_field_rows(farfield, gamma, flux, u.dtype,
+                                       u.device))
         D, sp_b = boundary_apply(D, tuple(r.reshape(-1) for r in q), conn,
-                                 spec, gamma, flux)
+                                 spec, gamma, flux, ghost_fields=ghost_f)
         speed = torch.maximum(speed, sp_b)
     return D, speed
 
@@ -736,17 +837,21 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
       None at another extent, or False: the torch stencil,
         `inner_divergence_fields`, `outer_apply`, `boundary_apply`.
     CUDA tensors launch the kernels, CPU tensors run their plain versions.
+    `farfield` (rho, vx, vy, vz, p): open boundaries, their faces against
+    the exterior state's fields (`farfield_field_rows`) in every dispatch.
     `weights`: `face_weights`, built once per mesh by the caller (or
     here).  On AMR meshes the kernel path takes the coarser neighbours in
     its side layers and the finer ones in `outer_fine_apply`; the
-    stencil paths (extents 2 and 16, use_kernel=False) and farfield
-    boundaries raise NotImplementedError."""
-    if farfield is not None:
-        raise NotImplementedError("farfield boundaries are not ported yet")
+    stencil paths (extents 2 and 16, use_kernel=False) raise
+    NotImplementedError there.  The JAX package's flux_divergence
+    (t8gpu_tpu/ops/subgrid.py:854)."""
+    ghost_f = (None if farfield is None else
+               farfield_field_rows(farfield, gamma, flux, u.dtype, u.device))
     q = cell_fields_tuple(u, gamma, flux)
     if use_kernel in (None, True) and spec.extent in (4, 8):
         qs = torch.stack(q)
         others, w = pallas_side_inputs(qs, conn, spec, volumes,
+                                       ghost_fields=ghost_f,
                                        weights=weights)
         D, sp_e = fused_flux(qs, w, others, gamma=gamma, flux=flux)
         sp_i = sp_e.max()
@@ -760,7 +865,8 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
         D, sp_o = outer_apply(D, q, conn, spec, volumes, gamma, flux)
         if conn.b_groups:
             D, sp_b = boundary_apply(D, tuple(r.reshape(-1) for r in q),
-                                     conn, spec, gamma, flux)
+                                     conn, spec, gamma, flux,
+                                     ghost_fields=ghost_f)
             sp_o = torch.maximum(sp_o, sp_b)
     return D, torch.maximum(sp_i, sp_o)
 

@@ -3,10 +3,10 @@
 `EulerConfig` carries the JAX package's fields that the port reads, with
 the same names and defaults, so that one configuration means the same run
 in both packages: the Navier-Stokes terms (mu, prandtl), the viscous wall
-model (wall, a uniform wall_velocity tuple, wall_temperature) and the
-gravity source among them.  The solver raises `NotImplementedError` for
-farfield boundaries, whose path is not ported yet.  `AMRConfig` is the
-JAX package's, field for field.
+model (wall, a uniform wall_velocity tuple, wall_temperature), the
+gravity source and the open boundaries (boundary="farfield" with the
+exterior state farfield=(rho, vx, vy, vz, p)) among them.  `AMRConfig`
+is the JAX package's, field for field.
 """
 
 from __future__ import annotations

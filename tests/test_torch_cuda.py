@@ -502,21 +502,21 @@ def test_cuda_logs_stage_matches_reference(cuda, dim, ext):
 @pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
 @pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
 def test_cuda_fields_kernels_match_reference(cuda, dim, ext, flux):
-    """The field-input stage (every stage, share_prev both ways) on the
-    flux's cell fields of seeded states, bit for bit against its plain
-    version, with no spills; in kepes also the field-input divergence."""
+    """The field-input stage (every stage, share_prev both ways) and the
+    field-input divergence on the flux's cell fields of seeded states, bit
+    for bit against their plain versions and on repeat, with no spills."""
     E, n_guard = 1000, 37
     u, up, w, others = _card_stage_inputs(cuda, dim + ext + 2, dim, ext, E,
                                           n_guard)
     q = torch.stack(cell_fields_tuple(u, GAMMA, flux))
     oq = [torch.stack(cell_fields_tuple(o, GAMMA, flux)) for o in others]
-    if flux == "kepes":
-        before = fused_flux.launches
-        k1 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
-        k2 = fused_flux(q, w, oq, gamma=GAMMA, flux="kepes")
-        assert fused_flux.launches == before + 2
-        _check_pair(k1, k2, fused_flux_reference(q, w, oq, gamma=GAMMA,
-                                                 flux="kepes"), n_guard)
+    before = fused_flux.launches
+    k1 = fused_flux(q, w, oq, gamma=GAMMA, flux=flux)
+    k2 = fused_flux(q, w, oq, gamma=GAMMA, flux=flux)
+    assert fused_flux.launches == before + 2
+    ref = fused_flux_reference(q, w, oq, gamma=GAMMA, flux=flux)
+    _check_pair(k1, k2, ref, n_guard)
+    assert _bits_equal(k1[0], ref[0]) and _bits_equal(k1[1], ref[1])
     for share_prev, coeffs in STAGES:
         prev = None if share_prev else up
         kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs)
@@ -562,11 +562,12 @@ def test_cuda_fields_stage_conserves_mesh_faces(cuda, ext, flux):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
 @pytest.mark.parametrize("ext", [2, 4, 8, 16])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_cuda_inner_divergence_matches_reference(cuda, dim, ext):
-    """Every block extent of the inner-only kernel; dead slots (volume 0)
-    get D = 0 and add no speed."""
+def test_cuda_inner_divergence_matches_reference(cuda, dim, ext, flux):
+    """Every block extent and flux of the inner-only kernel; dead slots
+    (volume 0) get D = 0 and add no speed."""
     E, n_guard = 200 if (dim, ext) == (3, 16) else 1000, 37
     rng = np.random.default_rng(dim * 100 + ext)
     u = torch.from_numpy(random_state(rng, (ext,) * dim + (E,))).to(cuda)
@@ -574,17 +575,17 @@ def test_cuda_inner_divergence_matches_reference(cuda, dim, ext):
     vol[-n_guard:] = 0.0
     vol = torch.from_numpy(vol).to(cuda)
     before = inner_divergence.launches
-    d1, s1 = inner_divergence(u, vol, GAMMA, "kepes")
-    d2, s2 = inner_divergence(u, vol, GAMMA, "kepes")
+    d1, s1 = inner_divergence(u, vol, GAMMA, flux)
+    d2, s2 = inner_divergence(u, vol, GAMMA, flux)
     assert inner_divergence.launches == before + 2
-    rd, rs = inner_divergence_reference(u, vol, GAMMA, "kepes")
+    rd, rs = inner_divergence_reference(u, vol, GAMMA, flux)
     torch.cuda.synchronize()
     assert s1.dim() == 0 and _bits_equal(d1, d2) and _bits_equal(s1, s2)
     assert (d1[..., -n_guard:] == 0).all()
     np.testing.assert_allclose(d1.cpu().numpy(), rd.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(float(s1), float(rs), rtol=RTOL)
-    assert inner_divergence_attributes(dim, ext)["spill_bytes"] == 0
+    assert inner_divergence_attributes(dim, ext, flux)["spill_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -616,13 +617,13 @@ def test_cuda_new_kernels_reject_unsupported(cuda):
     u, up, w, others = _card_stage_inputs(cuda, 0, 3, 4, 64, 0)
     q = torch.stack(cell_fields_tuple(u, GAMMA, "hll"))
     oq = [torch.stack(cell_fields_tuple(o, GAMMA, "hll")) for o in others]
-    with pytest.raises(ValueError, match="kepes"):
-        fused_flux(q, w, oq, gamma=GAMMA, flux="hll")
+    with pytest.raises(ValueError, match="flux"):
+        fused_flux(q, w, oq, gamma=GAMMA, flux="roe")
     with pytest.raises(ValueError, match="flux"):
         fused_rk_stage_fields(q, up, w, oq, gamma=GAMMA, flux="roe",
                               coeffs=STAGE_2)
-    with pytest.raises(ValueError, match="kepes"):
-        inner_divergence(u, w[0], GAMMA, "hll")
+    with pytest.raises(ValueError, match="hllc flux, not 'roe'"):
+        inner_divergence(u, w[0], GAMMA, "roe")
     q = torch.stack(cell_fields_tuple(u, GAMMA, "kepes"))
     oq = [torch.stack(cell_fields_tuple(o, GAMMA, "kepes")) for o in others]
     with pytest.raises(ValueError, match="float32"):
@@ -1114,3 +1115,61 @@ def test_cuda_viscous_solver_matches_cpu(cuda, dim, level, ext, periodic, kw):
     assert fused_rk_stage.launches_gravity == before[1] + 9 * gravity
     np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
                                rtol=RTOL, atol=ATOL)
+
+
+# -- open (farfield) boundaries ------------------------------------------------
+
+FF = (1.0, 0.5, 0.0, 0.0, 1.0)      # the JAX package's tests/test_farfield.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ext,kw", [
+    ("state", 8, dict(flux="hllc")), ("state", 4, dict(flux="kepes")),
+    ("logs", 8, dict(flux="kepes")), ("fields", 4, dict(flux="hllc")),
+    ("state", 8, dict(flux="hllc", order=2)),
+    ("state", 4, dict(flux="hll", mu=1e-3)),
+    ("state", 8, dict(flux="hllc", gravity=(0.0, -0.1, 0.0))),
+    ("state", 2, dict(flux="hllc")), ("state", 16, dict(flux="hll"))],
+    ids=["state-hllc", "state-kepes", "logs", "fields-hllc", "order2",
+         "viscous", "gravity", "ext2", "ext16"])
+def test_cuda_farfield_solver_matches_cpu(cuda, mode, ext, kw):
+    """Three steps on open boundaries on the card against the CPU, in 3D
+    (2D at extent 16), with exactly one launch per stage of the stage
+    input's kernel on the fused path; and flux_divergence(farfield=) in
+    the flux through the field-input kernel (extents 4 and 8) or the
+    inner-only kernel (use_kernel=True, extents 2 and 16), one launch."""
+    dim = 2 if ext == 16 else 3
+    mesh = SubgridMesh.from_forest(Forest.uniform(1 if dim == 3 else 2,
+                                                  dim=dim, periodic=False),
+                                   SubgridSpec((ext,) * dim))
+    config = EulerConfig(boundary="farfield", farfield=FF, **kw)
+    gpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 11),
+                                         config=config)
+    cpu = SubgridCompressibleEulerSolver(mesh, noisy_kh(dim, 11),
+                                         config=config, device="cpu")
+    dt = cpu.compute_timestep()
+    name = {"state": "launches", "logs": "launches_logs"}.get(mode)
+    wrapper = fused_rk_stage if name else fused_rk_stage_fields
+    before = getattr(wrapper, name or "launches")
+    old, tsg.RK_STAGE_INPUTS = tsg.RK_STAGE_INPUTS, mode
+    try:
+        gpu.iterate_many(3, dt)
+        cpu.iterate_many(3, dt)
+    finally:
+        tsg.RK_STAGE_INPUTS = old
+    fused = config.order == 1 and ext in (4, 8)
+    assert getattr(wrapper, name or "launches") == before + 9 * fused
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    kernel = fused_flux if ext in (4, 8) else inner_divergence
+    before = kernel.launches
+    args = (GAMMA, config.flux)
+    dk, sk = tsg.flux_divergence(gpu.u, gpu.volumes, gpu.conn, gpu.spec,
+                                 *args, use_kernel=True, farfield=FF)
+    assert kernel.launches == before + 1
+    dc, sc = tsg.flux_divergence(gpu.u.cpu(), cpu.volumes, cpu.conn,
+                                 cpu.spec, *args, use_kernel=True,
+                                 farfield=FF)
+    np.testing.assert_allclose(dk.cpu().numpy(), dc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(float(sk), float(sc), rtol=RTOL)

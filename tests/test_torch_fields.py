@@ -23,13 +23,14 @@ its non-fused first-order divergence against the JAX package, on the CPU.
 (e) three solver steps with RK_STAGE_INPUTS "fields" and "logs", at
     extents 16 (2D) and 2 (3D), and in float64, against the JAX solver's
     step: rtol 2e-5, atol 2e-6;
-(f) what the port refuses: AMR meshes on the torch stencil, farfield,
-    unknown stage inputs.
+(f) what the port refuses: AMR meshes on the torch stencil (with open
+    boundaries too), unknown stage inputs.
 
-The JAX side runs op by op (tests/torch_port_jax `op_by_op`), as in
-tests/test_torch_solver.py.  Op by op, each primitive compiles once per
-shape, so the tests share four meshes and cache the JAX results they
-reuse.  The CUDA kernels themselves are held against their plain versions
+The JAX field and flux math runs op by op (tests/torch_port_jax
+`op_by_op`), each primitive compiled once per shape; the JAX divergences
+(one program per mesh and flux, compiled FAST) serve (c) and the solver
+steps of (e).  The tests share four meshes and cache the JAX results
+they reuse.  The CUDA kernels themselves are held against their plain versions
 in tests/test_torch_cuda.py (card only).
 """
 
@@ -103,10 +104,10 @@ def _port(case, **config):
 def _jax_program(case, flux):
     """The JAX package's divergences on the shared mesh, v -> ((D, speed)
     of flux_divergence on its XLA path, (D, speed) of inner_divergence, or
-    None on the 3D extent-4 mesh).  Jitted as one program, compiled FAST
-    (tests/torch_port_jax), on the meshes with few shapes, where one
-    compile costs less than op by op; op by op on the 3D extent-4 mesh,
-    where the jitted program takes ~12 s to compile."""
+    None on the 3D extent-4 mesh), jitted as one program and compiled FAST
+    (tests/torch_port_jax): on the 3D extent-4 mesh, without the inner
+    divergence, one compile costs less than the ten evaluations op by op
+    of (c) and (e)."""
     js, _ = _pair(case)
 
     def program(v):
@@ -115,11 +116,6 @@ def _jax_program(case, flux):
         if case == WALLED_3D_4:
             return div, None
         return div, jsg.inner_divergence(v, js.volumes, js.spec, GAMMA, flux)
-    if case == WALLED_3D_4:
-        def eager(v):
-            with op_by_op():
-                return program(v)
-        return eager
     return jax.jit(program).lower(js.u).compile(compiler_options=FAST)
 
 
@@ -401,21 +397,22 @@ def _hanging_conn(ext=4):
 def test_refusals(mode):
     """What is not ported raises, in every stage-input mode and in
     flux_divergence's dispatches: AMR meshes on the torch stencil (extent
-    2 here; the stage kernels' extents 4 and 8 take them), farfield
-    boundaries, unknown stage inputs."""
+    2 here; the stage kernels' extents 4 and 8 take them), with open
+    boundaries too; unknown stage inputs.  (Open boundaries themselves
+    run: tests/test_torch_farfield.py.)"""
     amr = SubgridCompressibleEulerSolver(_hanging_conn(ext=2),
                                          noisy_kh(2, 1), device="cpu")
     ts = _port(WALLED_2D_4)
-    q = torch.stack(teu.cell_fields_tuple(ts.u, GAMMA, "kepes"))
+    ff = (1.0, 0.0, 0.0, 0.0, 1.0)
     old = tsg.RK_STAGE_INPUTS
     try:
         tsg.RK_STAGE_INPUTS = mode
         with pytest.raises(NotImplementedError, match="AMR"):
             amr.iterate(1e-4)
-        with pytest.raises(NotImplementedError, match="farfield"):
-            tsg.ssp_rk3_fused(ts.u, ts.volumes, ts.conn, ts.spec, GAMMA,
-                              "kepes", 1e-4, ts.inv_cell_volume,
-                              farfield=(1.0, 0.0, 0.0, 0.0, 1.0))
+        amr.config = EulerConfig(boundary="farfield", farfield=ff)
+        with pytest.raises(NotImplementedError, match="AMR"):
+            amr.iterate(1e-4)
+        amr.config = EulerConfig()
         tsg.RK_STAGE_INPUTS = "field"
         with pytest.raises(ValueError, match="RK_STAGE_INPUTS"):
             ts.iterate(1e-4)
@@ -425,13 +422,10 @@ def test_refusals(mode):
         with pytest.raises(NotImplementedError, match="AMR"):
             tsg.flux_divergence(amr.u, amr.volumes, amr.conn, amr.spec,
                                 GAMMA, "kepes", use_kernel=use_kernel)
-        with pytest.raises(NotImplementedError, match="farfield"):
-            tsg.flux_divergence(ts.u, ts.volumes, ts.conn, ts.spec, GAMMA,
-                                "kepes", use_kernel=use_kernel,
-                                farfield=(1.0, 0.0, 0.0, 0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="farfield"):
-        tsg.pallas_side_inputs(q, ts.conn, ts.spec, ts.volumes,
-                               ghost_fields=tuple(q[:, 0, 0, :1]))
+        with pytest.raises(NotImplementedError, match="AMR"):
+            tsg.flux_divergence(amr.u, amr.volumes, amr.conn, amr.spec,
+                                GAMMA, "kepes", use_kernel=use_kernel,
+                                farfield=ff)
     amr4 = SubgridCompressibleEulerSolver(_hanging_conn(), noisy_kh(2, 1),
                                           device="cpu")
     with pytest.raises(NotImplementedError, match="AMR"):
@@ -474,7 +468,7 @@ def test_new_libraries_declare_c_signature(monkeypatch, which):
     """Every pointer and the stream go to the field-input divergence,
     inner-only and field-input stage C entry points as c_void_p (an
     undeclared ctypes argument is a 32-bit int and cuts a pointer); the
-    field-input stage takes the flux's index in CUDA_FLUXES."""
+    three take the flux's index in CUDA_FLUXES."""
     import ctypes
     import types
 
@@ -490,10 +484,10 @@ def test_new_libraries_declare_c_signature(monkeypatch, which):
                         lambda name: loaded.append(name) or fake)
     if which == "fields":
         args = kernels._fields_library().t8_fused_fields.argtypes
-        assert args[:4] == [ctypes.c_int] * 4     # device, dim, ext, E
-        assert args[4:14] == [ctypes.c_void_p] * 10   # q, w, 6 sides, D, speed
-        assert args[14] is ctypes.c_double
-        assert args[15] is ctypes.c_void_p and len(args) == 16
+        assert args[:5] == [ctypes.c_int] * 5     # device, dim, ext, E, flux
+        assert args[5:15] == [ctypes.c_void_p] * 10   # q, w, 6 sides, D, speed
+        assert args[15] is ctypes.c_double
+        assert args[16] is ctypes.c_void_p and len(args) == 17
     elif which == "stage_fields":
         args = kernels._stage_fields_library().t8_fused_rk_stage_fields.argtypes
         assert loaded == ["fused_rk_stage"]       # the stage kernel's library
@@ -506,9 +500,9 @@ def test_new_libraries_declare_c_signature(monkeypatch, which):
         assert kernels.CUDA_FLUXES == ("kepes", "hll", "hllc")
     else:
         args = kernels._inner_library().t8_inner_divergence.argtypes
-        assert args[:4] == [ctypes.c_int] * 4     # device, dim, ext, E
-        assert args[4:8] == [ctypes.c_void_p] * 4     # u, surface, D, speed
-        assert args[8] is ctypes.c_double
-        assert args[9] is ctypes.c_void_p and len(args) == 10
+        assert args[:5] == [ctypes.c_int] * 5     # device, dim, ext, E, flux
+        assert args[5:9] == [ctypes.c_void_p] * 4     # u, surface, D, speed
+        assert args[9] is ctypes.c_double
+        assert args[10] is ctypes.c_void_p and len(args) == 11
     assert fake.t8_cuda_error_string.restype is ctypes.c_char_p
     assert set(_build.SOURCES) >= {"fused_fields", "inner_divergence"}

@@ -223,8 +223,8 @@ def test_attributes_declare_c_signature(monkeypatch, which):
         got = kernels.fused_mhd_flux_attributes(2, 8)
         case = (0, 2, 8)              # device dim ext
     else:
-        got = kernels.inner_divergence_attributes(3, 16)
-        case = (0, 3, 16)             # device dim ext
+        got = kernels.inner_divergence_attributes(3, 16, flux="hllc")
+        case = (0, 3, 16, 2)          # device dim ext flux
     assert got == dict(registers=88, spill_bytes=0, threads=128,
                        smem_bytes=69632)
     assert entry.args[:-1] == case

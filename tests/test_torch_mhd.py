@@ -16,9 +16,10 @@
 (d) `SubgridMHDSolver`, 3 steps from the same state against the JAX
     solver at order 1 and 2 (minmod and none), periodic and with
     conductor walls (rtol 2e-5, atol 2e-6); `solver_arrays` with 9 rows.
-The JAX solver steps op by op (tests/torch_port_jax `op_by_op`): the same
-arithmetic without XLA's fusion, and a fraction of the compile time of the
-whole jitted step, which keeps this file inside its time budget.  The CUDA
+The JAX solver takes its timestep op by op (tests/torch_port_jax
+`op_by_op`) and its steps through `solver_steps` (its divergence closure
+compiled once, FAST, the RK stages eager): a fraction of the compile time
+of the whole jitted step, which keeps this file inside its time budget.  The CUDA
 kernels themselves are held against the plain versions in
 tests/test_torch_cuda.py (card only).
 """
@@ -56,7 +57,7 @@ from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
 from tests.torch_port_inputs import (MHD_GAMMA, mhd_flux_inputs,
                                      mhd_muscl_inputs, noisy_orszag_tang,
                                      random_mhd_state)
-from tests.torch_port_jax import compiled, interpret, op_by_op
+from tests.torch_port_jax import compiled, interpret, op_by_op, solver_steps
 
 torch.set_num_threads(1)
 
@@ -399,7 +400,7 @@ def test_solver_matches_jax(periodic, order, limiter):
         assert torch.equal(getattr(ts, key), carried[key])
     with op_by_op():
         dt = js.compute_timestep()
-        js.iterate_many(3, dt)
+    solver_steps(js, 3, dt)
     np.testing.assert_allclose(ts.compute_timestep(), dt, rtol=1e-5)
     ts.iterate_many(3, dt)
     np.testing.assert_allclose(ts.conserved_state(), js.conserved_state(),

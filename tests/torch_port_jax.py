@@ -10,9 +10,10 @@ an ulp of float32.  NO_BACKEND_OPT keeps the fusion emitters, for inputs
 so ill-conditioned that an ulp moves the result by more than a test's
 tolerance.  `op_by_op` runs a JAX reference one primitive at a time
 (`jax.disable_jit`) with each primitive compiled FAST, in about half the
-CPU time.  `solver_steps` steps a JAX subgrid solver with its divergence
-closure jitted FAST: a jitted whole step compiles each stage's closure
-apart, and a step op by op pays the dispatch of every primitive."""
+CPU time.  `solver_steps` steps a JAX subgrid solver (Euler or GLM-MHD)
+with its divergence closure jitted FAST: a jitted whole step compiles each
+stage's closure apart, and a step op by op pays the dispatch of every
+primitive."""
 
 import contextlib
 
@@ -67,22 +68,44 @@ def compiled(fn, *args, **static):
     return lowered.compile(compiler_options=FAST)(*args)
 
 
-def solver_steps(js, n_steps: int, dt):
-    """n_steps of the JAX package's SubgridCompressibleEulerSolver `js` as
-    its non-fused step takes them with the Pallas kernels off (`_rk3_step`:
-    `rk.ssp_rk3` over `_base_flux_fn`), the divergence closure compiled
-    once, FAST, for the state's shape; updates js.u."""
+def solver_flux_fn(js):
+    """The divergence closure of the JAX package's
+    SubgridCompressibleEulerSolver `js` as its non-fused step takes it
+    with the Pallas kernels off (`_base_flux_fn`), or of its
+    SubgridMHDSolver as `_rk3_multi` takes it (the order's divergence),
+    compiled FAST for the state's shape."""
+    from t8gpu_tpu.models.subgrid_euler import _base_flux_fn
+    from t8gpu_tpu.ops import subgrid_mhd as jsm
+
+    if hasattr(js, "glm_alpha"):                   # SubgridMHDSolver
+        args = (js.volumes, js.conn, js.spec, js.gamma, js.glm_alpha)
+        if js.order == 2:
+            def flux_fn(w):
+                return jsm.mhd_subgrid_divergence_muscl(w, *args,
+                                                        limiter=js.limiter)
+        else:
+            def flux_fn(w):
+                return jsm.mhd_subgrid_divergence(w, *args)
+    else:
+        c = js.config
+        flux_fn = _base_flux_fn(js.conn, js.volumes, js.spec, c.gamma,
+                                c.flux, c.order, js._sg_limiter(),
+                                tuple(c.gravity), js.inv_cell_volume,
+                                float(c.mu), float(c.prandtl),
+                                **js._wall_kwargs())
+    return jax.jit(flux_fn).lower(js.u).compile(compiler_options=FAST)
+
+
+def solver_steps(js, n_steps: int, dt, flux_fn=None):
+    """n_steps of the JAX package's subgrid solver `js` (Euler or GLM-MHD)
+    as its step takes them, `rk.ssp_rk3` over `flux_fn` (by default its
+    `solver_flux_fn`, compiled once); updates js.u."""
     import jax.numpy as jnp
 
-    from t8gpu_tpu.models.subgrid_euler import _base_flux_fn
     from t8gpu_tpu.ops import rk
 
-    c = js.config
-    flux_fn = _base_flux_fn(js.conn, js.volumes, js.spec, c.gamma, c.flux,
-                            c.order, js._sg_limiter(), tuple(c.gravity),
-                            js.inv_cell_volume, float(c.mu),
-                            float(c.prandtl), **js._wall_kwargs())
-    flux_fn = jax.jit(flux_fn).lower(js.u).compile(compiler_options=FAST)
+    if flux_fn is None:
+        flux_fn = solver_flux_fn(js)
     u, dt = js.u, jnp.asarray(dt, js.u.dtype)
     for _ in range(n_steps):
         u = rk.ssp_rk3(u, flux_fn, dt, js.inv_cell_volume)[0]
