@@ -11,23 +11,32 @@
 //            order, then + S v_cell where gravity is on
 //   out(c) = (ca u_prev(c) + cb u(c)) + (cc w[7]) D(c)
 //
-// D_visc is stage.cuh's viscous_pass: the compact normal derivatives,
-// the mask-aware tangent centrals and the mesh faces' within-layer
-// derivatives of the plain version, 1/h taken once.  Its stencil reaches
-// the planes on both sides of a cell, and a mesh face reads the facing
-// layer's in-plane neighbours, so a block takes whole elements (4 at 3D
-// extent 8, where the inviscid stage takes slabs of 2 planes of 16): the
-// walk's tiles (111,616 bytes), the D_visc tile and the side layers'
-// (v, T) rows, 173,056 bytes of shared memory at 3D extent 8, one block
-// of 256 threads per SM.  T reuses the staged row of log rho (or h) once
-// the walk is done; no new rows come from device memory except the
-// viscous weights [8, E].
+// D_visc is the compact normal derivatives, the mask-aware tangent
+// centrals and the mesh faces' within-layer derivatives of the plain
+// version, 1/h taken once.  Design (stage.cuh's viscous_walk): the TPU
+// kernel's order, the fields once and both tile maths from them.  Its
+// stencil reaches the planes on both sides of a cell and a mesh face
+// reads the facing layer's in-plane neighbours, so a block takes whole
+// elements: 4 at 3D extent 8, two threads per pencil, 512 threads, one
+// block per SM (207,872 bytes of shared memory; at most 128 registers,
+// the launch bound, no spills).  It stages each cell and each side-layer
+// cell once, all of a thread's loads in flight at once, as its fields and
+// T, the side layers' cells beside the tile's in each staged row; then it
+// walks each axis once, and at each face evaluates the advective flux
+// (walk1's) and the viscous flux from the same staged rows, into D_adv
+// and D_visc kept apart in the plain version's orders and added on the
+// last axis (the centrals' quotients by 2 or 1 taken as the exact
+// products); then the physics stages' update.
 //
 // Bound on this card at the flagship shape (3, 8, 4374): the bytes of the
 // inviscid stage plus the viscous weights' 8 E floats, ~123 MB (stage 1)
 // or ~168 MB (stages 2-3), 37-50 us at 3.35 TB/s; the viscous arithmetic
-// (chip_smoke.stage_cost) does not reach that at the fp32 peak.  Built
-// with --fmad=false and IEEE division and sqrt, as the plain version
+// (chip_smoke.stage_cost) does not reach that at the fp32 peak.  What
+// keeps it ~8x above: one block per SM leaves the staging loads and the
+// update's memory traffic (short runs of 4 elements) with nothing to
+// overlap them, about half the time, and the walk is issue- and
+// latency-bound (PERF.md has the ablations).  Built with --fmad=false and
+// IEEE division and sqrt, as the plain version
 // (ops/kernels.fused_rk_stage_reference), which it follows bit for bit.
 
 #include "stage.cuh"

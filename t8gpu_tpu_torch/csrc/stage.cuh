@@ -3,7 +3,7 @@
 // (fused_rk_stage_viscous.cu, fused_rk_stage_gravity.cu), shared by the
 // three translation units so that their instantiations compile in
 // parallel.  fused_rk_stage.cu has the scheme, the layout and the design;
-// the viscous pass is described below, at viscous_pass.
+// the viscous walk is described below, at viscous_walk.
 
 #pragma once
 
@@ -190,10 +190,11 @@ enum Phys { INVISCID = 0, GRAVITY = 1, VISCOUS = 2 };
 // threads per pencil (8 elements and 256 threads at 3D extent 8).  The
 // viscous stage takes whole elements (PL = EXT: its stencil reaches the
 // planes on both sides of a cell) of as many elements as VISC_SLOTS
-// pencils leave (4 at 3D extent 8), VISC_SPLIT threads per pencil, one
-// block per SM (shared memory): 512 threads at 3D extent 8.
+// pencils leave (4 at 3D extent 8), VISC_SPLIT threads per pencil,
+// VISC_MIN_BLOCKS blocks per SM (shared memory): 512 threads at 3D
+// extent 8.
 constexpr int FIELDS_SLOTS = 128, FIELDS_SPLIT = 2;
-constexpr int VISC_SLOTS = 256, VISC_SPLIT = 2;
+constexpr int VISC_SLOTS = 256, VISC_SPLIT = 2, VISC_MIN_BLOCKS = 1;
 
 __host__ __device__ constexpr int stage_planes(int dim, int ext, int ph = INVISCID) {
   return dim == 3 && ext == 8 && ph != VISCOUS ? 2 : ext;
@@ -207,11 +208,12 @@ struct StageShape {
       P::FIELDS,
       t8pencil::Block<FIELDS_SLOTS / T, FIELDS_SPLIT, 2>,
       std::conditional_t<PH == VISCOUS,
-                         t8pencil::Block<VISC_SLOTS / T, VISC_SPLIT, 1>,
+                         t8pencil::Block<VISC_SLOTS / T, VISC_SPLIT, VISC_MIN_BLOCKS>,
                          t8pencil::Block<256 / T, 1, 2>>>;
 };
 
-// The staged tile holds each cell's fields, the divergence tile D.
+// The staged tile holds each cell's fields, the divergence tile D (the
+// viscous stage stages its cells in its own layout, ViscTile).
 template <class P, int DIM, int EXT, int PH = INVISCID>
 using StageTile = t8pencil::Tile<P::RS, DIM, EXT, typename StageShape<P, DIM, EXT, PH>::Blk,
                                  StageShape<P, DIM, EXT, PH>::PL, P::RD>;
@@ -264,33 +266,23 @@ struct NoPhysics {};
 template <int PH>
 using PhysicsArg = std::conditional_t<PH == INVISCID, NoPhysics, Physics>;
 
-// The viscous pass's shared memory after the walk's: the D_visc tile
-// (DIM + 1 rows: the momentum rows of the axes, then the energy) in the
-// walk's tile layout, and per side k the facing layer's (v_x, v_y, v_z,
-// T) rows [2 DIM][4][EXT^(DIM-1)][TE].
-template <class Tl, int DIM, int EXT>
+// The viscous stage's shared memory: the staged cells, each of their
+// LR = P::RS + 1 rows (the fields, then T) holding the tile's BP cell
+// slots (Tl's padded layout) followed by the 2 DIM side layers' cells
+// (slot BP + k T0 + t for cell t of side k), [LR][NSLOT][TE]; then the
+// walk's D tile (D_adv, D on the last axis) and speeds, then the D_visc
+// tile (DIM + 1 rows: the momentum rows of the axes, then the energy) in
+// the D tile's layout.  A tile cell and a side-layer cell lie the same
+// row stride apart, so a neighbour's row is one offset from its slot.
+template <class Tl, int RS, int DIM, int EXT>
 struct ViscTile {
   static constexpr int T0 = t8pencil::ipow(EXT, DIM - 1);
+  static constexpr int LR = RS + 1, NSLOT = Tl::BP + 2 * DIM * T0;
+  static constexpr int STAGED = LR * NSLOT * Tl::TE;
   static constexpr int VD = (DIM + 1) * Tl::BP * Tl::TE;
-  static constexpr int FLOATS = VD + 2 * DIM * 4 * T0 * Tl::TE;
-  static_assert(Tl::SMEM + (size_t)FLOATS * sizeof(float) <= 232448,
-                "a block holds at most 227 KB");
+  static constexpr int FLOATS = STAGED + Tl::DTILE + Tl::SLOTS * Tl::TE + VD;
+  static_assert((size_t)FLOATS * sizeof(float) <= 232448, "a block holds at most 227 KB");
 };
-
-// (v_x, v_y, v_z, T) of a state's rows r (rho, m, e), by
-// cell_fields_tuple's operations (those of the policies' convert).
-template <class P>
-__device__ __forceinline__ void state_phi(const float r[5], const Consts& k,
-                                          float out[4]) {
-  const float rho = r[0], inv_rho = 1.0f / rho;
-  const float v0 = r[1] * inv_rho, v1 = r[2] * inv_rho, v2 = r[3] * inv_rho;
-  const float ke = 0.5f * (v0 * v0 + v1 * v1 + v2 * v2);
-  const float p = k.km1 * (r[4] - rho * ke);
-  out[0] = v0;
-  out[1] = v1;
-  out[2] = v2;
-  out[3] = P::temperature(rho, p);
-}
 
 // Tangent axis ti (in increasing order) of the faces along axis a.
 __host__ __device__ constexpr int tangent_axis(int a, int ti) {
@@ -310,40 +302,79 @@ __device__ __forceinline__ void static_for(const F& f) {
 
 // Mask-aware derivative (d_hi m_hi + d_lo m_lo) / (m_hi + m_lo) / h of
 // the plain version (_tile_viscous_divergence's cell_dt and lay_dt).
+// EXACT: the masks' sum is 2 or 1 and sc its reciprocal, a product as
+// exact as the division, so the same bits.
+template <bool EXACT>
 __device__ __forceinline__ float masked_dt(float d_hi, float m_hi, float d_lo,
-                                           float m_lo, float inv_h) {
-  return (d_hi * m_hi + d_lo * m_lo) / (m_hi + m_lo) * inv_h;
+                                           float m_lo, float sc, float inv_h) {
+  const float num = d_hi * m_hi + d_lo * m_lo;
+  return (EXACT ? num * sc : num / (m_hi + m_lo)) * inv_h;
 }
 
-// A cell's data for the faces along axis A of the viscous walk: phi, and
-// per tangent axis t its central of v_t (cd[t][0], the divergence) and of
-// v_A (cd[t][1], the shear).
+// g.sides[s] for a side s known at run time, by selects over constant
+// indices (an indexed kernel parameter would go to local memory).
+template <int DIM>
+__device__ __forceinline__ const float* side_layer(const t8pencil::Args& g, int s) {
+  const float* p = g.sides[0];
+#pragma unroll
+  for (int i = 1; i < 2 * DIM; ++i) p = s == i ? g.sides[i] : p;
+  return p;
+}
+
+// A cell's data for the faces along axis A of the walk: phi = (v, T),
+// and per tangent axis t its central of v_t (cd[t][0], the divergence)
+// and of v_A (cd[t][1], the shear).
 template <int NT>
 struct VCell {
   float ph[4];
   float cd[NT][2];
 };
 
-// The viscous walk of one element slot x of a block (viscous_pass): the
-// tiles, the element's 1/h, interior face area and side weights, every
-// helper force-inlined so that the weights stay in registers.
+// A pencil's neighbours along its tangent axes: per tangent axis, the
+// slots of cell q's hi and lo neighbours, hb + q hs and lb + q ls (the
+// tile's neighbour, or the facing layer's cell at the element's edge),
+// their masks (1 inside, the side's eq at the edge) and the reciprocal
+// of the masks' sum where it is 2 or 1.
+template <int NT>
+struct Tangents {
+  int hb[NT], hs[NT], lb[NT], ls[NT];
+  float mh[NT], ml[NT], sc[NT];
+};
+
+// The walk of one element slot x of a block (viscous_walk): per face of
+// a pencil both fluxes, the advective one of walk1 (P::flux) and the
+// viscous one (visc_face), from the two cells' staged rows, read once for
+// both; every helper force-inlined so that the weights stay in
+// registers.
 template <class P, class Tl, int DIM, int EXT>
 struct ViscWalk {
-  static constexpr int TE = Tl::TE, T0 = t8pencil::ipow(EXT, DIM - 1), NT = DIM - 1;
-  const float* st;  // staged rows: v in rows 1-3, T in row 5
-  const float* sl;  // the side layers' phi [2 DIM][4][T0][TE]
-  float* sd;        // D
-  float* sv;        // D_visc
-  int x;
-  float inv_h, surface, mu, kappa;
-  float eq[2 * DIM];
+  using Cell = typename P::Cell;
+  using VT = ViscTile<Tl, P::RS, DIM, EXT>;
+  static constexpr int TE = Tl::TE, T0 = VT::T0, NT = DIM - 1;
+  static constexpr int RS = P::RS, RD = P::RD, LR = VT::LR;  // T in row RS
+  static constexpr int ROW = VT::NSLOT * TE;  // row stride of the staged cells
+  const float* st;  // the staged cells [LR][NSLOT][TE]
+  float* sd;        // D_adv (D on the last axis), Tl's layout
+  float* sv;        // D_visc, Tl's layout
+  const float* wv;  // my element's side weights eq, side s at wv[s E]
+  int x, E;
+  float surface, interior_ok, inv_h, mu, kappa;
 
-  // phi row j (v_x, v_y, v_z, T) of tile cell c, and of cell t of side s
-  __device__ __forceinline__ float phi(int c, int j) const {
-    return st[Tl::at(j < 3 ? 1 + j : 5, c, x)];
-  }
-  __device__ __forceinline__ float lay(int s, int t, int j) const {
-    return sl[((s * 4 + j) * T0 + t) * TE + x];
+  __device__ __forceinline__ float eq(int s) const { return __ldg(wv + s * E); }
+
+  __device__ static __forceinline__ int vrow(int j) { return j < 3 ? 1 + j : RS; }
+  // the slot of tile cell c and of cell t of side s
+  __device__ static __forceinline__ int slot(int c) { return c + c / EXT; }
+  __device__ static __forceinline__ int side_slot(int s, int t) { return Tl::BP + s * T0 + t; }
+  // row 0 of slot sl of my element
+  __device__ __forceinline__ const float* at(int sl) const { return st + sl * TE + x; }
+  // the staged rows of slot sl, its phi into v.ph
+  __device__ __forceinline__ void rows(int sl, float (&r)[LR], VCell<NT>& v) const {
+    const float* p = at(sl);
+#pragma unroll
+    for (int i = 0; i < LR; ++i) r[i] = p[i * ROW];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v.ph[j] = r[vrow(j)];
   }
   template <int B>
   __device__ static __forceinline__ int digit(int c) {
@@ -361,49 +392,88 @@ struct ViscWalk {
     });
     return l;
   }
-  // cell_dt: row j of cell c along axis u, the outward neighbours from
-  // the facing layers, eq-masked
-  template <int U, int J>
-  __device__ __forceinline__ float cell_dt(int c) const {
-    const int iu = digit<U>(c);
-    constexpr int su = t8pencil::ipow(EXT, DIM - 1 - U);
-    const float me = phi(c, J);
-    const bool hi_end = iu == EXT - 1, lo_end = iu == 0;
-    const float hv = hi_end ? lay(2 * U, lidx<U>(c), J) : phi(c + su, J);
-    const float lv = lo_end ? lay(2 * U + 1, lidx<U>(c), J) : phi(c - su, J);
-    return masked_dt(hv - me, hi_end ? eq[2 * U] : 1.0f, me - lv,
-                     lo_end ? eq[2 * U + 1] : 1.0f, inv_h);
+  // the stride of axis A in the side layers of axis U
+  __host__ __device__ static constexpr int lstride(int U, int A) {
+    return t8pencil::ipow(EXT, A < U ? DIM - 2 - A : DIM - 1 - A);
+  }
+
+  // the neighbours of the pencil from c0 along A, along its tangent axes:
+  // cell_dt's stencil (the outward ones from the facing layers, eq-masked)
+  template <int A>
+  __device__ __forceinline__ Tangents<NT> tangents(int c0) const {
+    constexpr int stride = t8pencil::ipow(EXT, DIM - 1 - A), pst = stride + stride / EXT;
+    Tangents<NT> tg;
+    static_for<NT>([&](auto ti) {
+      constexpr int TI = decltype(ti)::value;
+      constexpr int TT = tangent_axis(A, TI);
+      constexpr int su = t8pencil::ipow(EXT, DIM - 1 - TT), psu = su + su / EXT;
+      constexpr int lst = lstride(TT, A);
+      const int d = digit<TT>(c0), l0 = lidx<TT>(c0), s0 = slot(c0);
+      const bool he = d == EXT - 1, le = d == 0;
+      tg.hb[TI] = he ? side_slot(2 * TT, l0) : s0 + psu;
+      tg.hs[TI] = he ? lst : pst;
+      tg.lb[TI] = le ? side_slot(2 * TT + 1, l0) : s0 - psu;
+      tg.ls[TI] = le ? lst : pst;
+      tg.mh[TI] = he ? eq(2 * TT) : 1.0f;
+      tg.ml[TI] = le ? eq(2 * TT + 1) : 1.0f;
+      tg.sc[TI] = tg.mh[TI] + tg.ml[TI] == 2.0f ? 0.5f : 1.0f;
+    });
+    return tg;
+  }
+  // the centrals of the pencil's cell q for the faces along A (v.ph set)
+  template <int A, bool EXACT>
+  __device__ __forceinline__ void centrals(int q, const Tangents<NT>& tg, VCell<NT>& v) const {
+    static_for<NT>([&](auto ti) {
+      constexpr int TI = decltype(ti)::value;
+      constexpr int TT = tangent_axis(A, TI);
+      const float* hp = at(tg.hb[TI] + q * tg.hs[TI]);
+      const float* lp = at(tg.lb[TI] + q * tg.ls[TI]);
+      auto dt = [&](int j) {
+        const float me = v.ph[j];
+        return masked_dt<EXACT>(hp[vrow(j) * ROW] - me, tg.mh[TI], me - lp[vrow(j) * ROW],
+                                tg.ml[TI], tg.sc[TI], inv_h);
+      };
+      v.cd[TI][0] = dt(TT);
+      v.cd[TI][1] = dt(A);
+    });
   }
   // lay_dt: one-sided at the layer's borders, from the values vm, v0, vp
-  // at li - 1, li, li + 1 (those beyond a border are not used)
+  // at li - 1, li, li + 1 (those beyond a border are not used); the
+  // masks' sum is 2 or 1
   __device__ __forceinline__ float lay_dt(int li, float vm, float v0, float vp) const {
     const bool up = li < EXT - 1, dn = li > 0;
     const float d_hi = up ? vp - v0 : 0.0f;
     const float d_lo = dn ? v0 - vm : 0.0f;
-    return masked_dt(d_hi, up ? 1.0f : 0.0f, d_lo, dn ? 1.0f : 0.0f, inv_h);
+    const float m_hi = up ? 1.0f : 0.0f, m_lo = dn ? 1.0f : 0.0f;
+    return masked_dt<true>(d_hi, m_hi, d_lo, m_lo, up && dn ? 0.5f : 1.0f, inv_h);
   }
 
+  // the advective flux of a face, weighted, its masked speed into spd
   template <int A>
-  __device__ __forceinline__ void vcell(int c, VCell<NT>& v) const {
+  __device__ __forceinline__ void adv_face(const Cell& cl, const Cell& cr, float wgt,
+                                           float ok, const Consts& k, float& spd,
+                                           float (&fw)[RD]) const {
+    float f[RD];
+    const float sp = P::template flux<A>(cl, cr, 0.0f, k, f);  // no auxiliary
+    spd = t8pencil::nan_max(spd, sp * ok);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v.ph[j] = phi(c, j);
-    static_for<NT>([&](auto ti) {
-      constexpr int TI = decltype(ti)::value;
-      constexpr int TT = tangent_axis(A, TI);
-      v.cd[TI][0] = cell_dt<TT, TT>(c);
-      v.cd[TI][1] = cell_dt<TT, A>(c);
-    });
+    for (int i = 0; i < RD; ++i) fw[i] = f[i] * wgt;
   }
 
-  // the flux rows (tau_0 .. tau_{DIM-1}, work + heat) of one face along A
-  // times its weight, from the normal derivatives, the face velocity and
-  // the face's tangent derivatives of v_t (ft) and v_A (fa)
+  // the viscous flux rows (tau_0 .. tau_{DIM-1}, work + heat) of one face
+  // along A times its weight wgt, from the two cells' phi and the face's
+  // tangent derivatives of v_t (ft) and v_A (fa)
   template <int A>
-  __device__ __forceinline__ void face(const float (&dn)[4], const float (&vf)[DIM],
-                                       const float (&ft)[NT > 0 ? NT : 1],
-                                       const float (&fa)[NT > 0 ? NT : 1],
-                                       float wgt, float (&f)[DIM + 1]) const {
+  __device__ __forceinline__ void visc_face(const VCell<NT>& L, const VCell<NT>& R,
+                                            const float (&ft)[NT], const float (&fa)[NT],
+                                            float wgt, float (&f)[DIM + 1]) const {
     constexpr float C23 = (float)(2.0 / 3.0);
+    float dn[4], vf[DIM];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dn[j] = (R.ph[j] - L.ph[j]) * inv_h;
+      if (j < DIM) vf[j] = 0.5f * (L.ph[j] + R.ph[j]);
+    }
     float sdt = 0.0f;
 #pragma unroll
     for (int ti = 0; ti < NT; ++ti) sdt = sdt + ft[ti];
@@ -423,111 +493,145 @@ struct ViscWalk {
     for (int j = 0; j < DIM; ++j) f[j] = tau[j] * wgt;
     f[DIM] = (work + heat) * wgt;
   }
-
-  // a mesh face's tangent derivatives: the mean of my boundary plane's
-  // (cell c) and the facing layer's (side s, cell t) within-layer ones,
-  // of v_t into ft and of v_A into fa
+  // an interior face: the tangent derivatives the means of the two cells'
+  // centrals
   template <int A>
-  __device__ __forceinline__ void mesh_dt(int c, int s, int t,
-                                          float (&ft)[NT > 0 ? NT : 1],
-                                          float (&fa)[NT > 0 ? NT : 1]) const {
+  __device__ __forceinline__ void visc_interior(const VCell<NT>& L, const VCell<NT>& R,
+                                                float (&f)[DIM + 1]) const {
+    float ft[NT], fa[NT];
+#pragma unroll
+    for (int ti = 0; ti < NT; ++ti) {
+      ft[ti] = 0.5f * (L.cd[ti][0] + R.cd[ti][0]);
+      fa[ti] = 0.5f * (L.cd[ti][1] + R.cd[ti][1]);
+    }
+    visc_face<A>(L, R, ft, fa, surface, f);
+  }
+  // a mesh face: the tangent derivatives the means of my boundary plane's
+  // (cell c) and the facing layer's (side s, cell t) within-layer ones
+  template <int A>
+  __device__ __forceinline__ void visc_mesh(const VCell<NT>& L, const VCell<NT>& R, int c,
+                                            int s, int t, float wgt,
+                                            float (&f)[DIM + 1]) const {
+    float ft[NT], fa[NT];
     static_for<NT>([&](auto ti) {
       constexpr int TI = decltype(ti)::value;
       constexpr int TT = tangent_axis(A, TI);
-      constexpr int cs = t8pencil::ipow(EXT, DIM - 1 - TT);  // cell stride
-      constexpr int ls = t8pencil::ipow(EXT, NT - 1 - TI);   // layer stride
+      constexpr int cs = t8pencil::ipow(EXT, DIM - 1 - TT), pcs = cs + cs / EXT;
+      constexpr int ls = t8pencil::ipow(EXT, NT - 1 - TI);  // layer stride
       const int li = digit<TT>(c);
       const int om = li > 0 ? 1 : 0, op = li < EXT - 1 ? 1 : 0;  // in range
-      ft[TI] = 0.5f * (lay_dt(li, phi(c - om * cs, TT), phi(c, TT), phi(c + op * cs, TT)) +
-                       lay_dt(li, lay(s, t - om * ls, TT), lay(s, t, TT),
-                              lay(s, t + op * ls, TT)));
-      fa[TI] = 0.5f * (lay_dt(li, phi(c - om * cs, A), phi(c, A), phi(c + op * cs, A)) +
-                       lay_dt(li, lay(s, t - om * ls, A), lay(s, t, A),
-                              lay(s, t + op * ls, A)));
+      const float* mp = at(slot(c));
+      const float* lp = at(side_slot(s, t));
+      auto dt = [&](int j) {
+        const int r = vrow(j) * ROW;
+        return 0.5f * (lay_dt(li, mp[r - om * pcs * TE], mp[r], mp[r + op * pcs * TE]) +
+                       lay_dt(li, lp[r - om * ls * TE], lp[r], lp[r + op * ls * TE]));
+      };
+      ft[TI] = dt(TT);
+      fa[TI] = dt(A);
     });
+    visc_face<A>(L, R, ft, fa, wgt, f);
+  }
+
+  // D of the cell in slot sq from its lo face's (fl, flv) and hi face's
+  // (fw, fv) weighted fluxes: D_adv in walk1's order, D_visc as (Dv +
+  // F(c|c+1)) - F(c-1|c) from 0 on axis 0; on the last axis D = D_adv +
+  // D_visc, the mass row (and m_z in 2D) + 0
+  template <int A>
+  __device__ __forceinline__ void update(int sq, const float (&fl)[RD], const float (&fw)[RD],
+                                         const float (&flv)[DIM + 1],
+                                         const float (&fv)[DIM + 1]) const {
+    constexpr bool FIRST = A == 0, LAST = A == DIM - 1;
+    constexpr int DR = Tl::BP * TE;  // row stride of the D tiles
+    float* pd = sd + sq * TE + x;
+    float* pv = sv + sq * TE + x;
+    float da[RD], dv[DIM + 1];
+#pragma unroll
+    for (int i = 0; i < RD; ++i) da[i] = ((FIRST ? 0.0f : pd[i * DR]) + fl[i]) - fw[i];
+#pragma unroll
+    for (int i = 0; i <= DIM; ++i) dv[i] = ((FIRST ? 0.0f : pv[i * DR]) + fv[i]) - flv[i];
+    if constexpr (LAST) {
+      pd[0] = da[0] + 0.0f;
+#pragma unroll
+      for (int i = 0; i < DIM; ++i) pd[(1 + i) * DR] = da[1 + i] + dv[i];
+      if constexpr (DIM == 2) pd[3 * DR] = da[3] + 0.0f;
+      pd[4 * DR] = da[4] + dv[DIM];
+    } else {
+#pragma unroll
+      for (int i = 0; i < RD; ++i) pd[i * DR] = da[i];
+#pragma unroll
+      for (int i = 0; i <= DIM; ++i) pv[i * DR] = dv[i];
+    }
   }
 
   // walk segment seg of pencil t along A, its cells [seg Ls, (seg + 1)
   // Ls), Ls = EXT / SPLIT: each face of theirs once (the face between two
-  // segments in both, the same bits), D_visc of each cell once (into sv,
-  // or D_adv + D_visc into sd on the last axis)
-  template <int A>
-  __device__ __forceinline__ void pencil(int t, int seg) const {
-    constexpr bool FIRST = A == 0, LAST = A == DIM - 1;
-    constexpr int stride = t8pencil::ipow(EXT, DIM - 1 - A);
+  // segments in both, the same bits), the side layers 2A+1 (lo, weight
+  // w_lo) and 2A (hi, w_hi) beyond the pencil's ends.  One loop over the
+  // faces, its body one face (the code of a pencil stays small).
+  template <int A, bool EXACT>
+  __device__ __forceinline__ void pencil(int t, int seg, float w_lo, float w_hi,
+                                         const Consts& k, float& spd) const {
+    constexpr int stride = t8pencil::ipow(EXT, DIM - 1 - A), pst = stride + stride / EXT;
     constexpr int Ls = EXT / Tl::SPLIT;
     const int c0 = t8pencil::pencil_start<DIM, EXT, A>(t);
-    const float w_hi = eq[2 * A] * surface, w_lo = eq[2 * A + 1] * surface;
+    const int s0 = slot(c0);
+    const Tangents<NT> tg = tangents<A>(c0);
+    const float v_lo = eq(2 * A + 1) * surface, v_hi = eq(2 * A) * surface;
     const int q0 = seg * Ls;
-    VCell<NT> L, R;     // cells q - 1 and q
-    if (q0 > 0) vcell<A>(c0 + (q0 - 1) * stride, L);
-    float fl[DIM + 1];  // the weighted flux of cell q-1's lo face
+    float r[LR];  // a cell's staged rows
+    VCell<NT> L, R;
+    // cell q0 - 1: the lo side layer's cell t, or the tile's
+    rows(q0 == 0 ? side_slot(2 * A + 1, t) : s0 + (q0 - 1) * pst, r, L);
+    if (q0 > 0) centrals<A, EXACT>(q0 - 1, tg, L);
+    Cell cl = P::template cell<A>(r, k);
+    float fl[RD], flv[DIM + 1];  // the weighted fluxes of cell q-1's lo face
+#pragma unroll
+    for (int i = 0; i < RD; ++i) fl[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i <= DIM; ++i) flv[i] = 0.0f;
 #pragma unroll 1
     for (int q = q0; q <= q0 + Ls; ++q) {
-      if (q < EXT) vcell<A>(c0 + q * stride, R);
-      float dn[4], vf[DIM], ft[NT > 0 ? NT : 1], fa[NT > 0 ? NT : 1], fw[DIM + 1], wgt;
-      if (q == 0 || q == EXT) {
-        // a mesh face: side 2A+1 | cell 0, or cell EXT-1 | side 2A
-        const bool lo = q == 0;
-        const int s = lo ? 2 * A + 1 : 2 * A;
+      const bool lo = q == 0, hi = q == EXT;
+      rows(hi ? side_slot(2 * A, t) : s0 + q * pst, r, R);
+      if (!hi) centrals<A, EXACT>(q, tg, R);
+      const Cell cr = P::template cell<A>(r, k);
+      float fw[RD], fv[DIM + 1];
+      adv_face<A>(cl, cr, lo ? w_lo : (hi ? w_hi : surface),
+                  lo ? (w_lo > 0.0f ? 1.0f : 0.0f)
+                     : (hi ? (w_hi > 0.0f ? 1.0f : 0.0f) : interior_ok),
+                  k, spd, fw);
+      if (lo || hi)
+        visc_mesh<A>(L, R, lo ? c0 : c0 + (EXT - 1) * stride, lo ? 2 * A + 1 : 2 * A, t,
+                     lo ? v_lo : v_hi, fv);
+      else
+        visc_interior<A>(L, R, fv);
+      if (q > q0) update<A>(s0 + (q - 1) * pst, fl, fw, flv, fv);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float o = lay(s, t, j), mine = lo ? R.ph[j] : L.ph[j];
-          const float left = lo ? o : mine, right = lo ? mine : o;
-          dn[j] = (right - left) * inv_h;
-          if (j < DIM) vf[j] = 0.5f * (left + right);
-        }
-        mesh_dt<A>(lo ? c0 : c0 + (EXT - 1) * stride, s, t, ft, fa);
-        wgt = lo ? w_lo : w_hi;
-      } else {  // interior: cell q-1 | cell q
+      for (int i = 0; i < RD; ++i) fl[i] = fw[i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dn[j] = (R.ph[j] - L.ph[j]) * inv_h;
-          if (j < DIM) vf[j] = 0.5f * (L.ph[j] + R.ph[j]);
-        }
-#pragma unroll
-        for (int ti = 0; ti < NT; ++ti) {
-          ft[ti] = 0.5f * (L.cd[ti][0] + R.cd[ti][0]);
-          fa[ti] = 0.5f * (L.cd[ti][1] + R.cd[ti][1]);
-        }
-        wgt = surface;
-      }
-      face<A>(dn, vf, ft, fa, wgt, fw);
-      if (q > q0) {  // both faces of cell q-1 known
-        const int c = c0 + (q - 1) * stride;
-        float dv[DIM + 1];
-#pragma unroll
-        for (int r = 0; r <= DIM; ++r)
-          dv[r] = ((FIRST ? 0.0f : sv[Tl::at(r, c, x)]) + fw[r]) - fl[r];
-        if constexpr (LAST) {
-          // D = D_adv + D_visc, the mass row (and m_z in 2D) + 0
-          sd[Tl::at(0, c, x)] = sd[Tl::at(0, c, x)] + 0.0f;
-#pragma unroll
-          for (int r = 0; r < DIM; ++r) sd[Tl::at(1 + r, c, x)] = sd[Tl::at(1 + r, c, x)] + dv[r];
-          if constexpr (DIM == 2) sd[Tl::at(3, c, x)] = sd[Tl::at(3, c, x)] + 0.0f;
-          sd[Tl::at(4, c, x)] = sd[Tl::at(4, c, x)] + dv[DIM];
-        } else {
-#pragma unroll
-          for (int r = 0; r <= DIM; ++r) sv[Tl::at(r, c, x)] = dv[r];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r <= DIM; ++r) fl[r] = fw[r];
+      for (int i = 0; i <= DIM; ++i) flv[i] = fv[i];
+      cl = cr;
       L = R;
     }
   }
 };
 
-// The Navier-Stokes divergence of the block's whole elements (PL = EXT),
-// added to the advective D in sd: the tile math of _tile_viscous_divergence
-// (t8gpu_tpu/ops/pallas_kernels.py:914-1086) in its operation order.
+// The advective and Navier-Stokes divergences of the block's whole
+// elements (PL = EXT) in one walk per axis, D = D_adv + D_visc into sd:
+// walk1's arithmetic and the tile math of _tile_viscous_divergence
+// (t8gpu_tpu/ops/pallas_kernels.py:914-1086), each in its operation
+// order.  Returns the thread's masked interface speed max.
 //
-// Per cell, phi = (v, T) with v the staged rows 1-3 and T (computed into
-// staged row 5, which the walk no longer reads) from rho and p: 1/(rho/p)
-// (kepes) or p/rho; the side layers' phi from their states.  Per axis A,
-// two threads walk each pencil along A, one segment each, and evaluate
-// each interface once (the one between the segments twice, the same
-// bits; ViscWalk::pencil):
+// Staging: every load of a thread, its tile cells' rows and its side
+// layers' cells' rows, in flight at once; each cell converted once into
+// its fields (P::convert) and T = P::temperature(rho, p), 1/(rho/p)
+// (kepes) or p/rho, into st (ViscTile's layout: the side layers' cells
+// after the tile's in each row, read there by both the advective pencil
+// ends and the viscous stencil).  Then per axis A, SPLIT threads walk
+// each pencil along A, one segment each (ViscWalk::pencil), and evaluate
+// each face once (the one between the segments twice, the same bits):
+// the advective flux as walk1, and, with phi = (v, T),
 //
 //   dn    = (phi_R - phi_L) / h                       normal derivatives
 //   dt_t  = mean of the two cells' mask-aware centrals along t (interior),
@@ -535,69 +639,117 @@ struct ViscWalk {
 //   tau_A = mu (2 dn_A - 2/3 (dn_A + sum_t dt_t v_t)),  tau_t = mu (dn_t + dt_t v_A)
 //   F     = (0, tau, v_f . tau + kappa dn_T) w,   w = surface inside,
 //           eq surface at the mesh faces
-//   Dv(c) = (Dv(c) + F(c|c+1)) - F(c-1|c),         axis 0 first, from 0
 //
-// then D = D_adv + Dv on the last axis.  sv: the D_visc tile and the side
-// layers' phi (ViscTile).  Every thread of the block calls it; it ends
-// with a __syncthreads.
+// into the separate accumulators D_adv (sd) and D_visc (sv), added on
+// the last axis.  An element whose side weights eq are all 0 or 1 (the
+// solver's) takes the centrals' quotients as products (EXACT); any other
+// takes the divisions.  Every thread of the block calls it; it ends with
+// a __syncthreads, after which the block reads sd.
 template <class P, class Tl, int DIM, int EXT>
-__device__ __forceinline__ void viscous_pass(const t8pencil::Args& g,
-                                             const Physics& ph, float* st,
-                                             float* sd, float* sv, int e0,
-                                             const Consts& k) {
-  using VT = ViscTile<Tl, DIM, EXT>;
-  constexpr int B = Tl::B, TE = Tl::TE, T0 = VT::T0;
-  static_assert(B == t8pencil::ipow(EXT, DIM), "the viscous pass takes whole elements");
-  float* sl = sv + VT::VD;  // the side layers' phi
-  const long long Es = g.E;
-
-  // T of every cell over staged row 5; the side layers' phi
-  t8pencil::for_cells<Tl, B>(e0, g.E, [&](int c, int, int cx) {
-    st[Tl::at(5, c, cx)] = P::temperature(st[Tl::at(0, c, cx)], st[Tl::at(4, c, cx)]);
-  });
-  static_for<2 * DIM>([&](auto side_) {   // a constant side: g.sides in registers
-    constexpr int SIDE = decltype(side_)::value;
-    t8pencil::for_cells<Tl, T0>(e0, g.E, [&](int t, int ee, int cx) {
-      const float* base = g.sides[SIDE] + (long long)t * Es + ee;
-      float r[5], out[4];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) r[i] = __ldg(base + i * T0 * Es);
-      state_phi<P>(r, k, out);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sl[((SIDE * 4 + i) * T0 + t) * TE + cx] = out[i];
-    });
-  });
-  __syncthreads();
-
-  const int x = threadIdx.x, y = threadIdx.y;
+__device__ __forceinline__ float viscous_walk(const t8pencil::Args& g,
+                                              const Physics& ph, float* st,
+                                              float* sd, float* sv, int e0,
+                                              const Consts& k) {
+  using VW = ViscWalk<P, Tl, DIM, EXT>;
+  constexpr int B = Tl::B, TE = Tl::TE, T0 = VW::T0, RIN = P::RIN, RS = P::RS;
+  static_assert(B == t8pencil::ipow(EXT, DIM), "the viscous walk takes whole elements");
+  constexpr int NC = B * TE / Tl::THREADS, NS = 2 * DIM * T0 * TE / Tl::THREADS;
+  static_assert(NC * Tl::THREADS == B * TE && NS * Tl::THREADS == 2 * DIM * T0 * TE,
+                "whole rounds of the block");
+  const int x = threadIdx.x, y = threadIdx.y, tid = y * TE + x;
   const int e = e0 + x;
   const bool live = e < g.E;
-  ViscWalk<P, Tl, DIM, EXT> vw{st, sl, sd, sv, x, 0.0f, 0.0f, ph.mu, ph.kappa, {}};
+  const long long Es = g.E;
+  const long long rs = (long long)B * Es, ls = (long long)T0 * Es;
+
+  VW vw{st, sd, sv, ph.wv + Es + e, x, g.E, 0.0f, 0.0f, 0.0f, ph.mu, ph.kappa};
+  bool exact = true;
   if (live) {
-    vw.inv_h = 1.0f / __ldg(ph.wv + e);
     vw.surface = __ldg(g.w + e);
+    vw.interior_ok = vw.surface > 0.0f ? 1.0f : 0.0f;
+    vw.inv_h = 1.0f / __ldg(ph.wv + e);
 #pragma unroll
-    for (int s = 0; s < 2 * DIM; ++s) vw.eq[s] = __ldg(ph.wv + (1 + s) * Es + e);
+    for (int s = 0; s < 2 * DIM; ++s) {
+      const float eq = vw.eq(s);
+      exact = exact && (eq == 0.0f || eq == 1.0f);
+    }
   }
-  // per axis the walk (the barriers: D_visc changes hands between the
+  // stage: the cells', then the side cells' loads, then their fields and T
+  float vc[NC][RIN], vs[NS][RIN];
+#pragma unroll
+  for (int it = 0; it < NC; ++it) {
+    const int j = it * Tl::THREADS + tid, cx = j % TE, c = j / TE;
+    if (e0 + cx < g.E) {
+#pragma unroll
+      for (int i = 0; i < RIN; ++i) vc[it][i] = __ldg(g.u + i * rs + (long long)c * Es + e0 + cx);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < NS; ++it) {
+    const int j = it * Tl::THREADS + tid, cx = j % TE, t = j / TE % T0, s = j / TE / T0;
+    if (e0 + cx < g.E) {
+      const float* base = side_layer<DIM>(g, s) + (long long)t * Es + e0 + cx;
+#pragma unroll
+      for (int i = 0; i < RIN; ++i) vs[it][i] = __ldg(base + i * ls);
+    }
+  }
+  auto store = [&](const float* v, int sl, int cx) {
+    float f[RS];
+    P::convert(v, f, k);
+    float* out = st + sl * TE + cx;
+#pragma unroll
+    for (int i = 0; i < RS; ++i) out[i * VW::ROW] = f[i];
+    out[RS * VW::ROW] = P::temperature(f[0], f[4]);
+  };
+#pragma unroll
+  for (int it = 0; it < NC; ++it) {
+    const int j = it * Tl::THREADS + tid, cx = j % TE, c = j / TE;
+    if (e0 + cx < g.E) store(vc[it], VW::slot(c), cx);
+  }
+#pragma unroll
+  for (int it = 0; it < NS; ++it) {
+    const int j = it * Tl::THREADS + tid, cx = j % TE, t = j / TE % T0, s = j / TE / T0;
+    if (e0 + cx < g.E) store(vs[it], VW::side_slot(s, t), cx);
+  }
+  __syncthreads();
+
+  // per axis the fused walk (the barriers: D changes hands between the
   // threads)
+  float spd = 0.0f;
   auto axis = [&](auto a_) {
     constexpr int A = decltype(a_)::value;
     if (live) {
+      const float w_hi = __ldg(g.w + (1 + 2 * A) * Es + e);
+      const float w_lo = __ldg(g.w + (2 + 2 * A) * Es + e);
 #pragma unroll 1
-      for (int i = y; i < T0 * Tl::SPLIT; i += Tl::SLOTS)
-        vw.template pencil<A>(i % T0, i / T0);
+      for (int i = y; i < T0 * Tl::SPLIT; i += Tl::SLOTS) {
+        if (exact)
+          vw.template pencil<A, true>(i % T0, i / T0, w_lo, w_hi, k, spd);
+        else
+          vw.template pencil<A, false>(i % T0, i / T0, w_lo, w_hi, k, spd);
+      }
     }
     __syncthreads();
   };
   axis(std::integral_constant<int, 0>{});
   axis(std::integral_constant<int, 1>{});
   if constexpr (DIM == 3) axis(std::integral_constant<int, 2>{});
+  return spd;
+}
+
+// Floats of a block's staged cells: the walk's tile, or ViscTile's.
+template <class P, int DIM, int EXT, int PH>
+__host__ __device__ constexpr int staged_floats() {
+  using Tl = StageTile<P, DIM, EXT, PH>;
+  if constexpr (PH == VISCOUS)
+    return ViscTile<Tl, P::RS, DIM, EXT>::STAGED;
+  else
+    return Tl::TILE;
 }
 
 // One stage for a block: it walks its slab of its elements' cells
-// (walk1_slab; from the state, the fields derived as they are staged),
-// (VISCOUS: the Navier-Stokes divergence added to D, viscous_pass), then
+// (walk1_slab; from the state, the fields derived as they are staged;
+// VISCOUS: viscous_walk, both divergences on one walk per axis), then
 // the stage update (a u_prev + b u) + c w[7] (D + extras + S) in one
 // pass, u the state rows of g.u or recovered from the staged field rows,
 // S the gravity source (PH != INVISCID, when ph.gravity), and the
@@ -612,14 +764,16 @@ __device__ __forceinline__ void stage(const t8pencil::Args& g,
   constexpr int NSLAB = EXT / StageShape<P, DIM, EXT, PH>::PL;
   extern __shared__ float smem[];
   float* st = smem;             // fields
-  float* sd = st + Tl::TILE;    // D
+  float* sd = st + staged_floats<P, DIM, EXT, PH>();  // D
   float* red = sd + Tl::DTILE;  // [SLOTS][TE] speeds
 
   const int slab = blockIdx.x % NSLAB;
   const int e0 = (blockIdx.x / NSLAB) * Tl::TE;
-  const float spd = t8pencil::walk1_slab<P, Tl, DIM, EXT>(g, st, sd, slab, e0, k);
+  float spd;
   if constexpr (PH == VISCOUS)
-    viscous_pass<P, Tl, DIM, EXT>(g, ph, st, sd, red + Tl::SLOTS * Tl::TE, e0, k);
+    spd = viscous_walk<P, Tl, DIM, EXT>(g, ph, st, sd, red + Tl::SLOTS * Tl::TE, e0, k);
+  else
+    spd = t8pencil::walk1_slab<P, Tl, DIM, EXT>(g, st, sd, slab, e0, k);
 
   // the stage update, in _stage_update's operation order
   constexpr int B = Tl::B;
@@ -734,14 +888,13 @@ auto stage_kernel() {
     return fused_rk_stage_kernel<P, DIM, EXT, SHARE_PREV, EXTRAS>;
 }
 
-// Dynamic shared memory of a block: the tiles of the walk and, for the
-// viscous stage, the D_visc tile (DIM + 1 rows) and the 2 DIM side
-// layers' (v, T) rows.
+// Dynamic shared memory of a block: the tiles of the walk (ViscTile's
+// for the viscous stage).
 template <class P, int DIM, int EXT, int PH>
 constexpr size_t stage_smem() {
   using Tl = StageTile<P, DIM, EXT, PH>;
   if constexpr (PH == VISCOUS)
-    return Tl::SMEM + ((size_t)ViscTile<Tl, DIM, EXT>::FLOATS) * sizeof(float);
+    return (size_t)ViscTile<Tl, P::RS, DIM, EXT>::FLOATS * sizeof(float);
   else
     return Tl::SMEM;
 }

@@ -22,12 +22,12 @@ times).
 fused_rk_stage with mu > 0 or a gravity vector — the viscous
 (_tile_viscous_divergence, :914) and gravity (:1160-1178) branches of the
 same TPU kernel: csrc/fused_rk_stage_viscous.cu adds the Navier-Stokes
-divergence of the interior and equal-level faces (a pass over whole
-elements in shared memory after the walk) and the gravity source as a
-runtime switch, csrc/fused_rk_stage_gravity.cu the source alone; a
-launch with mu = 0 and no gravity runs the inviscid kernel.  Counted in
-`launches_viscous` and `launches_gravity`.  Bound: the bytes, the
-inviscid stage's plus the viscous weights [8, E].
+divergence of the interior and equal-level faces (on the same walk over
+whole elements, both fluxes of each face at once) and the gravity
+source as a runtime switch, csrc/fused_rk_stage_gravity.cu the source
+alone; a launch with mu = 0 and no gravity runs the inviscid kernel.
+Counted in `launches_viscous` and `launches_gravity`.  Bound: the bytes,
+the inviscid stage's plus the viscous weights [8, E].
 
 fused_muscl — replaces fused_muscl_pallas
 (t8gpu_tpu/ops/pallas_kernels.py:848): the order-2 MUSCL flux divergence

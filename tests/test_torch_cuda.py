@@ -18,7 +18,9 @@ the GLM-MHD solver (order 1 and 2) stepped on the card against the same
 solver on the CPU; flux_divergence's kernel dispatches; the two stage
 kernels with the side extras of AMR meshes (bit for bit, no spills, a
 launch without extras unchanged) and an adapt cycle on the card against
-the CPU.
+the CPU; the stage kernel's viscous and gravity instantiations in every
+case, at a part-full last wave of blocks and with side weights other
+than 0 and 1 (bit for bit, no spills).
 """
 
 import numpy as np
@@ -1008,6 +1010,98 @@ def test_cuda_viscous_stage_matches_reference(cuda, dim, ext, flux, logs):
                                             share_prev=share_prev,
                                             extras=extras, viscous=True)
             assert res["spill_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux,logs", [("kepes", False), ("kepes", True),
+                                       ("hll", False), ("hllc", False)])
+def test_cuda_viscous_stage_ragged_wave(cuda, flux, logs):
+    """The viscous instantiation at the flagship's 3D extent 8 with E =
+    4 373 (4 096 live): the last block holds fewer elements than the
+    others and the last wave of blocks is part-full.  Extras on all six
+    sides, gravity off and on, every stage (share_prev on and off), bit
+    for bit against its plain version and on repeat; guard slots have
+    speed 0."""
+    dim, ext, E, n_live = 3, 8, 4373, 4096
+    u, up, w, others = _physics_case(cuda, dim, ext, E, E - n_live, logs)
+    wv = _viscous_weights(dim * 10 + ext, dim, E, E - n_live, cuda)
+    rng = np.random.default_rng(E)
+    sides = tuple(range(2 * dim))
+    xs = [torch.from_numpy(rng.uniform(
+        -0.05, 0.05, (5,) + (ext,) * (dim - 1) + (E,)).astype(
+            np.float32)).to(cuda) for _ in sides]
+    for g in ((0.0, 0.0, 0.0), VISC_GRAVITY):
+        for share_prev, coeffs in STAGES:
+            prev = None if share_prev else up
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs, extra_sides=sides,
+                      extras=xs, viscous_weights=wv, mu=VISC_MU,
+                      prandtl=0.72, gravity=g)
+            before = fused_rk_stage.launches_viscous
+            k1 = fused_rk_stage(u, prev, w, others, **kw)
+            k2 = fused_rk_stage(u, prev, w, others, **kw)
+            assert fused_rk_stage.launches_viscous == before + 2
+            ref = fused_rk_stage_reference(u, prev, w, others, **kw)
+            torch.cuda.synchronize()
+            for a, b, r in zip(k1, k2, ref):
+                assert _bits_equal(a, b) and _bits_equal(a, r)
+            assert bool(torch.isfinite(k1[0]).all())
+            assert (k1[1][n_live:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hllc"])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (2, 4)])
+def test_cuda_viscous_stage_general_weights(cuda, dim, ext, flux):
+    """Side weights other than 0 and 1 (the solver's) in the viscous
+    weights: the mask-aware centrals divide by their masks' sum, element
+    by element beside elements whose weights are 0 and 1; bit for bit
+    against the plain version and on repeat, with and without extras."""
+    E, n_guard = 1000, 37
+    u, up, w, others = _physics_case(cuda, dim, ext, E, n_guard, False)
+    wv = _viscous_weights(dim * 10 + ext, dim, E, n_guard, cuda)
+    rng = np.random.default_rng(E + dim)
+    general = torch.from_numpy(rng.choice(
+        np.array([0.25, 0.5, 0.75, 2.0], np.float32),
+        (2 * dim, E))).to(cuda)
+    pick = torch.from_numpy(rng.uniform(size=(2 * dim, E)) < 0.3).to(cuda)
+    wv[1:1 + 2 * dim] = torch.where(pick, general, wv[1:1 + 2 * dim])
+    wv[1:, E - n_guard:] = 0.0
+    xs = [torch.from_numpy(rng.uniform(
+        -0.05, 0.05, (5,) + (ext,) * (dim - 1) + (E,)).astype(
+            np.float32)).to(cuda) for _ in range(2 * dim)]
+    for sides, extras in (((), []), (tuple(range(2 * dim)), xs)):
+        for share_prev, coeffs in STAGES:
+            prev = None if share_prev else up
+            kw = dict(gamma=GAMMA, flux=flux, coeffs=coeffs,
+                      extra_sides=sides, extras=extras, viscous_weights=wv,
+                      mu=VISC_MU, prandtl=0.72)
+            k1 = fused_rk_stage(u, prev, w, others, **kw)
+            k2 = fused_rk_stage(u, prev, w, others, **kw)
+            ref = fused_rk_stage_reference(u, prev, w, others, **kw)
+            torch.cuda.synchronize()
+            for a, b, r in zip(k1, k2, ref):
+                assert _bits_equal(a, b) and _bits_equal(a, r)
+            assert bool(torch.isfinite(k1[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_viscous_stage_fits_its_launch(cuda, dim, ext):
+    """Every viscous instantiation has no spills and fits its launch:
+    at most 1 024 threads, its registers (allocated per warp in units of
+    8 a thread) within the SM's 65 536 for its threads, and its shared
+    memory within the 227 KB a block may hold."""
+    for flux, logs in (("kepes", False), ("kepes", True), ("hll", False),
+                       ("hllc", False)):
+        for share_prev in (True, False):
+            for extras in (False, True):
+                r = fused_rk_stage_attributes(dim, ext, flux=flux, logs=logs,
+                                              share_prev=share_prev,
+                                              extras=extras, viscous=True)
+                assert r["spill_bytes"] == 0, r
+                assert r["threads"] <= 1024, r
+                assert -(-r["registers"] // 8) * 8 * r["threads"] <= 65536, r
+                assert r["smem_bytes"] <= 232448, r
 
 
 @pytest.mark.cuda
