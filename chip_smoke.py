@@ -849,6 +849,18 @@ def phase_kernel_logs():
     return _mixed_row("fused_rk_stage_logs", errs, timing, extra)
 
 
+def flux_resources(attrs) -> dict:
+    """The field-input divergence's resources at one shape
+    (ops/kernels.fused_flux_attributes): registers, spilled bytes,
+    threads and shared memory per block, the grid's blocks, blocks per SM
+    and its waves on this card (blocks over SMs x blocks per SM)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {k: attrs[k] for k in ("registers", "spill_bytes", "threads",
+                                 "smem_bytes", "blocks", "blocks_per_sm")}
+    out["waves"] = round(attrs["blocks"] / (sms * attrs["blocks_per_sm"]), 3)
+    return out
+
+
 def _field_inputs(seed, dim, ext, E, n_live, flux="kepes"):
     """Stage inputs with the state and the side layers turned into the
     flux's cell-field rows on the card (ops/euler.cell_fields_tuple)."""
@@ -866,7 +878,8 @@ def phase_kernel_fields():
     1 and stages 2-3, with the resources of those instantiations and, in
     kepes, a time at FIELDS_WAVE_E elements: whole waves of blocks).
     Returns ({flux: the divergence's row fields}, {flux: the stage's})."""
-    from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
+    from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_attributes,
+                                             fused_flux_reference,
                                              fused_rk_stage_fields,
                                              fused_rk_stage_fields_attributes,
                                              fused_rk_stage_fields_reference)
@@ -893,9 +906,12 @@ def phase_kernel_fields():
                                   reps=3, warmup=1)) \
                     + fields_cost(dim, ext, E, rk=False, share_prev=True,
                                   flux=flux)
+                res = flux_resources(fused_flux_attributes(dim, ext, flux,
+                                                           E=E))
         flux_rows[flux] = _kernel_row(
             "fused_flux" + ("" if flux == "kepes" else f"_{flux}"), errs_d,
-            t_flux, {"bit_identical": errs_d[0] == 0.0})
+            t_flux, {"bit_identical": errs_d[0] == 0.0, **res})
+        flux_rows[flux]["resources"] = res
     rows = {}
     for flux in STAGE_FLUXES:
         errs, timing = [0.0, 0.0, 0.0], {}
@@ -2476,13 +2492,16 @@ def main(argv=None) -> int:
     # the fluxes of the field-input divergence (kernel 2) and the
     # inner-only kernel (7), each with the launches of its own calls in
     # the divergence and ext16 phases (kernel 2's hllc with the
-    # open-boundary calls)
+    # open-boundary calls; its rows also with its resources and the waves
+    # of its grid at the timed shape)
     flux_row = row("fused_flux", "t8gpu_tpu/ops/pallas_kernels.py:193",
                    flux_launches["kepes"], k_flux["kepes"], "fused_fields")
     flux_row["variants"] = [
         row(f"fused_flux_{f}", "t8gpu_tpu/ops/pallas_kernels.py:193",
             flux_launches[f], k_flux[f], "fused_fields")
         for f in ("hll", "hllc")]
+    for r, f in zip([flux_row] + flux_row["variants"], STAGE_FLUXES):
+        r.update(k_flux[f]["resources"])
     inner_row = row("inner_divergence", "t8gpu_tpu/ops/pallas_kernels.py:1425",
                     inner_launches["kepes"], k_inner["kepes"])
     inner_row["variants"] = [

@@ -8,8 +8,9 @@ Run from the repository root on a machine with a CUDA device and nvcc:
 KERNEL is "fields" (the field-input stage kernel, csrc/fused_rk_stage.cu),
 "stage" (the state-input stage kernel, the same source), "viscous" (its
 viscous instantiation, csrc/fused_rk_stage_viscous.cu, kepes on the
-state, mu = chip_smoke.VISC_MU) or "mhd" (the first-order GLM-MHD kernel,
-csrc/fused_mhd_flux.cu).  A VARIANT is "base"
+state, mu = chip_smoke.VISC_MU), "mhd" (the first-order GLM-MHD kernel,
+csrc/fused_mhd_flux.cu) or "flux" (the field-input divergence fused_flux,
+csrc/fused_fields.cu, in kepes, hll and hllc).  A VARIANT is "base"
 (the sources as they are) or items joined by "@@": NAME=VALUE over the
 `constexpr int` tile constants of csrc/ (for example
 FIELDS_SLOTS=256@@FIELDS_SPLIT=1 or MHD_MIN_BLOCKS=3), or OLD=>NEW, a
@@ -24,8 +25,10 @@ or the Orszag-Tang (2, 8, 22143) with 16384), in every flux of the
 kernel.  It is timed there with chip_smoke.cuda_ms (CUDA events, the
 median of three batches of 20 launches; stage 1 and stages 2-3 for the
 stage kernels).  One line per variant, with the registers, spills,
-threads and shared memory per block (per flux for the stage kernels);
-the card's name and power limit first.
+threads and shared memory per block (per flux for the stage kernels;
+for "flux" the compiler's registers and spills of every instantiation,
+and the bytes the kernel must move over its time); the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SOURCE = {"fields": "fused_rk_stage", "stage": "fused_rk_stage",
-          "viscous": "fused_rk_stage_viscous", "mhd": "fused_mhd_flux"}
+          "viscous": "fused_rk_stage_viscous", "mhd": "fused_mhd_flux",
+          "flux": "fused_fields"}
 
 
 def variant_sources(kernel: str, n: int, spec: str) -> pathlib.Path:
@@ -78,7 +82,8 @@ def variant_sources(kernel: str, n: int, spec: str) -> pathlib.Path:
 
 
 def build(kernel: str, dirs) -> list:
-    """Build SOURCE[kernel] in every variant directory, all at once."""
+    """Build SOURCE[kernel] in every variant directory, all at once;
+    returns [(library, compiler output)]."""
     from t8gpu_tpu_torch.ops import _build
     name = SOURCE[kernel]
     procs = []
@@ -94,7 +99,7 @@ def build(kernel: str, dirs) -> list:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise SystemExit(f"nvcc failed for {lib}:\n{log}")
-        libs.append(lib)
+        libs.append((lib, log))
     return libs
 
 
@@ -175,6 +180,49 @@ def measure_viscous() -> dict:
     return out
 
 
+def _ptxas(log: str) -> list:
+    """ptxas's "<int template arguments>:registers/spilled bytes" of every
+    kernel in a build log (fused_fields.cu: flux, dim, ext), in the order
+    it lists them."""
+    out, name, spill = [], "", "0"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ".".join(re.findall(r"Li(\d+)E", ln))
+        elif "bytes spill stores" in ln:
+            spill = ln.split("bytes spill stores")[0].split()[-1]
+        elif "Used " in ln:
+            out.append(f"{name}:{ln.split('Used ')[1].split()[0]}/{spill}")
+    return out
+
+
+def measure_flux(log: str) -> dict:
+    """fused_flux at the flagship shape in each flux: bit-identity against
+    the plain version and on repeat, ms per launch, the bytes it must move
+    (chip_smoke.fields_cost) over that time, and the compiler's registers
+    and spills of every instantiation of the source."""
+    import chip_smoke as cs
+    from t8gpu_tpu_torch.ops import kernels as K
+
+    dim, ext, E, n_live = cs.KERNEL_SHAPES[0]
+    out = {}
+    for flux in cs.STAGE_FLUXES:
+        q, _, w, oq = cs._field_inputs(dim * 10 + ext, dim, ext, E, n_live,
+                                       flux)
+        kw = dict(gamma=cs.GAMMA, flux=flux)
+        k1, k2 = K.fused_flux(q, w, oq, **kw), K.fused_flux(q, w, oq, **kw)
+        r = K.fused_flux_reference(q, w, oq, **kw)
+        torch.cuda.synchronize()
+        out[f"{flux}_bit_identical"] = all(
+            _bits(a, b) and _bits(a, c) for a, b, c in zip(k1, k2, r))
+        ms = cs.cuda_ms(lambda: K.fused_flux(q, w, oq, **kw), reps=20)
+        nbytes, _ = cs.fields_cost(dim, ext, E, rk=False, share_prev=True,
+                                   flux=flux)
+        out[f"{flux}_ms"] = f"{ms:.4f}"
+        out[f"{flux}_TBps"] = f"{nbytes / ms / 1e9:.3f}"
+    out["ptxas_regs_spills"] = ",".join(_ptxas(log))
+    return out
+
+
 def measure_mhd() -> dict:
     """The first-order MHD kernel at the Orszag-Tang shape: bit-identity
     (and on repeat), ms per launch."""
@@ -207,9 +255,10 @@ def main(argv=None) -> int:
     dirs = [variant_sources(args.kernel, n, v)
             for n, v in enumerate(args.variants)]
     libs = build(args.kernel, dirs)
-    for spec, lib in zip(args.variants, libs):
+    for spec, (lib, log) in zip(args.variants, libs):
         use(args.kernel, lib)
-        got = (measure_mhd() if args.kernel == "mhd" else
+        got = (measure_flux(log) if args.kernel == "flux" else
+               measure_mhd() if args.kernel == "mhd" else
                measure_viscous() if args.kernel == "viscous" else
                measure_stage(args.kernel))
         cs.phase("variant", kernel=args.kernel, spec=spec, **got)

@@ -58,9 +58,11 @@ fused_flux — replaces fused_flux_pallas
 and the per-element max wave speed from precomputed kepes, hll or hllc
 cell-field rows (the interior faces, the equal-level mesh faces and the
 walls or open boundaries, whose mirrored or farfield field layers ride in
-as side layers); one thread per cell (csrc/fused_fields.cu, the flux a
-template parameter).  Bound: the bytes, ~202 MB at the flagship shape in
-kepes, ~184 MB in hll/hllc (60 and 55 us at 3.35 TB/s).
+as side layers); one thread per cell, a block a tile of 32 elements by a
+band of a plane staged in shared memory, each face inside the tile once
+(csrc/fused_fields.cu, the flux a template parameter).  Bound: the bytes,
+~202 MB at the flagship shape in kepes, ~186 MB in hll/hllc (60 and 56 us
+at 3.35 TB/s).
 
 fused_rk_stage_fields — replaces fused_rk_stage_fields_pallas (:1329):
 the same divergence from kepes, hll or hllc field rows, the side extras
@@ -913,6 +915,16 @@ def _fields_library() -> ctypes.CDLL:
                     + [ctypes.c_double, ctypes.c_void_p])
 
 
+def fused_flux_attributes(dim: int, ext: int, flux: str = "kepes",
+                          E: int = 4374, device: int = 0) -> dict:
+    """The resources of the field-input divergence kernel of one case on a
+    card (builds the library), as inner_divergence_attributes, and its grid
+    at E elements: blocks per SM and the grid's blocks."""
+    return _attributes(_fields_library(), "t8_fused_fields_attributes",
+                       device, [dim, ext, CUDA_FLUXES.index(flux), E],
+                       RESOURCE_KEYS + ("blocks_per_sm", "blocks"))
+
+
 def _stage_fields_library() -> ctypes.CDLL:
     """The stage kernel's library with its field-input entry point:
     device, dim, ext, E, flux (the index in CUDA_FLUXES) as int; every
@@ -1136,19 +1148,23 @@ def _muscl_library() -> ctypes.CDLL:
                     + [ctypes.c_double, ctypes.c_void_p])
 
 
-def _attributes(lib, entry: str, device: int, case) -> dict:
+RESOURCE_KEYS = ("registers", "spill_bytes", "threads", "smem_bytes")
+
+
+def _attributes(lib, entry: str, device: int, case,
+                keys=RESOURCE_KEYS) -> dict:
     """Registers, spilled bytes per thread, threads and shared memory per
-    block of the kernel instantiation that `case` (the int arguments after
-    the device) selects."""
+    block (and whatever else `keys` names, in the entry point's order) of
+    the kernel instantiation that `case` (the int arguments after the
+    device) selects."""
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * (1 + len(case))
                        + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * len(keys))()
     _raise_on_error(lib, fn(device, *case, out), entry)
-    return dict(zip(("registers", "spill_bytes", "threads", "smem_bytes"),
-                    out))
+    return dict(zip(keys, out))
 
 
 def fused_muscl_attributes(dim: int, ext: int, flux: str = "kepes",

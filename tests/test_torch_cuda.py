@@ -8,8 +8,11 @@ jax nor the JAX package, so it also runs on a GPU machine without JAX:
 The CUDA stage (state, log-row and field-row inputs), field-input
 divergence, inner-only, MUSCL and GLM-MHD kernels against their plain
 PyTorch versions on the same card (rtol 2e-5, atol 2e-6, as
-tests/test_pallas.py; the stage kernels and the first-order MHD kernel
-bit for bit) and bit-identical on repeat, each in every template case;
+tests/test_pallas.py; the stage kernels, the field-input divergence and
+the first-order MHD kernel bit for bit) and bit-identical on repeat, each
+in every template case (the field-input divergence also with a
+part-full last element run and fewer elements than one run, with no
+spills);
 the stage kernels, the first-order MHD kernel and the two MUSCL kernels
 on the real side layers of a periodic mesh (mesh-face conservation); the
 Euler solver (order 1 in each stage-input mode, with hll and hllc, and
@@ -36,7 +39,8 @@ from t8gpu_tpu_torch.models.subgrid_mhd import SubgridMHDSolver
 from t8gpu_tpu_torch.ops import subgrid as tsg
 from t8gpu_tpu_torch.ops import subgrid_mhd as tsm
 from t8gpu_tpu_torch.ops.euler import cell_fields_tuple
-from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_reference,
+from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_flux_attributes,
+                                         fused_flux_reference,
                                          fused_mhd_flux,
                                          fused_mhd_flux_attributes,
                                          fused_mhd_flux_reference,
@@ -532,6 +536,61 @@ def test_cuda_fields_kernels_match_reference(cuda, dim, ext, flux):
         res = fused_rk_stage_fields_attributes(dim, ext, flux=flux,
                                                share_prev=share_prev)
         assert res["spill_bytes"] == 0
+
+
+def _walled_field_inputs(cuda, seed, dim, ext, E, n_live, flux):
+    """Field-input divergence inputs on the card: seeded states, guard
+    slots after n_live, some sides of zero weight (stage_inputs) and about
+    a third of each side's elements walled: their side layer the mirrored
+    own facing layer (the normal momentum negated), as
+    ops/subgrid.pallas_side_inputs gathers a wall side."""
+    u, _, w, others = stage_inputs(seed, dim, ext, E, E - n_live)
+    rng = np.random.default_rng(seed + 1)
+    for k in range(2 * dim):
+        a = k // 2
+        own = np.take(u, ext - 1 if k % 2 == 0 else 0, axis=1 + a).copy()
+        own[1 + a] *= -1.0
+        wall = rng.uniform(size=E) < 0.3
+        others[k][..., wall] = own[..., wall]
+    u, w = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    fields = lambda t: torch.stack(cell_fields_tuple(t, GAMMA, flux))
+    return (fields(u), w,
+            [fields(torch.from_numpy(o).to(cuda)) for o in others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+@pytest.mark.parametrize("E,n_live", [(4373, 4096), (9, 7)])
+def test_cuda_fused_flux_ragged_matches_reference(cuda, E, n_live, dim, ext,
+                                                  flux):
+    """The field-input divergence where its grid is ragged: an odd E whose
+    last element run is part-full, and E smaller than one run; wall and
+    zero-weight sides among the six.  Bit for bit against the plain
+    version and on repeat."""
+    q, w, oq = _walled_field_inputs(cuda, E + dim + ext, dim, ext, E, n_live,
+                                    flux)
+    before = fused_flux.launches
+    k1 = fused_flux(q, w, oq, gamma=GAMMA, flux=flux)
+    k2 = fused_flux(q, w, oq, gamma=GAMMA, flux=flux)
+    assert fused_flux.launches == before + 2
+    ref = fused_flux_reference(q, w, oq, gamma=GAMMA, flux=flux)
+    _check_pair(k1, k2, ref, E - n_live)
+    assert _bits_equal(k1[0], ref[0]) and _bits_equal(k1[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flux", ["kepes", "hll", "hllc"])
+@pytest.mark.parametrize("dim,ext", [(3, 8), (3, 4), (2, 8), (2, 4)])
+def test_cuda_fused_flux_fits_its_launch(cuda, dim, ext, flux):
+    """Every instantiation of the field-input divergence: no spills, a
+    block the card takes (threads, shared memory, at least one block per
+    SM), and a grid at the flagship's E with a thread for every cell."""
+    res = fused_flux_attributes(dim, ext, flux, E=4374)
+    assert res["spill_bytes"] == 0
+    assert res["threads"] <= 1024 and res["smem_bytes"] <= 232448
+    assert res["blocks_per_sm"] >= 1
+    assert res["blocks"] * res["threads"] >= 4374 * ext ** dim
 
 
 @pytest.mark.cuda
