@@ -7,8 +7,10 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py --profile DIR  # also profile ten steps of the
                                          # flagship, fields, logs, order 2
                                          # (cons and prim), mhd,
-                                         # mhd_order2, amr, ns and
-                                         # farfield (device time
+                                         # mhd_order2, amr, ns,
+                                         # farfield, plain, amr_plain,
+                                         # order2_amr, mhd_amr and
+                                         # mhd_amr_order2 (device time
                                          # by kernel group, the AMR glue
                                          # apart, idle share);
                                          # tables and traces to DIR
@@ -162,11 +164,72 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    "state" in kepes, hll and hllc, "logs", "fields" (hllc),
                    order 2, mu > 0, gravity, and amr_vs_cpu's forest walled
                    and adapted once (hllc from here on)
+  kernel (amr)     the kernels on the inputs of adapted meshes, each bit
+                   for bit against its plain version and on repeat, timed
+                   with its bound: the MUSCL kernel (kepes cons and prim,
+                   hll) on amr_vs_cpu's forest adapted once from seeded
+                   criteria (hanging sides weight 0), the two GLM-MHD
+                   kernels on Forest.uniform(6, dim=2) x Subgrid<8,8>
+                   adapted once (the flux kernel's coarser neighbours
+                   through the coarse window); the stage kernel at
+                   EXTRAS_2D_SHAPE (2D extent 8) without extras and with
+                   extras on all four sides, from seeded inputs
+  (each path)      plain, amr_plain, order2_amr, mhd_amr, mhd_amr_order2
+                   and amr2_vs_cpu's extent-16 case also hold their
+                   kernel on the inputs that the path gave it in one step
+                   (bit for bit, the inner-only kernel within the
+                   tolerance; bit for bit on repeat), and time it there (kernel
+                   lines fused_rk_stage_plain, fused_rk_stage_extras_2d,
+                   fused_muscl_amr, fused_mhd_flux_amr,
+                   fused_mhd_muscl_amr, inner_divergence_amr): the JSON
+                   rows of those paths carry these numbers
+  plain            bench.py's bench_plain at full width: the blocked
+                   uniform solver on Forest.uniform(8, dim=2) (1024
+                   Subgrid<8,8> blocks, 65,536 plain elements), kh_planar,
+                   KEPES, dt = compute_timestep(); mass drift < 1e-5 over
+                   the first 122 steps, ms/step as the slope of 10 and 410
+                   steps (min of three), elem-updates/s, exactly 3 stage
+                   launches per step and none of any other kernel
+  amr_plain        bench_amr_plain at full width: the blocked AMR solver on
+                   Forest.uniform(6, dim=2), AMRConfig(5, 8, 2e-4), two
+                   cycles of 50 steps and an adapt (amr_plain_cycle: the
+                   adapt's host seconds by part), levels not all equal,
+                   mass drift < 1e-5, ms/step as the slope of 10 and 210
+                   steps; exactly 3 stage launches per step, with extras
+                   on meshes with finer neighbours
+  order2_amr       bench_amr's mesh and schedule with EulerConfig(order=2):
+                   10 warm steps, 4 cycles of 45 steps, adapt_prefetch(),
+                   5 steps, adapt() (order2_amr_cycle lines); 3 MUSCL
+                   launches per step and none of any other kernel (the
+                   hanging faces' first-order closure is torch glue),
+                   mass drift < 1e-5 after two adapts, cell-updates/s with
+                   the adapts; 10 steps timed on the last mesh
+  mhd_amr          examples/orszag_tang.py --subgrid 8 --amr at its
+  mhd_amr_order2   defaults: Forest.uniform(7, dim=2), Subgrid<8,8>,
+                   AMRConfig(6, 8, 3.0), 4 cycles of 25 steps and an adapt,
+                   dt = 0.5 x compute_timestep_device() after each; 3
+                   launches per step of fused_mhd_flux (order 1) or
+                   fused_mhd_muscl (order 2) and none of any other, at
+                   most 65,536 elements, the 8 conserved rows within 1e-5,
+                   a finite state; then one more adapt from seeded
+                   criteria (the window coarsens the smooth vortex) and
+                   10 steps timed on that hanging mesh
+  amr2_vs_cpu      one adapt and one step on the card and on the CPU within
+                   rtol 2e-5 / atol 2e-6, with exact launch counts: order 2
+                   on amr_vs_cpu's forest in kepes, bj-prim and hll, and
+                   with mu = 1e-3 walled; GLM-MHD order 1 and 2 on
+                   tests/test_subgrid_mhd.py's hanging Subgrid<4,4> mesh
+                   and through an adapt of its AMR cycle; extents 2 and 16
+                   on adapted meshes (the torch stencil; at 16 also
+                   flux_divergence(use_kernel=True), one inner-only launch);
+                   the blocked uniform and AMR solvers at level 5
 Then one JSON line with the seven kernels (the stage kernel's log input,
-hll, hllc, extras, viscous and gravity instantiations as variants of its
-row, the field-input stage kernel's hll, hllc and extras as variants of
-its row, the hll and hllc fluxes of the field-input divergence and the
-inner-only kernel as variants of theirs) and, last, the device line
+hll, hllc, extras, viscous and gravity instantiations, its 2D plain path
+and 2D extras as variants of its row, the field-input stage kernel's hll,
+hllc and extras as variants of its row, the hll and hllc fluxes of the
+field-input divergence and the inner-only kernel as variants of theirs,
+the three divergence kernels of the AMR paths as variants of theirs) and,
+last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the t8gpu_tpu_torch package beside it,
 the script prints no result and exits with a code other than 0.
@@ -328,6 +391,37 @@ AMR_CPU_LEVEL, AMR_CPU_CONFIG = 2, dict(min_level=1, max_level=3,
 # walled forest level of farfield_vs_cpu
 FARFIELD = (1.0, 0.5, 0.0, 0.0, 1.0)
 FF_CPU_LEVEL = 2
+# bench.py's bench_plain (bench.py:95-125): 2D KH on Forest.uniform(8,
+# dim=2), periodic, BlockedUniformEulerSolver (1024 Subgrid<8,8> blocks,
+# 65,536 plain elements), dt = compute_timestep(), the slope of 10 and 410
+# steps (min of three); mass drift over the first PLAIN_DRIFT_STEPS steps
+PLAIN_LEVEL, PLAIN_STEPS, PLAIN_DRIFT_STEPS = 8, (10, 410), 122
+# bench_amr_plain (bench.py:128-169): Forest.uniform(6, dim=2),
+# AMRConfig(5, 8, 2e-4) in plain levels, two cycles of 50 steps and an
+# adapt, then the slope of 10 and 210 steps (min of three)
+AMR_PLAIN_LEVEL, AMR_PLAIN_CONFIG = 6, dict(min_level=5, max_level=8,
+                                            refine_threshold=2e-4)
+AMR_PLAIN_CYCLES, AMR_PLAIN_EVERY, AMR_PLAIN_STEPS = 2, 50, (10, 210)
+# order2_amr: bench_amr's mesh and schedule (AMR_LEVEL, AMR_CONFIG,
+# AMR_EVERY, AMR_LAG) with EulerConfig(order=2), cut to ORDER2_AMR_WARM
+# warm steps and ORDER2_AMR_CYCLES cycles; then AMR_TAIL timed steps
+ORDER2_AMR_WARM, ORDER2_AMR_CYCLES = 10, 4
+# examples/orszag_tang.py --subgrid 8 --amr at its defaults (:43-88):
+# Forest.uniform(7, dim=2), Subgrid<8,8>, AMRConfig(6, 8, 3.0), gamma 5/3,
+# glm_alpha 0.1, an adapt every 25 steps for 4 cycles, dt = 0.5 x the CFL
+# step after each adapt; at most 65,536 elements (151 MB of state)
+MHD_AMR_LEVEL, MHD_AMR_CONFIG = 7, dict(min_level=6, max_level=8,
+                                        refine_threshold=3.0)
+MHD_AMR_EVERY, MHD_AMR_CYCLES, MHD_AMR_MAX_ELEMENTS = 25, 4, 65536
+# amr2_vs_cpu: the blocked solvers' plain level, the extent-16 case's
+# forest level, and the kernel lines on adapted meshes: the MUSCL kernel
+# on amr_vs_cpu's forest adapted once, the MHD kernels on
+# Forest.uniform(AMR_MHD_KERNEL_LEVEL, dim=2) x Subgrid<8,8> adapted once,
+# both from seeded criteria; the stage kernel in 2D at extent 8 with
+# extras on all four sides (the amr_plain path's instantiation)
+BLOCKED_CPU_LEVEL, EXT16_CPU_LEVEL = 5, 1
+AMR_MHD_KERNEL_LEVEL = 6
+EXTRAS_2D_SHAPE = (2, 8, 4374, 4096)
 # what the profiler's name of a path's kernel contains: the MUSCL kernels
 # are muscl_pencil.cuh's walk, named by their physics policy; each key
 # matches no other kernel's name
@@ -2401,6 +2495,776 @@ def phase_farfield_vs_cpu():
           **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
 
 
+# -- the slice of the blocked solvers, order 2 and GLM-MHD under AMR ---------
+
+
+def _slope_ms(run_and_fetch, n1, n2, trials=3):
+    """bench.py's _slope_per_step in ms: (time(run(n2)) - time(run(n1)))
+    / (n2 - n1), each run ending in a one-value device-to-host fetch; the
+    min of the positive slopes of `trials` pairs."""
+    slopes = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        run_and_fetch(n1)
+        t1 = time.perf_counter()
+        run_and_fetch(n2)
+        t2 = time.perf_counter()
+        slopes.append(((t2 - t1) - (t1 - t0)) / (n2 - n1) * 1e3)
+    pos = [x for x in slopes if x > 0]
+    if not pos:
+        raise AssertionError(f"no positive slope in {slopes}")
+    return min(pos), slopes
+
+
+def _fetcher(solver, dt):
+    def run_and_fetch(n):
+        solver.iterate_many(n, dt)
+        float(solver.u[0].reshape(-1)[0])
+    return run_and_fetch
+
+
+def _want(counts, **launches):
+    want = {n: 0 for n in counts}
+    want.update(launches)
+    return want
+
+
+@contextlib.contextmanager
+def captured(module, name, n):
+    """While the path runs, record the inputs of its first n calls of the
+    kernel wrapper `name` as `module` imported it, cloned (the path may
+    update its state in place); the wrapper launches, and counts, as
+    before."""
+    wrapper = getattr(module, name)
+    calls = []
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(y) for y in x)
+        return x
+
+    def spy(*args, **kw):
+        if len(calls) < n:
+            calls.append((clone(args), {k: clone(v) for k, v in kw.items()}))
+        return wrapper(*args, **kw)
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, wrapper)
+
+
+def hold_path_calls(tag, name, calls, n_live):
+    """The kernel `name` (fused_rk_stage, fused_muscl, fused_mhd_flux or
+    fused_mhd_muscl) on the inputs its path gave it (`captured`; slots
+    [n_live, E) are the path's padding), bit for bit against its plain
+    version and on repeat, and timed there with its bound (the stage
+    kernel: the mean of a step's three stages).  Prints the kernel line
+    `tag` and returns its row fields."""
+    from t8gpu_tpu_torch.ops import kernels
+    kern = getattr(kernels, name)
+    ref_fn = getattr(kernels, f"{name}_reference")
+    stage = name == "fused_rk_stage"
+    errs, timing, n_extras = [0.0, 0.0, 0.0], {}, 0
+    for args, kw in calls:
+        k1, k2 = kern(*args, **kw), kern(*args, **kw)
+        ref = ref_fn(*args, **kw)
+        torch.cuda.synchronize()
+        _hold(tag, k1, k2, ref, n_live, errs, stage=stage)
+        u = args[0]
+        dim, ext, E = u.dim() - 2, u.shape[1], u.shape[-1]
+        key = args[1] is None if stage else True
+        if key in timing:
+            continue
+        if stage:
+            n_extras = len(kw.get("extra_sides", ()))
+            cost = stage_cost(dim, ext, E, key, kw["flux"], n_extras)
+        elif name == "fused_muscl":
+            cost = muscl_cost(dim, ext, E, kw["space"], kw["flux"])
+        else:
+            recon = name == "fused_mhd_muscl"
+            cost = mhd_cost(dim, ext, E, 18 if recon else 9, recon=recon)
+        timing[key] = (cuda_ms(lambda: kern(*args, **kw), reps=20),
+                       cuda_ms(lambda: ref_fn(*args, **kw), reps=3,
+                               warmup=1)) + cost
+    if errs[0] != 0.0:
+        raise AssertionError(f"{tag}: not bit-identical")
+    extra = {"inputs": "the path's own", "shape": f"{dim}d-ext{ext}-E{E}",
+             "elements": n_live, "bit_identical": True}
+    if stage:
+        return _mixed_row(tag, errs, timing,
+                          dict(extra, extra_sides=n_extras))
+    return _kernel_row(tag, errs, timing[True], extra)
+
+
+def phase_plain(profile_dir):
+    """bench_plain at full width on the card: BlockedUniformEulerSolver on
+    Forest.uniform(PLAIN_LEVEL, dim=2) (1024 Subgrid<8,8> blocks, 65,536
+    plain elements), kh_planar, KEPES, order 1, dt = compute_timestep();
+    mass drift over the first PLAIN_DRIFT_STEPS steps; ms/step as the
+    slope of 10 and 410 steps (bench's warm run first, then the min of
+    three); elem-updates/s; exactly 3 stage launches per step and none of
+    any other kernel.  Returns the stage kernel's launches."""
+    from t8gpu_tpu_torch import BlockedUniformEulerSolver, Forest, kh_planar
+    from t8gpu_tpu_torch.ops import subgrid as sg
+    solver = BlockedUniformEulerSolver(Forest.uniform(PLAIN_LEVEL, dim=2),
+                                       lambda c: kh_planar(c, dim=2))
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep()
+    reset_launches()                        # count this path only
+    with captured(sg, "fused_rk_stage", 3) as calls:
+        solver.iterate_many(PLAIN_DRIFT_STEPS, dt)
+    drift = check_state("plain", solver, m0)
+    run = _fetcher(solver, dt)
+    n1, n2 = PLAIN_STEPS
+    run(n1)
+    run(n2)
+    ms_step, slopes = _slope_ms(run, n1, n2)
+    steps = PLAIN_DRIFT_STEPS + 4 * (n1 + n2)
+    counts = launch_counts()
+    want = _want(counts, fused_rk_stage=3 * steps)
+    if counts != want:
+        raise AssertionError(f"plain: launches {counts} for {steps} steps, "
+                             f"expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("plain: non-finite state")
+    drift_end = abs(solver.compute_integral() - m0) / abs(m0)
+    phase("plain", elements=solver.n_elements,
+          blocks=solver._inner.n_elements, steps=steps,
+          launches=counts["fused_rk_stage"],
+          launches_per_step=counts["fused_rk_stage"] / steps,
+          ms_per_step=f"{ms_step:.4f}",
+          slopes_ms=",".join(f"{x:.4f}" for x in slopes),
+          elem_updates_per_s=f"{solver.n_elements / (ms_step / 1e3):.4e}",
+          mass_drift=f"{drift:.3e}", mass_drift_end=f"{drift_end:.3e}",
+          dt=f"{float(dt):.6e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "plain",
+                 PROFILE_KEYS["fused_rk_stage"])
+    return counts["fused_rk_stage"], hold_path_calls(
+        "fused_rk_stage_plain", "fused_rk_stage", calls,
+        solver._inner.n_elements)
+
+
+def phase_amr_plain(profile_dir):
+    """bench_amr_plain at full width on the card: BlockedAMREulerSolver on
+    Forest.uniform(AMR_PLAIN_LEVEL, dim=2) with AMRConfig(5, 8, 2e-4) in
+    plain levels, AMR_PLAIN_CYCLES cycles of 50 steps and an adapt (dt =
+    compute_timestep_device() after each), each adapt's host seconds by
+    part; the levels not all equal, mass drift < 1e-5 after the adapts;
+    then ms/step as the slope of 10 and 210 steps (min of three),
+    elem-updates/s; exactly 3 stage launches per step throughout, with
+    side extras on meshes with finer neighbours, none of any other
+    kernel.  Returns the stage kernel's launches with extras."""
+    from t8gpu_tpu_torch import BlockedAMREulerSolver, Forest, kh_planar
+    from t8gpu_tpu_torch.ops import subgrid as sg
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    solver = BlockedAMREulerSolver(Forest.uniform(AMR_PLAIN_LEVEL, dim=2),
+                                   lambda c: kh_planar(c, dim=2),
+                                   amr=AMRConfig(**AMR_PLAIN_CONFIG))
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    reset_launches()                        # count this path only
+    steps = extras_steps = 0
+    for c in range(AMR_PLAIN_CYCLES):
+        hanging = any(solver._inner.conn.has_fine)
+        solver.iterate_many(AMR_PLAIN_EVERY, dt)
+        steps += AMR_PLAIN_EVERY
+        extras_steps += AMR_PLAIN_EVERY if hanging else 0
+        before, n0 = solver.manager.forest, solver.n_blocks
+        ta = time.perf_counter()
+        solver.adapt()
+        t_adapt = time.perf_counter() - ta
+        dt = solver.compute_timestep_device()
+        refined, coarsened = check_adapted(f"amr_plain cycle {c}", before,
+                                           solver.manager.forest)
+        phase("amr_plain_cycle", cycle=c, blocks_before=n0,
+              blocks_after=solver.n_blocks, elements=solver.n_elements,
+              leaves_refined=refined, leaves_coarsened=coarsened,
+              adapt_s=f"{t_adapt:.4f}",
+              **{f"{k}_s": f"{v:.4f}"
+                 for k, v in solver._inner.adapt_timings.items()})
+    drift = check_state("amr_plain", solver, m0)
+    lv = solver.mesh.forest.level
+    if lv.min() == lv.max():
+        raise AssertionError("amr_plain: the adapted levels are all equal")
+    if not any(solver._inner.conn.has_fine):
+        raise AssertionError("amr_plain: the adapted mesh has no finer "
+                             "neighbours")
+    # one step whose stage inputs the kernel line is held and timed on
+    with captured(sg, "fused_rk_stage", 3) as calls:
+        solver.iterate_many(1, dt)
+    run = _fetcher(solver, dt)
+    n1, n2 = AMR_PLAIN_STEPS
+    ms_step, slopes = _slope_ms(run, n1, n2)
+    steps += 1 + 3 * (n1 + n2)
+    extras_steps += 1 + 3 * (n1 + n2)
+    counts = launch_counts()
+    want = _want(counts, fused_rk_stage=3 * steps,
+                 fused_rk_stage_extras=3 * extras_steps)
+    if counts != want:
+        raise AssertionError(f"amr_plain: launches {counts} for {steps} "
+                             f"steps ({extras_steps} with finer "
+                             f"neighbours), expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("amr_plain: non-finite state")
+    phase("amr_plain", elements=solver.n_elements, blocks=solver.n_blocks,
+          plain_levels=f"{int(lv.min()) + 3}-{int(lv.max()) + 3}",
+          steps=steps, launches=counts["fused_rk_stage"],
+          launches_per_step=counts["fused_rk_stage"] / steps,
+          extras_launches=counts["fused_rk_stage_extras"],
+          ms_per_step=f"{ms_step:.4f}",
+          slopes_ms=",".join(f"{x:.4f}" for x in slopes),
+          elem_updates_per_s=f"{solver.n_elements / (ms_step / 1e3):.4e}",
+          mass_drift_after_adapts=f"{drift:.3e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_step, pathlib.Path(profile_dir), "amr_plain",
+                 PROFILE_KEYS["fused_rk_stage"], amr_glue=True)
+    return counts["fused_rk_stage_extras"], hold_path_calls(
+        "fused_rk_stage_extras_2d", "fused_rk_stage", calls,
+        solver.n_blocks)
+
+
+def phase_order2_amr(profile_dir):
+    """bench_amr's mesh and schedule at order 2 on the card: amr_solver
+    with EulerConfig(order=2), ORDER2_AMR_WARM warm steps, then
+    ORDER2_AMR_CYCLES cycles of iterate_many(45), adapt_prefetch(),
+    iterate_many(5), adapt(), dt = compute_timestep_device(); per cycle
+    (order2_amr_cycle) the elements, ms/step between adapts and the
+    adapt's seconds by part; cell-updates/s of the cycles' steps
+    including the adapts; exactly 3 MUSCL launches per step and none of
+    any other kernel (the hanging faces' first-order closure is torch
+    glue), a finite state, mass drift < 1e-5 after the second adapt, the
+    element count changed; then AMR_TAIL steps timed on the last mesh.
+    Returns the MUSCL kernel's launches."""
+    from t8gpu_tpu_torch import EulerConfig
+    from t8gpu_tpu_torch.ops import subgrid as sg
+    solver = amr_solver(AMR_LEVEL, AMR_CONFIG, euler=EulerConfig(order=2))
+    B = solver.spec.size
+    m0 = solver.compute_integral()
+    dt = solver.compute_timestep_device()
+    reset_launches()                        # count this path only
+    solver.iterate_many(ORDER2_AMR_WARM, dt)
+    steps = ORDER2_AMR_WARM
+    torch.cuda.synchronize()
+    cycles, cells, mass_2 = [], 0, None
+    t0 = time.perf_counter()
+    for c in range(ORDER2_AMR_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        solver.iterate_many(AMR_EVERY - AMR_LAG, dt)
+        solver.adapt_prefetch()
+        solver.iterate_many(AMR_LAG, dt)
+        ev[1].record()
+        steps += AMR_EVERY
+        cells += solver.n_elements * B * AMR_EVERY
+        before, n_before = solver.manager.forest, solver.n_elements
+        ta = time.perf_counter()
+        solver.adapt()
+        t_adapt = time.perf_counter() - ta
+        dt = solver.compute_timestep_device()
+        if c == 1:
+            mass_2 = (solver.u[0] * (solver.volumes / B)).sum()
+        cycles.append((n_before, solver.n_elements, ev, t_adapt,
+                       dict(solver.adapt_timings), before,
+                       solver.manager.forest))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = _want(counts, fused_muscl=3 * steps)
+    if counts != want:
+        raise AssertionError(f"order2_amr: launches {counts} for {steps} "
+                             f"steps, expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("order2_amr: non-finite state")
+    drift_2 = abs(float(mass_2) - m0) / abs(m0)
+    if not drift_2 < 1e-5:
+        raise AssertionError(f"order2_amr: relative mass drift {drift_2:.3e} "
+                             f"after two adapts")
+    if all(n0 == n1 for n0, n1, *_ in cycles):
+        raise AssertionError("order2_amr: the element count never changed")
+    ms_steps = []
+    for c, (n0, n1, ev, t_adapt, parts, before, after) in enumerate(cycles):
+        refined, coarsened = check_adapted(f"order2_amr cycle {c}", before,
+                                           after)
+        ms = ev[0].elapsed_time(ev[1]) / AMR_EVERY
+        ms_steps.append(ms)
+        phase("order2_amr_cycle", cycle=c, elements_before=n0,
+              elements_after=n1, leaves_refined=refined,
+              leaves_coarsened=coarsened, ms_per_step=f"{ms:.4f}",
+              adapt_s=f"{t_adapt:.4f}",
+              **{f"{k}_s": f"{v:.4f}" for k, v in parts.items()})
+    # one step whose inputs the kernel line is held and timed on
+    with captured(sg, "fused_muscl", 1) as calls:
+        solver.iterate_many(1, dt)
+    t = timed_steps(solver, AMR_TAIL, dt)
+    ms_tail = t / AMR_TAIL * 1e3
+    launches = launch_counts()["fused_muscl"]
+    if launches != 3 * (steps + 1 + AMR_TAIL):
+        raise AssertionError(f"order2_amr tail: {launches} MUSCL launches")
+    phase("order2_amr", elements_final=solver.n_elements,
+          capacity=solver.conn.element_capacity, steps=steps,
+          launches=counts["fused_muscl"],
+          launches_per_step=counts["fused_muscl"] / steps,
+          wall_s=f"{wall:.3f}",
+          cell_updates_per_s_incl_adapts=f"{cells / wall:.4e}",
+          ms_per_step_mean=f"{statistics.mean(ms_steps):.4f}",
+          tail_ms_per_step=f"{ms_tail:.4f}",
+          mass_drift_after_two_adapts=f"{drift_2:.3e}",
+          max_level=solver.mesh.max_level)
+    if profile_dir is not None:
+        _profile(solver, dt, ms_tail, pathlib.Path(profile_dir),
+                 "order2_amr", PROFILE_KEYS["fused_muscl"], amr_glue=True)
+    return launches, hold_path_calls("fused_muscl_amr", "fused_muscl",
+                                     calls, solver.n_elements)
+
+
+def mhd_amr_solver(order, device=None):
+    """examples/orszag_tang.py --subgrid 8 --amr: Orszag-Tang on
+    subgrid_manager(Forest.uniform(MHD_AMR_LEVEL, dim=2), Subgrid<8,8>,
+    AMRConfig(**MHD_AMR_CONFIG)), the solver's defaults, minmod."""
+    from t8gpu_tpu_torch import (Forest, SubgridMHDSolver, SubgridSpec,
+                                 orszag_tang, subgrid_manager)
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    mgr = subgrid_manager(Forest.uniform(MHD_AMR_LEVEL, dim=2),
+                          SubgridSpec((8, 8)), AMRConfig(**MHD_AMR_CONFIG))
+    return SubgridMHDSolver(mgr, orszag_tang, order=order, limiter="minmod",
+                            device=device)
+
+
+def _row_totals(solver) -> torch.Tensor:
+    """The integrals of the 8 conserved rows and of |row| (float64)."""
+    u = solver.u[:8].double()
+    w = (solver.volumes / solver.spec.size).double()
+    cells = tuple(range(1, u.dim() - 1))
+    return torch.stack([(u * w).sum(dim=cells).sum(dim=-1),
+                        (u.abs() * w).sum(dim=cells).sum(dim=-1)])
+
+
+def phase_mhd_amr(order, profile_dir):
+    """The Orszag-Tang AMR run of examples/orszag_tang.py at full width on
+    the card, order 1 (mhd_amr) or 2 (mhd_amr_order2): MHD_AMR_CYCLES
+    cycles of MHD_AMR_EVERY steps and an adapt, dt = 0.5 x
+    compute_timestep_device() after each; per cycle the elements, ms/step
+    and the adapt's seconds by part; exactly 3 launches per step of the
+    order's kernel and none of any other (the hanging passes are torch
+    glue), at most MHD_AMR_MAX_ELEMENTS elements, a finite state, each
+    of the 8 conserved rows' integral within 1e-5 of its start (relative
+    to |integral| + the integral of |row|); then one more adapt from
+    seeded criteria (coarser and finer neighbours) and AMR_TAIL steps
+    timed there, 3 launches per step.  Returns the kernel's launches in
+    the cycles."""
+    from t8gpu_tpu_torch.ops import subgrid_mhd as smhd
+    name = "fused_mhd_flux" if order == 1 else "fused_mhd_muscl"
+    tag = "mhd_amr" if order == 1 else "mhd_amr_order2"
+    solver = mhd_amr_solver(order)          # device=None: the card
+    tot0 = _row_totals(solver)
+    dt = 0.5 * solver.compute_timestep_device()
+    reset_launches()                        # count this path only
+    steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(MHD_AMR_CYCLES):
+        n0 = solver.n_elements
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        solver.iterate_many(MHD_AMR_EVERY, dt)
+        ev[1].record()
+        steps += MHD_AMR_EVERY
+        before = solver.manager.forest
+        ta = time.perf_counter()
+        solver.adapt()
+        t_adapt = time.perf_counter() - ta
+        dt = 0.5 * solver.compute_timestep_device()
+        refined, coarsened = check_adapted(f"{tag} cycle {c}", before,
+                                           solver.manager.forest)
+        if solver.n_elements > MHD_AMR_MAX_ELEMENTS:
+            raise AssertionError(f"{tag}: {solver.n_elements} elements")
+        phase(f"{tag}_cycle", cycle=c, elements_before=n0,
+              elements_after=solver.n_elements, leaves_refined=refined,
+              leaves_coarsened=coarsened,
+              ms_per_step=f"{ev[0].elapsed_time(ev[1]) / MHD_AMR_EVERY:.4f}",
+              adapt_s=f"{t_adapt:.4f}",
+              **{f"{k}_s": f"{v:.4f}" for k, v in
+                 solver.adapt_timings.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = _want(counts, **{name: 3 * steps})
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} for {steps} steps, "
+                             f"expected {want}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError(f"{tag}: non-finite state")
+    tot1 = _row_totals(solver)
+    # tests/test_subgrid_mhd.py's measure: relative to |total| + the
+    # integral of |row| (rows that are 0 throughout, as m_z and B_z in 2D,
+    # drift by 0)
+    scale = tot0[0].abs() + tot0[1] + 1e-12
+    drift = float(((tot1[0] - tot0[0]).abs() / scale).max())
+    if not drift < 1e-5:
+        raise AssertionError(f"{tag}: conserved-row drift {drift:.3e}")
+    hanging = [any(solver.conn.has_fine), any(solver.conn.has_coarse)]
+    n_final = solver.n_elements
+    # the tail: the example's window coarsens the smooth initial vortex
+    # (its shocks form near t = 0.2), so adapt once more from seeded
+    # criteria for a mesh with coarser and finer neighbours, and time
+    # AMR_TAIL steps there
+    import numpy as np
+    rng = np.random.default_rng(MHD_AMR_CYCLES)
+    solver.adapt(criteria=rng.uniform(
+        0.0, 2.0 * MHD_AMR_CONFIG["refine_threshold"],
+        solver.n_elements).astype(np.float32))
+    if not (any(solver.conn.has_fine) and any(solver.conn.has_coarse)):
+        raise AssertionError(f"{tag}: the tail's mesh has no hanging faces")
+    dt = 0.5 * solver.compute_timestep_device()
+    # one step whose inputs the kernel line is held and timed on
+    with captured(smhd, name, 1) as calls:
+        solver.iterate_many(1, dt)
+    reset_launches()
+    ms_tail = timed_steps(solver, AMR_TAIL, dt) / AMR_TAIL * 1e3
+    tail = launch_counts()
+    if tail != _want(tail, **{name: 3 * AMR_TAIL}):
+        raise AssertionError(f"{tag} tail: launches {tail}")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError(f"{tag} tail: non-finite state")
+    n_cells = solver.n_elements * solver.spec.size
+    phase(tag, order=order, elements_after_cycles=n_final,
+          hanging_after_cycles=hanging, steps=steps,
+          launches=counts[name], launches_per_step=counts[name] / steps,
+          wall_s_incl_adapts=f"{wall:.3f}",
+          conserved_rows_drift=f"{drift:.3e}",
+          tail_elements=solver.n_elements, tail_cells=n_cells,
+          tail_capacity=solver.conn.element_capacity,
+          tail_state_mb=f"{solver.u.numel() * 4 / 1e6:.1f}",
+          tail_ms_per_step=f"{ms_tail:.4f}",
+          tail_cell_updates_per_s=f"{n_cells / (ms_tail / 1e3):.4e}",
+          max_level=solver.mesh.max_level, dt=f"{float(dt):.6e}")
+    if profile_dir is not None:
+        _profile(solver, dt, ms_tail, pathlib.Path(profile_dir), tag,
+                 PROFILE_KEYS[name], amr_glue=True)
+    return counts[name], hold_path_calls(f"{name}_amr", name, calls,
+                                         solver.n_elements)
+
+
+def _adapt_both(name, gpu, cpu, seed=None):
+    """One adapt on the card and on the CPU with the same criteria (the
+    card's H1 criteria, or seeded ones from `seed`): the same forest, the
+    remapped state within tolerance; then the CPU takes the card's state
+    (the pooled means may round apart).  Returns the share of the
+    tolerance used by the remap."""
+    import numpy as np
+    from t8gpu_tpu_torch.ops.subgrid import h1_criteria
+    inner_g = getattr(gpu, "_inner", gpu)
+    inner_c = getattr(cpu, "_inner", cpu)
+    if seed is None:
+        crit = h1_criteria(inner_g.u, inner_g.volumes,
+                           inner_g.spec).cpu().numpy()
+    else:
+        rng = np.random.default_rng(seed)
+        amr = inner_g.manager.amr
+        crit = rng.uniform(0.0, 2.0 * amr.refine_threshold,
+                           inner_g.n_elements).astype(np.float32)
+    before = inner_g.manager.forest
+    for s in (inner_g, inner_c):
+        s.adapt(criteria=crit)
+    fg, fc = inner_g.manager.forest, inner_c.manager.forest
+    if not (np.array_equal(fg.level, fc.level)
+            and np.array_equal(fg.anchor, fc.anchor)):
+        raise AssertionError(f"{name}: the adapted forests differ")
+    check_adapted(name, before, fg)
+    used = compare(f"{name} remap", torch.from_numpy(gpu.conserved_state()),
+                   torch.from_numpy(cpu.conserved_state()))[2]
+    inner_c.u = inner_g.u.cpu()
+    return used
+
+
+def phase_amr2_vs_cpu():
+    """One adapt (from seeded criteria, so that the mesh has coarser and
+    finer neighbours) and one step on the card against the CPU's plain
+    versions (rtol 2e-5 / atol 2e-6), with exact launch counts: Euler
+    order 2 on amr_vs_cpu's forest (kepes in conserved and primitive space, hll;
+    mu = 1e-3 on the forest walled); GLM-MHD order 1 and 2 on
+    tests/test_subgrid_mhd.py's hanging Subgrid<4,4> mesh and through an
+    adapt of its AMR cycle (AMRConfig(1, 3, 0.02)); extents 2 and 16 on an
+    adapted mesh (the torch stencil; at 16 also flux_divergence with
+    use_kernel=True, one inner-only kernel launch); the blocked uniform
+    and AMR solvers at Forest.uniform(BLOCKED_CPU_LEVEL, dim=2).  Returns
+    the launches by kernel."""
+    import numpy as np
+    from t8gpu_tpu_torch import (BlockedAMREulerSolver,
+                                 BlockedUniformEulerSolver, EulerConfig,
+                                 Forest, SubgridCompressibleEulerSolver,
+                                 SubgridMesh, SubgridMHDSolver, SubgridSpec,
+                                 kh_planar, subgrid_manager)
+    from t8gpu_tpu_torch.models.mhd import mhd_state
+    from t8gpu_tpu_torch.ops.subgrid import flux_divergence
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    torch.set_num_threads(os.cpu_count() or 1)
+    used, total = {}, {}
+
+    def step(tag, gpu, cpu, **want):
+        used[tag] = _step_vs_cpu(f"amr2_vs_cpu {tag}", gpu, cpu, want)
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+
+    def hanging(s):
+        c = getattr(s, "_inner", s).conn
+        return any(c.has_fine) and any(c.has_coarse)
+
+    # Euler order 2 on amr_vs_cpu's forest, adapted once
+    for tag, cfg, periodic in (
+            ("order2", EulerConfig(order=2), True),
+            ("order2_prim", EulerConfig(order=2, limiter="bj-prim"), True),
+            ("order2_hll", EulerConfig(order=2, flux="hll"), True),
+            ("order2_mu", EulerConfig(order=2, mu=1e-3), False)):
+        gpu, cpu = (amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG, device=d,
+                               euler=cfg, periodic=periodic)
+                    for d in (None, "cpu"))
+        used[f"{tag}_remap"] = _adapt_both(f"amr2_vs_cpu {tag}", gpu, cpu,
+                                           seed=1)
+        if not hanging(gpu):
+            raise AssertionError(f"amr2_vs_cpu {tag}: no hanging faces")
+        step(tag, gpu, cpu, fused_muscl=3)
+
+    # GLM-MHD on the hanging mesh of tests/test_subgrid_mhd.py
+    def blob(c):
+        d2 = ((c - 0.5) ** 2).sum(axis=1)
+        rho = 1.0 + 1.5 * np.exp(-d2 / 0.02)
+        v = np.stack([0.3 * np.ones_like(rho), -0.2 * np.ones_like(rho),
+                      np.zeros_like(rho)])
+        B = np.stack([0.5 * np.ones_like(rho), 0.3 * np.ones_like(rho),
+                      np.zeros_like(rho)])
+        return mhd_state(rho, v, np.full_like(rho, 1.0), B,
+                         gamma=MHD_GAMMA)
+
+    f = Forest.uniform(2, dim=2)
+    flags = np.zeros(f.n_elements, np.int8)
+    flags[0] = 1
+    f, _ = f.adapt(f.balance_flags(flags))
+    mesh = SubgridMesh.from_forest(f, SubgridSpec((4, 4)))
+    for order in (1, 2):
+        kern = "fused_mhd_flux" if order == 1 else "fused_mhd_muscl"
+        gpu, cpu = (SubgridMHDSolver(mesh, blob, order=order, device=d)
+                    for d in (None, "cpu"))
+        step(f"mhd_order{order}", gpu, cpu, **{kern: 3})
+        gpu, cpu = (SubgridMHDSolver(subgrid_manager(
+            Forest.uniform(2, dim=2), SubgridSpec((4, 4)),
+            AMRConfig(1, 3, 0.02)), blob, order=order, device=d)
+            for d in (None, "cpu"))
+        used[f"mhd_adapt_order{order}_remap"] = _adapt_both(
+            f"amr2_vs_cpu mhd adapt order {order}", gpu, cpu, seed=order)
+        if not hanging(gpu):
+            raise AssertionError("amr2_vs_cpu mhd adapt: no hanging faces")
+        step(f"mhd_adapt_order{order}", gpu, cpu, **{kern: 3})
+
+    # extents 2 and 16 on adapted meshes: the torch stencil
+    for ext, level in ((2, AMR_CPU_LEVEL), (16, EXT16_CPU_LEVEL)):
+        gpu, cpu = (SubgridCompressibleEulerSolver(subgrid_manager(
+            Forest.uniform(level, dim=3), SubgridSpec((ext,) * 3),
+            AMRConfig(1, level + 1, 0.02)), lambda c: kh_planar(c, dim=3),
+            device=d) for d in (None, "cpu"))
+        used[f"ext{ext}_remap"] = _adapt_both(f"amr2_vs_cpu ext{ext}", gpu,
+                                              cpu, seed=ext)
+        if not hanging(gpu):
+            raise AssertionError(f"amr2_vs_cpu ext{ext}: no hanging faces")
+        step(f"ext{ext}", gpu, cpu)
+        if ext == 16:
+            reset_launches()
+            got = flux_divergence(gpu.u, gpu.volumes, gpu.conn, gpu.spec,
+                                  GAMMA, "kepes", use_kernel=True)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if counts != _want(counts, inner_divergence=1):
+                raise AssertionError(f"amr2_vs_cpu ext16 kernel: launches "
+                                     f"{counts}")
+            total["inner_divergence"] = total.get("inner_divergence", 0) + 1
+            used["ext16_kernel"] = _hold_divergence(
+                "amr2_vs_cpu ext16 kernel", got,
+                flux_divergence(cpu.u, cpu.volumes, cpu.conn, cpu.spec,
+                                GAMMA, "kepes", use_kernel=True))
+            inner_amr = hold_inner_amr(gpu)
+
+    # the blocked solvers
+    ic = lambda c: kh_planar(c, dim=2)
+    gpu, cpu = (BlockedUniformEulerSolver(
+        Forest.uniform(BLOCKED_CPU_LEVEL, dim=2), ic, device=d)
+        for d in (None, "cpu"))
+    step("blocked", gpu, cpu, fused_rk_stage=3)
+    gpu, cpu = (BlockedAMREulerSolver(
+        Forest.uniform(BLOCKED_CPU_LEVEL, dim=2), ic,
+        amr=AMRConfig(4, 6, 2e-4), device=d) for d in (None, "cpu"))
+    used["blocked_amr_remap"] = _adapt_both("amr2_vs_cpu blocked_amr", gpu,
+                                            cpu, seed=5)
+    extras = 3 if any(gpu._inner.conn.has_fine) else 0
+    step("blocked_amr", gpu, cpu, fused_rk_stage=3,
+         fused_rk_stage_extras=extras)
+    phase("amr2_vs_cpu", rtol=RTOL, atol=ATOL,
+          **{f"tolerance_used_{k}": f"{v:.3f}" for k, v in used.items()})
+    return total, inner_amr
+
+
+def hold_inner_amr(solver):
+    """The inner-only kernel on the adapted extent-16 mesh's state (its
+    call in flux_divergence(use_kernel=True)) against its plain version
+    (within the tolerance, as phase_kernel_inner: kepes is not bit for
+    bit) and bit for bit on repeat, padded slots with D = 0, timed there
+    with its bound.  Prints the kernel line inner_divergence_amr and
+    returns its row fields."""
+    from t8gpu_tpu_torch.ops.kernels import (inner_divergence,
+                                             inner_divergence_reference)
+    args = (solver.u, solver.volumes, GAMMA, "kepes")
+    k1, k2 = inner_divergence(*args), inner_divergence(*args)
+    ref = inner_divergence_reference(*args)
+    torch.cuda.synchronize()
+    name, errs = "inner_divergence_amr", [0.0, 0.0, 0.0]
+    for a, b, r in zip(k1, k2, ref):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name} is not bit-identical on repeat")
+        errs = [max(x, y) for x, y in zip(errs, compare(name, a, r))]
+    if not bool((k1[0][..., solver.n_elements:] == 0).all()):
+        raise AssertionError(f"{name}: padded slots have a divergence")
+    u = solver.u
+    dim, ext, E = u.dim() - 2, u.shape[1], u.shape[-1]
+    timing = (cuda_ms(lambda: inner_divergence(*args), reps=20),
+              cuda_ms(lambda: inner_divergence_reference(*args), reps=3,
+                      warmup=1)) + inner_cost(dim, ext, E)
+    return _kernel_row(name, errs, timing, {
+        "inputs": "the path's own", "shape": f"{dim}d-ext{ext}-E{E}",
+        "elements": solver.n_elements, "bit_identical": errs[0] == 0.0})
+
+
+def _adapted_kernel_inputs(kind):
+    """The inputs one of the divergence kernels gets on an adapted mesh, on
+    the card: the state of a solver whose forest was adapted once from
+    seeded criteria (coarser and finer neighbours), with the side slabs
+    and weights its path builds (hanging sides weight 0; the MHD flux
+    kernel's coarser neighbours through the coarse window).  kind:
+    "muscl" (amr_vs_cpu's 3D forest, Subgrid<8,8,8>), "mhd_flux" or
+    "mhd_muscl" (Forest.uniform(AMR_MHD_KERNEL_LEVEL, dim=2) x
+    Subgrid<8,8>, Orszag-Tang).  Returns (args, n_live, (dim, ext, E))."""
+    from t8gpu_tpu_torch import (Forest, SubgridMHDSolver, SubgridSpec,
+                                 orszag_tang, subgrid_manager)
+    from t8gpu_tpu_torch.ops import subgrid as sg
+    from t8gpu_tpu_torch.ops import subgrid_mhd as smhd
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    import numpy as np
+    if kind == "muscl":
+        s = amr_solver(AMR_CPU_LEVEL, AMR_CPU_CONFIG)
+    else:
+        lv = AMR_MHD_KERNEL_LEVEL
+        s = SubgridMHDSolver(subgrid_manager(
+            Forest.uniform(lv, dim=2), SubgridSpec((8, 8)),
+            AMRConfig(lv - 1, lv + 1, 1.0)), orszag_tang)
+    rng = np.random.default_rng(17)
+    s.adapt(criteria=rng.uniform(0.0, 2.0 * s.manager.amr.refine_threshold,
+                                 s.n_elements).astype(np.float32))
+    if not (any(s.conn.has_fine) and any(s.conn.has_coarse)):
+        raise AssertionError(f"{kind}: the adapted mesh has no hanging faces")
+    u, conn, spec, vol = s.u, s.conn, s.spec, s.volumes
+    if kind == "mhd_flux":
+        ch = smhd._cleaning_speed(u, vol, MHD_GAMMA)
+        others, w = smhd.mhd_side_inputs(u, conn, spec, vol, ch)
+    else:
+        w = sg.muscl_weights(conn, spec, vol)
+        others = sg.muscl_side_slabs(u, conn, spec)
+        if kind == "mhd_muscl":
+            w = smhd._with_ch(w, smhd._cleaning_speed(u, vol, MHD_GAMMA))
+    return (u, w, list(others)), s.n_elements, (spec.dim, spec.extent,
+                                                u.shape[-1])
+
+
+def phase_kernel_amr():
+    """The kernels on the inputs of adapted meshes, each against its plain
+    version (bit for bit, and on repeat), with its time, its plain
+    version's and its bound: the MUSCL kernel (kepes in cons and prim,
+    hll) and the two GLM-MHD kernels on `_adapted_kernel_inputs`; the
+    stage kernel in 2D at extent 8 with side extras on all four sides
+    (EXTRAS_2D_SHAPE, every stage).  The kernels' JSON rows come from
+    their paths' own inputs (`hold_path_calls`)."""
+    from t8gpu_tpu_torch.ops.kernels import (fused_mhd_flux,
+                                             fused_mhd_flux_reference,
+                                             fused_mhd_muscl,
+                                             fused_mhd_muscl_reference,
+                                             fused_muscl,
+                                             fused_muscl_reference,
+                                             fused_rk_stage,
+                                             fused_rk_stage_reference)
+    from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
+    args, n_live, (dim, ext, E) = _adapted_kernel_inputs("muscl")
+    errs, timing = [0.0, 0.0, 0.0], None
+    for space, flux in (("cons", "kepes"), ("prim", "kepes"),
+                        ("cons", "hll")):
+        kw = dict(gamma=GAMMA, flux=flux, limiter="minmod", space=space)
+        k1, k2 = fused_muscl(*args, **kw), fused_muscl(*args, **kw)
+        ref = fused_muscl_reference(*args, **kw)
+        torch.cuda.synchronize()
+        _hold(f"fused_muscl amr {flux} {space}", k1, k2, ref, n_live, errs)
+        if timing is None:
+            timing = (cuda_ms(lambda: fused_muscl(*args, **kw), reps=20),
+                      cuda_ms(lambda: fused_muscl_reference(*args, **kw),
+                              reps=3, warmup=1)) + muscl_cost(dim, ext, E,
+                                                              space, flux)
+    if errs[0] != 0.0:
+        raise AssertionError("fused_muscl amr: not bit-identical")
+    _kernel_row("fused_muscl_adapted_mesh", errs, timing, {
+        "elements": n_live, "capacity": E, "bit_identical": True})
+    for kind, kern, ref_fn, side_rows, recon in (
+            ("mhd_flux", fused_mhd_flux, fused_mhd_flux_reference, 9, False),
+            ("mhd_muscl", fused_mhd_muscl, fused_mhd_muscl_reference, 18,
+             True)):
+        args, n_live, (dim, ext, E) = _adapted_kernel_inputs(kind)
+        kw = dict(gamma=MHD_GAMMA)
+        if recon:
+            kw.update(limiter="minmod", positivity=True)
+        errs = [0.0, 0.0, 0.0]
+        k1, k2 = kern(*args, **kw), kern(*args, **kw)
+        ref = ref_fn(*args, **kw)
+        torch.cuda.synchronize()
+        _hold(f"fused_{kind} amr", k1, k2, ref, n_live, errs)
+        if errs[0] != 0.0:
+            raise AssertionError(f"fused_{kind} amr: not bit-identical")
+        timing = (cuda_ms(lambda: kern(*args, **kw), reps=20),
+                  cuda_ms(lambda: ref_fn(*args, **kw), reps=3, warmup=1)) \
+            + mhd_cost(dim, ext, E, side_rows, recon=recon)
+        _kernel_row(
+            f"fused_{kind}_adapted_mesh", errs, timing,
+            {"elements": n_live, "capacity": E, "bit_identical": True})
+    # the stage kernel in 2D at extent 8 (the plain path's instantiation),
+    # and with extras on all four sides (the blocked AMR path's)
+    dim, ext, E, n_live = EXTRAS_2D_SHAPE
+    u, up, w, others = stage_inputs(dim * 10 + ext, dim, ext, E, n_live)
+    all_sides = tuple(range(2 * dim))
+    xs = _extras(dim + len(all_sides), dim, ext, E, n_live, all_sides)
+    for key, sides in (("fused_rk_stage_2d_seeded", ()),
+                       ("fused_rk_stage_extras_2d_seeded", all_sides)):
+        errs, timing = [0.0, 0.0, 0.0], {}
+        for share_prev, coeffs in ((True, STAGE_1), (False, STAGE_2),
+                                   (False, STAGE_3)):
+            a = (u, None if share_prev else up, w, others)
+            kw = dict(gamma=GAMMA, flux="kepes", coeffs=coeffs)
+            if sides:
+                kw.update(extra_sides=sides, extras=xs)
+            k1, k2 = fused_rk_stage(*a, **kw), fused_rk_stage(*a, **kw)
+            ref = fused_rk_stage_reference(*a, **kw)
+            torch.cuda.synchronize()
+            _hold(f"{key} ext8 sides {sides}", k1, k2, ref, n_live, errs,
+                  stage=True)
+            if coeffs != STAGE_3:
+                timing[share_prev] = (
+                    cuda_ms(lambda: fused_rk_stage(*a, **kw), reps=20),
+                    cuda_ms(lambda: fused_rk_stage_reference(*a, **kw),
+                            reps=3, warmup=1)) + stage_cost(
+                                dim, ext, E, share_prev, n_extras=len(sides))
+        if errs[0] != 0.0:
+            raise AssertionError(f"{key}: not bit-identical")
+        _mixed_row(key, errs, timing, {"shape": f"{dim}d-ext{ext}-E{E}",
+                                       "extra_sides": len(sides),
+                                       "bit_identical": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2446,6 +3310,14 @@ def main(argv=None) -> int:
     gravity_launches = phase_ns_vs_cpu()
     phase_farfield(args.profile)
     phase_farfield_vs_cpu()
+    phase_kernel_amr()
+    plain_launches, k_plain = phase_plain(args.profile)
+    amr_plain_extras, k_amr_plain = phase_amr_plain(args.profile)
+    muscl_amr_launches, k_muscl_amr = phase_order2_amr(args.profile)
+    mhd_amr_launches, k_mhd_amr = {}, {}
+    for o in (1, 2):
+        mhd_amr_launches[o], k_mhd_amr[o] = phase_mhd_amr(o, args.profile)
+    amr2_launches, k_inner_amr = phase_amr2_vs_cpu()
 
     def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",
@@ -2474,7 +3346,15 @@ def main(argv=None) -> int:
         row("fused_rk_stage_viscous", "t8gpu_tpu/ops/pallas_kernels.py:914",
             ns_launches, k_visc["viscous"], "fused_rk_stage_viscous"),
         row("fused_rk_stage_gravity", "t8gpu_tpu/ops/pallas_kernels.py:1160",
-            gravity_launches, k_visc["gravity"], "fused_rk_stage_gravity")]
+            gravity_launches, k_visc["gravity"], "fused_rk_stage_gravity"),
+        # the plain-element path (bench config plain) and the blocked AMR
+        # path's 2D launches with side extras, each held and timed on its
+        # path's own stage inputs
+        row("fused_rk_stage_plain", "t8gpu_tpu/ops/pallas_kernels.py:1190",
+            plain_launches, k_plain, "fused_rk_stage"),
+        row("fused_rk_stage_extras_2d",
+            "t8gpu_tpu/ops/pallas_kernels.py:1154", amr_plain_extras,
+            k_amr_plain, "fused_rk_stage")]
     fields = row("fused_rk_stage_fields",
                  "t8gpu_tpu/ops/pallas_kernels.py:1329", fields_launches,
                  k_fields["kepes"], "fused_rk_stage")
@@ -2508,15 +3388,39 @@ def main(argv=None) -> int:
         row(f"inner_divergence_{f}", "t8gpu_tpu/ops/pallas_kernels.py:1425",
             inner_launches[f], k_inner[f], "inner_divergence")
         for f in ("hll", "hllc")]
+    # the divergence kernels on adapted meshes, each with the launches of
+    # its AMR path (order2_amr, mhd_amr, mhd_amr_order2) and amr2_vs_cpu's,
+    # held and timed on the AMR path's own inputs
+    muscl_row = row("fused_muscl", "t8gpu_tpu/ops/pallas_kernels.py:848",
+                    muscl_launches, k_muscl)
+    muscl_row["variants"] = [row(
+        "fused_muscl_amr", "t8gpu_tpu/ops/pallas_kernels.py:848",
+        muscl_amr_launches + amr2_launches.get("fused_muscl", 0),
+        k_muscl_amr, "fused_muscl")]
+    mhd_flux_row = row("fused_mhd_flux", "t8gpu_tpu/ops/pallas_kernels.py:365",
+                       mhd_launches, k_mhd_flux)
+    mhd_flux_row["variants"] = [row(
+        "fused_mhd_flux_amr", "t8gpu_tpu/ops/pallas_kernels.py:365",
+        mhd_amr_launches[1] + amr2_launches.get("fused_mhd_flux", 0),
+        k_mhd_amr[1], "fused_mhd_flux")]
+    mhd_muscl_row = row("fused_mhd_muscl",
+                        "t8gpu_tpu/ops/pallas_kernels.py:777",
+                        mhd_muscl_launches, k_mhd_muscl)
+    mhd_muscl_row["variants"] = [row(
+        "fused_mhd_muscl_amr", "t8gpu_tpu/ops/pallas_kernels.py:777",
+        mhd_amr_launches[2] + amr2_launches.get("fused_mhd_muscl", 0),
+        k_mhd_amr[2], "fused_mhd_muscl")]
+    # the inner-only kernel on amr2_vs_cpu's adapted extent-16 mesh
+    inner_row["variants"].append(row(
+        "inner_divergence_amr", "t8gpu_tpu/ops/pallas_kernels.py:1425",
+        amr2_launches.get("inner_divergence", 0), k_inner_amr,
+        "inner_divergence"))
     print(json.dumps({"kernels": [
         stage,
         flux_row,
-        row("fused_muscl", "t8gpu_tpu/ops/pallas_kernels.py:848",
-            muscl_launches, k_muscl),
-        row("fused_mhd_flux", "t8gpu_tpu/ops/pallas_kernels.py:365",
-            mhd_launches, k_mhd_flux),
-        row("fused_mhd_muscl", "t8gpu_tpu/ops/pallas_kernels.py:777",
-            mhd_muscl_launches, k_mhd_muscl),
+        muscl_row,
+        mhd_flux_row,
+        mhd_muscl_row,
         fields,
         inner_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

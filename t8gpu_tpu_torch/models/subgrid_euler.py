@@ -18,8 +18,10 @@ forest 2:1 balanced, and remaps the state).
            kernel at extents 4 and 8, the torch stencil at the others)
            and a plain torch stage update (ops/rk.ssp_rk3);
   order 2: every stage is one call of the CUDA MUSCL divergence kernel
-           (ops/kernels.fused_muscl, via ops/subgrid.flux_divergence_muscl)
-           and a plain torch stage update (ops/rk.ssp_rk3).
+           (ops/kernels.fused_muscl, via ops/subgrid.flux_divergence_muscl;
+           the torch stencil ops/subgrid.muscl_core at extents 2 and 16),
+           the first-order closure of hanging faces and walls, and a
+           plain torch stage update (ops/rk.ssp_rk3).
 On the CPU each kernel's plain PyTorch version runs instead.
 
 Navier-Stokes (`EulerConfig(mu > 0, prandtl, wall, wall_velocity,
@@ -37,11 +39,13 @@ mirrored wall layer (ops/subgrid.farfield_state_rows,
 farfield_field_rows), at both orders, in every stage input, with mu > 0,
 gravity and AMR.
 
+Every path steps adapted meshes (hanging 2:1 faces): the stage kernels
+take them as side extras, the divergences through ops/subgrid.outer_apply's
+coarse and virtual-fine passes (or outer_fine_apply beside the kernel).
+
 The solver runs on CUDA unless the caller passes device="cpu", and raises
 when CUDA is asked for and missing.  The kernels are float32; float64 runs
-only on the CPU.  Meshes with hanging faces at order 2 or on the torch
-stencil (extents 2 and 16) raise NotImplementedError when the solver
-steps.
+only on the CPU.
 """
 
 from __future__ import annotations
@@ -104,7 +108,86 @@ def validate_subgrid_bc(config, plain_pointer: str) -> dict:
                 farfield=ff)
 
 
-class SubgridCompressibleEulerSolver:
+class SubgridAdaptive:
+    """The adapt cycle of the subgrid solvers (Euler and GLM-MHD), on
+    `self.manager` (a MeshManager of SubgridMesh blocks, or None),
+    `self.u` [C, *ext, cap], `self.volumes`, `self.spec`, `self.device`
+    and `self.install_mesh(mesh, u)`.  The H1 criteria and the remap by
+    gathers (octant injection, pooled restriction) take any row count:
+    every row remaps like a density."""
+
+    def _require_manager(self, what: str):
+        if self.manager is None:
+            raise RuntimeError(f"{what} requires an adaptive mesh: build the "
+                               f"solver on subgrid_manager(...)")
+
+    def adapt_prefetch(self):
+        """Compute the H1 criteria now and start their device-to-host copy
+        (into pinned memory on CUDA, recorded by an event), for a later
+        adapt(): called a few steps before it, the copy overlaps those
+        steps instead of stalling the adapt."""
+        self._require_manager("adapt_prefetch()")
+        crit = sg.h1_criteria(self.u, self.volumes, self.spec)
+        if crit.device.type == "cuda":
+            host = torch.empty(crit.shape, dtype=crit.dtype, pin_memory=True)
+            host.copy_(crit, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._crit_pending = (host, done)
+        else:
+            self._crit_pending = (crit.clone(), None)
+
+    def _criteria(self) -> np.ndarray:
+        """The prefetched criteria (waiting for their copy), or computed
+        and copied now."""
+        if self._crit_pending is not None:
+            host, done = self._crit_pending
+            self._crit_pending = None
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
+        return sg.h1_criteria(self.u, self.volumes, self.spec).cpu().numpy()
+
+    def adapt(self, criteria=None):
+        """One adapt cycle: the H1 criteria (prefetched or computed now;
+        `criteria`, a host array [>= n_elements], replaces them) -> the
+        manager's flags, balance, forest adapt and new mesh -> the remap
+        tables up in one host-to-device copy -> the state remapped by
+        gathers (ops/subgrid.apply_subgrid_remap) -> the new mesh
+        installed.  `adapt_timings` gets the host seconds of its parts
+        (criteria, flags+balance, forest-adapt, mesh-build, upload, remap:
+        the remap's device work runs on after it)."""
+        self._require_manager("adapt()")
+        t0 = time.perf_counter()
+        if criteria is None:
+            crit = self._criteria()
+        else:
+            self._crit_pending = None
+            crit = np.asarray(criteria)
+        t1 = time.perf_counter()
+        remap = self.manager.adapt_forest(crit)
+        t2 = time.perf_counter()
+        mesh = self.manager.mesh
+        cap = mesh.conn.element_capacity
+        n = len(remap.src_start)
+        tables = np.zeros((4, cap), np.int32)
+        tables[0, :n] = remap.src_start
+        tables[1, :n] = remap.level_change > 0
+        tables[2, :n] = remap.child_id
+        tables[3, :n] = remap.src_count > 1
+        d_tab = torch.from_numpy(tables).to(self.device)
+        t3 = time.perf_counter()
+        u_new = sg.apply_subgrid_remap(self.u, d_tab[0], d_tab[1] > 0,
+                                       d_tab[2], d_tab[3] > 0,
+                                       spec=self.spec, capacity=cap)
+        t4 = time.perf_counter()
+        self.install_mesh(mesh, u_new)          # the mesh tables go up here
+        t5 = time.perf_counter()
+        self.adapt_timings = dict(criteria=t1 - t0, **self.manager.timings,
+                                  upload=t3 - t2 + t5 - t4, remap=t4 - t3)
+
+
+class SubgridCompressibleEulerSolver(SubgridAdaptive):
     """Euler solver on subgrid elements over a fixed or adaptive forest,
     first or second order.
 
@@ -319,78 +402,6 @@ class SubgridCompressibleEulerSolver:
         for _ in range(int(n_steps)):
             u = self._step(u, dt)
         self.u = u
-
-    # -- AMR cycle ----------------------------------------------------------------
-
-    def _require_manager(self, what: str):
-        if self.manager is None:
-            raise RuntimeError(f"{what} requires an adaptive mesh: build the "
-                               f"solver on subgrid_manager(...)")
-
-    def adapt_prefetch(self):
-        """Compute the H1 criteria now and start their device-to-host copy
-        (into pinned memory on CUDA, recorded by an event), for a later
-        adapt(): called a few steps before it, the copy overlaps those
-        steps instead of stalling the adapt."""
-        self._require_manager("adapt_prefetch()")
-        crit = sg.h1_criteria(self.u, self.volumes, self.spec)
-        if crit.device.type == "cuda":
-            host = torch.empty(crit.shape, dtype=crit.dtype, pin_memory=True)
-            host.copy_(crit, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            self._crit_pending = (host, done)
-        else:
-            self._crit_pending = (crit.clone(), None)
-
-    def _criteria(self) -> np.ndarray:
-        """The prefetched criteria (waiting for their copy), or computed
-        and copied now."""
-        if self._crit_pending is not None:
-            host, done = self._crit_pending
-            self._crit_pending = None
-            if done is not None:
-                done.synchronize()
-            return host.numpy()
-        return sg.h1_criteria(self.u, self.volumes, self.spec).cpu().numpy()
-
-    def adapt(self, criteria=None):
-        """One adapt cycle: the H1 criteria (prefetched or computed now;
-        `criteria`, a host array [>= n_elements], replaces them) -> the
-        manager's flags, balance, forest adapt and new mesh -> the remap
-        tables up in one host-to-device copy -> the state remapped by
-        gathers (ops/subgrid.apply_subgrid_remap) -> the new mesh
-        installed.  `adapt_timings` gets the host seconds of its parts
-        (criteria, flags+balance, forest-adapt, mesh-build, upload, remap:
-        the remap's device work runs on after it)."""
-        self._require_manager("adapt()")
-        t0 = time.perf_counter()
-        if criteria is None:
-            crit = self._criteria()
-        else:
-            self._crit_pending = None
-            crit = np.asarray(criteria)
-        t1 = time.perf_counter()
-        remap = self.manager.adapt_forest(crit)
-        t2 = time.perf_counter()
-        mesh = self.manager.mesh
-        cap = mesh.conn.element_capacity
-        n = len(remap.src_start)
-        tables = np.zeros((4, cap), np.int32)
-        tables[0, :n] = remap.src_start
-        tables[1, :n] = remap.level_change > 0
-        tables[2, :n] = remap.child_id
-        tables[3, :n] = remap.src_count > 1
-        d_tab = torch.from_numpy(tables).to(self.device)
-        t3 = time.perf_counter()
-        u_new = sg.apply_subgrid_remap(self.u, d_tab[0], d_tab[1] > 0,
-                                       d_tab[2], d_tab[3] > 0,
-                                       spec=self.spec, capacity=cap)
-        t4 = time.perf_counter()
-        self.install_mesh(mesh, u_new)          # the mesh tables go up here
-        t5 = time.perf_counter()
-        self.adapt_timings = dict(criteria=t1 - t0, **self.manager.timings,
-                                  upload=t3 - t2 + t5 - t4, remap=t4 - t3)
 
     # -- diagnostics -------------------------------------------------------------
 

@@ -1,22 +1,29 @@
 """Block-structured (subgrid) GLM-MHD solver on torch tensors.
 
-Counterpart of t8gpu_tpu/models/subgrid_mhd.py for uniform meshes: each
-forest leaf carries a dense [ext]^dim block of cells; the 9-row state
-[rho, m, E, B, psi] is one tensor [9, *ext, cap] with the element axis
-minor-most, the padded slots holding MHD_GUARD.
+Counterpart of t8gpu_tpu/models/subgrid_mhd.py: each forest leaf carries a
+dense [ext]^dim block of cells; the 9-row state [rho, m, E, B, psi] is one
+tensor [9, *ext, cap] with the element axis minor-most, the padded slots
+holding MHD_GUARD.  The mesh is fixed (a SubgridMesh) or adaptive (a
+MeshManager from models/subgrid_euler.subgrid_manager: `adapt` refines and
+coarsens by the density H1 criteria and remaps all 9 rows, psi like a
+density).
 
   order 1: every SSP-RK3 stage is one launch of the CUDA kernel
-           ops/kernels.fused_mhd_flux (via ops/subgrid_mhd.
-           mhd_subgrid_divergence) and a plain torch stage update;
-  order 2: every stage is one launch of ops/kernels.fused_mhd_muscl
-           (mhd_subgrid_divergence_muscl, per-axis "minmod" or "none"),
-           the conductor walls' first-order closure and the update.
+           ops/kernels.fused_mhd_flux at extents 4 and 8 (via
+           ops/subgrid_mhd.mhd_subgrid_divergence; the virtual-fine
+           faces of hanging sides in torch), the torch engine at the
+           others, and a plain torch stage update;
+  order 2: every stage is one launch of ops/kernels.fused_mhd_muscl at
+           extents 4 and 8 (mhd_subgrid_divergence_muscl, per-axis
+           "minmod" or "none"; the torch stencil muscl_core_rows at the
+           others), the first-order closure of hanging faces and
+           conductor walls, and the update.
 On the CPU each kernel's plain PyTorch version runs instead.  The cleaning
 speed c_h and dt stay on the device: no step waits for the host.
 
 The solver runs on CUDA unless the caller passes device="cpu", and raises
-when CUDA is asked for and missing.  Dynamic AMR (adapt,
-adapt_prefetch), iterate_record and checkpoints are not ported yet.
+when CUDA is asked for and missing.  iterate_record and checkpoints are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,20 +34,23 @@ import numpy as np
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
+from t8gpu_tpu_torch.mesh.manager import MeshManager
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.models.mhd import MHD_GUARD, N_ROWS, mhd_cfl_speed
+from t8gpu_tpu_torch.models.subgrid_euler import SubgridAdaptive
 from t8gpu_tpu_torch.ops import rk
 from t8gpu_tpu_torch.ops import subgrid as sg
 from t8gpu_tpu_torch.ops import subgrid_mhd as smhd
 from t8gpu_tpu_torch.utils.config import resolve_device
 
 
-class SubgridMHDSolver:
-    """GLM-MHD on subgrid elements over a fixed uniform forest.
+class SubgridMHDSolver(SubgridAdaptive):
+    """GLM-MHD on subgrid elements over a fixed or adaptive forest.
 
     Parameters
     ----------
-    mesh: a SubgridMesh.
+    mesh: a SubgridMesh, or a MeshManager built with a SubgridMesh factory
+        (models/subgrid_euler.subgrid_manager) for dynamic AMR.
     ic: callable mapping cell centers [N*B, dim] -> state [9, N*B] (rho,
         m, E, B, psi; build E with models.mhd.mhd_state; cells in
         element-major C-order).
@@ -50,11 +60,13 @@ class SubgridMHDSolver:
         PyTorch path.  The state is float32.
     """
 
-    def __init__(self, mesh: SubgridMesh,
-                 ic: Callable[[np.ndarray], np.ndarray],
+    def __init__(self, mesh, ic: Callable[[np.ndarray], np.ndarray],
                  gamma: float = 5.0 / 3.0, glm_alpha: float = 0.1,
                  cfl: float = 0.45, order: int = 1, limiter: str = "minmod",
                  device=None):
+        self.manager = None
+        if isinstance(mesh, MeshManager):
+            self.manager, mesh = mesh, mesh.mesh
         self._setup(mesh, gamma, glm_alpha, cfl, order, limiter, device)
         u0 = np.asarray(ic(mesh.cell_centers()), np.float32)
         u0 = u0.reshape((N_ROWS, mesh.n_elements) + mesh.spec.extents)
@@ -69,6 +81,7 @@ class SubgridMHDSolver:
         or [9, *ext, cap] (numpy or tensor; guard slots are refilled), e.g.
         the JAX package's `np.asarray(solver.u)` (io/interop.py)."""
         self = cls.__new__(cls)
+        self.manager = None
         self._setup(mesh, gamma, glm_alpha, cfl, order, limiter, device)
         u = u if torch.is_tensor(u) else torch.from_numpy(np.array(u))
         self.install_mesh(mesh, u[..., : mesh.n_elements])
@@ -93,12 +106,16 @@ class SubgridMHDSolver:
         self.spec: SubgridSpec = mesh.spec
         self.device = resolve_device(device)
         self._max_speed = None
+        self.adapt_timings = {}
 
     # -- mesh / state installation --------------------------------------------
 
     def install_mesh(self, mesh: SubgridMesh, u: torch.Tensor):
         """Install `mesh` and the element-minor state `u` [9, *ext, n or
-        cap]; slots [n, cap) are filled with MHD_GUARD."""
+        cap]; slots [n, cap) are filled with MHD_GUARD.  Clears the
+        pending criteria, which refer to the previous mesh."""
+        self._crit_pending = None
+        self._max_speed = None
         self.mesh = mesh
         self.conn = mesh.conn.to(self.device)
         cap = mesh.conn.element_capacity
@@ -162,12 +179,6 @@ class SubgridMHDSolver:
     def iterate_record(self, *args, **kwargs):
         raise NotImplementedError("iterate_record (per-step observables) is "
                                   "not ported yet")
-
-    def adapt(self):
-        raise NotImplementedError("dynamic AMR is not ported yet")
-
-    def adapt_prefetch(self):
-        raise NotImplementedError("dynamic AMR is not ported yet")
 
     # -- diagnostics ----------------------------------------------------------
 

@@ -20,8 +20,11 @@ Counterpart of t8gpu_tpu/ops/subgrid.py, for the solvers' paths:
   * second order (MUSCL): per RK stage, gather each side's neighbor facing
     and second layer (`muscl_side_slabs`; the kernel's weights,
     `muscl_weights`, are built once per mesh), run one divergence kernel
-    (`ops/kernels.fused_muscl`), add the boundaries' first-order
-    fluxes (`boundary_apply`), and update the state with plain torch ops
+    (`ops/kernels.fused_muscl`; at extents other than 4 and 8 the torch
+    stencil `muscl_core`, the Euler instance of the row-generic
+    `muscl_core_rows`), add the hanging faces' and the boundaries'
+    first-order fluxes (`outer_apply(exclude_equal=True)`,
+    `boundary_apply`), and update the state with plain torch ops
     (`ops/rk.ssp_rk3`); `flux_divergence_muscl` is one such evaluation.
 
 Open (farfield) boundaries: every path takes `farfield` (rho, vx, vy, vz,
@@ -35,15 +38,14 @@ stage kernel, merges the hanging and no-slip wall viscous fluxes into its
 side extras (ops/subgrid_viscous.merge_viscous_extras) and sums the
 diffusive rate into the returned speed (`viscous_speed`).
 
-AMR meshes (2:1 balanced, coarser and finer neighbours): the order-1 paths
-at extents 4 and 8 take them.  A coarser neighbour's facing layer enters
-the side layers sampled at my resolution (`_coarse_window`); the faces to
-finer neighbours are evaluated at the virtual fine resolution
-(`_fine_interleave`, `_upsample2`, `_pool2`) in torch, as the stage
-kernels' side extras (`fine_side_extras`) or added into the divergence
-(`outer_fine_apply`).  `h1_criteria` and `apply_subgrid_remap` are the
-device half of an adapt.  The torch stencil's mesh faces (`outer_apply`,
-extents 2 and 16) and order 2 raise NotImplementedError on AMR meshes.
+AMR meshes (2:1 balanced, coarser and finer neighbours): every path takes
+them.  A coarser neighbour's facing layer enters the side layers (or
+`outer_apply`'s pass 1) sampled at my resolution (`_coarse_window`); the
+faces to finer neighbours are evaluated at the virtual fine resolution
+(`fine_side_dense`: `_fine_interleave`, `_upsample2`, `_pool2`) in
+torch, as the stage kernels' side extras (`fine_side_extras`) or added
+into the divergence (`outer_fine_apply`, `outer_apply`'s pass 2).
+`h1_criteria` and `apply_subgrid_remap` are the device half of an adapt.
 
 Layout: state is [5, *ext, E] with the element axis minor-most; a side
 layer is [C, *t_ext, E] where t_ext lists the remaining axes in increasing
@@ -52,6 +54,7 @@ order.  Side k = 2*axis + (0 for the +axis side, 1 for the -axis side).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -60,26 +63,21 @@ import torch
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
 from t8gpu_tpu_torch.ops.euler import (cell_fields_tuple, fields_axis_rotate,
                                        fields_flux, fields_mirror,
-                                       numerical_flux)
+                                       kepes_pair_flux, numerical_flux,
+                                       prim_pair_fields, prim_rows,
+                                       primitives)
 # State rows [rho, m_x, m_y, m_z, e] rotate into the +axis face frame like
 # the velocity rows of a fields stack, and a 5-row flux rotates back.
 from t8gpu_tpu_torch.ops.euler import fields_axis_rotate as axis_rotate
 from t8gpu_tpu_torch.ops.euler import flux_axis_unrotate as axis_unrotate
-from t8gpu_tpu_torch.ops.kernels import (fused_flux, fused_muscl,
-                                         fused_rk_stage,
+from t8gpu_tpu_torch.ops.kernels import (_central, _minmod, fused_flux,
+                                         fused_muscl, fused_rk_stage,
                                          fused_rk_stage_fields,
                                          interior_face_divergence,
                                          interior_surface)
 from t8gpu_tpu_torch.ops.kernels import \
     inner_divergence as inner_divergence_kernel
 from t8gpu_tpu_torch.ops.rk import STAGE_1, STAGE_2, STAGE_3
-
-
-def _require_uniform(conn, what: str):
-    if any(conn.has_coarse) or any(conn.has_fine):
-        raise NotImplementedError(
-            f"{what} on meshes with coarser/finer neighbors (AMR) is not "
-            f"ported yet")
 
 
 def _gather_layers(opp_layer: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -385,64 +383,88 @@ def pallas_side_inputs(q, conn, spec: SubgridSpec, volumes: torch.Tensor,
     return others, weights
 
 
-def _fine_side_fluxes(rows: torch.Tensor, conn, spec: SubgridSpec,
-                      volumes: torch.Tensor, flux_fn, compact: bool):
+def _joined_sides(sides, flux_fn):
+    """Evaluate the faces of several element sides in one call of the
+    elementwise flux_fn(left, right) -> (flux, speed), their operands
+    joined along the element axis (the bits of one call per side).
+    sides: [(key, left, right, weight [E_side])].  Returns ({key: flux
+    weighted by the side's weight}, max speed over the faces of nonzero
+    weight); empty and None without sides."""
+    if not sides:
+        return {}, None
+    f, sp = flux_fn(torch.cat([l for _, l, _, _ in sides], dim=-1),
+                    torch.cat([r for _, _, r, _ in sides], dim=-1))
+    w_all = torch.cat([w for *_, w in sides])
+    speed = (sp * (w_all > 0)).max()
+    return {key: fk * w for (key, _, _, w), fk in
+            zip(sides, f.split([len(w) for *_, w in sides], dim=-1))}, speed
+
+
+def fine_side_dense(rows: torch.Tensor, conn, spec: SubgridSpec,
+                    volumes: torch.Tensor, flux_fn, rotate=axis_rotate,
+                    unrotate=axis_unrotate):
     """The virtual-fine pass of the hanging-fine (2:1) faces, shared by
-    `fine_side_extras` and `outer_fine_apply`: per side with finer
-    neighbours, my boundary layer of `rows` [C, *ext, E] (states or cell
-    fields) repeated over its 2^(dim-1) subfaces against the finer
+    `fine_side_extras`, `outer_fine_apply`, `outer_apply` and the GLM-MHD
+    interface engine (ops/subgrid_mhd._interface_engine): per side with
+    finer neighbours, on the compact axis of the elements that face them
+    (conn.fine_idx), my boundary layer of `rows` [C, *ext, E] (states or
+    cell fields) repeated over its 2^(dim-1) subfaces against the finer
     neighbours' facing layers in the fine tiling, both rotated into the
-    face frame; the sides' subfaces go through one call of
-    flux_fn(left, right) -> (flux, speed) along their joined element axes
-    (the flux is elementwise, so the bits are those of one call per
-    side), weighted by the subface area and summed back onto my layer's
-    cells, signed as a divergence.  compact: only the elements that face
-    finer neighbours (conn.fine_idx, the compact axis), else all E.
-    Returns ([(side k, contribution [5, *t_ext, K or E])], max speed as
-    a 0-d tensor, 0 without finer neighbours)."""
+    face frame (`rotate`; the 9-row MHD state passes its own); the sides'
+    subfaces go through one call of flux_fn(left, right) -> (flux,
+    speed) along their joined element axes (the flux is elementwise, so
+    the bits are those of one call per side), rotated back
+    (`unrotate`), weighted by the subface area, summed back onto my
+    layer's cells, signed as a divergence and expanded to all E by one
+    gather (`_expand_compact`: exact zeros elsewhere).  Gathers only, so
+    it stays bit-reproducible.  Returns ({side k: [n_out, *t_ext, E]},
+    max speed as a 0-d tensor); empty and 0 without finer neighbours."""
     dim = spec.dim
     ext = spec.extent
     n_t = dim - 1
     t_axes = tuple(range(1, 1 + n_t))
     h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
     area_v = (h_e / ext) ** n_t / (2 ** n_t)
-    faces, lefts, rights = [], [], []
+    sides = []
     for a in range(dim):
         for s_i, hi in ((0, True), (1, False)):
             k = 2 * a + s_i
             if not conn.has_fine[k]:
                 continue
-            my_layer = rows.select(1 + a, ext - 1 if hi else 0)
-            opp_layer = rows.select(1 + a, 0 if hi else ext - 1)
-            nbr = conn.nbr[k]
-            w2 = conn.mask[k] * area_v * (conn.rel[k] > 0)
-            if compact:
-                idxk = conn.fine_idx[k]                   # [K]
-                my_layer = _gather_layers(my_layer, idxk[:, None])[..., 0]
-                nbr = torch.index_select(nbr, 0, idxk)
-                w2 = torch.index_select(w2, 0, idxk)
-            fine = _fine_interleave(_gather_layers(opp_layer, nbr), spec)
-            mine = _upsample2(my_layer, t_axes)
-            u_l, u_r = (mine, fine) if hi else (fine, mine)
-            lefts.append(axis_rotate(u_l, a))
-            rights.append(axis_rotate(u_r, a))
-            faces.append((k, a, hi, w2))
-    if not faces:
-        return [], torch.zeros((), dtype=rows.dtype, device=rows.device)
-    f, sp = flux_fn(torch.cat(lefts, dim=-1), torch.cat(rights, dim=-1))
-    w_all = torch.cat([w2 for *_, w2 in faces])
-    speed = (sp * (w_all > 0)).max()
-    out = []
-    for (k, a, hi, w2), f2 in zip(faces, f.split([len(x[3]) for x in faces],
-                                                 dim=-1)):
-        f2 = _pool2(axis_unrotate(f2, a) * w2, n_t)
-        out.append((k, -f2 if hi else f2))
+            idxk = conn.fine_idx[k]                       # [K]
+            my_layer = _gather_layers(rows.select(1 + a, ext - 1 if hi else 0),
+                                      idxk[:, None])[..., 0]
+            nbr = torch.index_select(conn.nbr[k], 0, idxk)
+            w2 = torch.index_select(
+                conn.mask[k] * area_v * (conn.rel[k] > 0), 0, idxk)
+            fine = rotate(_fine_interleave(
+                _gather_layers(rows.select(1 + a, 0 if hi else ext - 1), nbr),
+                spec), a)
+            mine = rotate(_upsample2(my_layer, t_axes), a)
+            sides.append((k, mine if hi else fine, fine if hi else mine, w2))
+    faces, speed = _joined_sides(sides, flux_fn)
+    if speed is None:
+        return {}, torch.zeros((), dtype=rows.dtype, device=rows.device)
+    out = {}
+    for k, f2 in faces.items():
+        f2 = _pool2(unrotate(f2, k // 2), n_t)
+        out[k] = _expand_compact(-f2 if k % 2 == 0 else f2, conn.fine_inv[k])
     return out, speed
 
 
-# The torch.profiler range around each stage's `fine_side_extras`, so that
-# a profile can put the AMR glue's device time apart.
-AMR_GLUE_RANGE = "t8:fine_side_extras"
+# The torch.profiler range around the AMR glue of a step on a mesh with
+# hanging faces (each stage's `fine_side_extras`, and the hanging passes
+# of the divergences: the order-2 closure `outer_apply(exclude_equal=True)`,
+# `outer_fine_apply`, the GLM-MHD engine's fine_only and exclude_equal
+# passes), so that a profile can put its device time apart.
+AMR_GLUE_RANGE = "t8:amr_glue"
+
+
+def amr_glue(active: bool):
+    """The AMR_GLUE_RANGE range, or none where `active` is false (a mesh
+    without the hanging faces that the glue serves)."""
+    return (torch.profiler.record_function(AMR_GLUE_RANGE) if active
+            else contextlib.nullcontext())
 
 
 def fine_side_extras(u: torch.Tensor, conn, spec: SubgridSpec,
@@ -456,13 +478,10 @@ def fine_side_extras(u: torch.Tensor, conn, spec: SubgridSpec,
     (`_expand_compact`); gathers only, so the step stays
     bit-reproducible.  Returns (extra_sides, extras, max speed as a 0-d
     tensor); nothing on meshes without finer neighbours."""
-    faces, speed = _fine_side_fluxes(
+    fine, speed = fine_side_dense(
         u[:5], conn, spec, volumes,
-        lambda l, r: numerical_flux(l, r, gamma=gamma, flux=flux),
-        compact=True)
-    return (tuple(k for k, _ in faces),
-            tuple(_expand_compact(c, conn.fine_inv[k]) for k, c in faces),
-            speed)
+        lambda l, r: numerical_flux(l, r, gamma=gamma, flux=flux))
+    return tuple(fine), tuple(fine.values()), speed
 
 
 def viscous_speed(u: torch.Tensor, volumes: torch.Tensor, spec: SubgridSpec,
@@ -693,34 +712,177 @@ def flux_divergence_muscl(u: torch.Tensor, volumes: torch.Tensor, conn,
 
     Per-axis limited linear reconstruction ("minmod" or "none"; a "-prim"
     suffix reconstructs in primitive space).  Interior and equal-level
-    mesh faces are one call of the MUSCL kernel; the boundaries add the
-    first-order closure (`boundary_apply`: reflective walls, or open ones
-    against the `farfield` state).  `weights` (muscl_weights) may be
-    passed in, since they depend on the mesh only.
-
-    Raises NotImplementedError on what is not ported yet: coarser/finer
-    neighbors (AMR, whose hanging faces take outer_apply's first-order
-    passes), extents other than 4 and 8."""
-    _require_uniform(conn, "order 2")
-    if spec.extent not in (4, 8):
-        raise NotImplementedError(
-            f"the MUSCL kernel takes extents 4 and 8, not {spec.extent}")
+    mesh faces are one call of the MUSCL kernel at extents 4 and 8, the
+    torch stencil `muscl_core` at the others.  The hanging (2:1) faces
+    take the first-order closure (`outer_apply(exclude_equal=True)`:
+    coarser neighbours at my resolution, finer ones at the virtual fine
+    one), and the boundaries too (`boundary_apply`: reflective walls, or
+    open ones against the `farfield` state); the equal-level weights are
+    0 on hanging sides, so their edge slopes vanish under minmod.
+    `weights` (muscl_weights) may be passed in, since they depend on the
+    mesh only.  The JAX package's flux_divergence_muscl
+    (t8gpu_tpu/ops/subgrid.py:917)."""
     lim_base, _, space = limiter.partition("-")
-    if weights is None:
-        weights = muscl_weights(conn, spec, volumes)
-    others = muscl_side_slabs(u, conn, spec)
-    D, sp_e = fused_muscl(u, weights, others, gamma=gamma, flux=flux,
-                          limiter=lim_base, positivity=positivity,
-                          space=space or "cons")
-    speed = sp_e.max()
-    if conn.b_groups:
+    space = space or "cons"
+    if spec.extent in (4, 8) and lim_base in ("minmod", "none"):
+        if weights is None:
+            weights = muscl_weights(conn, spec, volumes)
+        others = muscl_side_slabs(u, conn, spec)
+        D, sp_e = fused_muscl(u, weights, others, gamma=gamma, flux=flux,
+                              limiter=lim_base, positivity=positivity,
+                              space=space)
+        speed = sp_e.max()
+    else:
+        D, speed = muscl_core(u, volumes, conn, spec, gamma, flux, lim_base,
+                              positivity, space=space)
+    hanging = any(conn.has_coarse) or any(conn.has_fine)
+    if hanging or conn.b_groups:
         q = cell_fields_tuple(u, gamma, flux)
+    if hanging:
+        with torch.profiler.record_function(AMR_GLUE_RANGE):
+            D, sp_o = outer_apply(D, q, conn, spec, volumes, gamma, flux,
+                                  exclude_equal=True)
+        speed = torch.maximum(speed, sp_o)
+    if conn.b_groups:
         ghost_f = (None if farfield is None else
                    farfield_field_rows(farfield, gamma, flux, u.dtype,
                                        u.device))
         D, sp_b = boundary_apply(D, tuple(r.reshape(-1) for r in q), conn,
                                  spec, gamma, flux, ghost_fields=ghost_f)
         speed = torch.maximum(speed, sp_b)
+    return D, speed
+
+
+def muscl_core(u: torch.Tensor, volumes: torch.Tensor, conn,
+               spec: SubgridSpec, gamma: float, flux: str,
+               limiter: str = "minmod", positivity: bool = True,
+               space: str = "cons"):
+    """The MUSCL divergence's interior and equal-level faces on the torch
+    stencil, for any block extent: the Euler instantiation of
+    `muscl_core_rows`, in conserved space (any flux) or, with
+    space="prim", on the primitive rows (rho, v, p) through the kepes
+    pair flux.  The positivity guard keeps the cell's own value where a
+    reconstruction has rho <= 0 or p <= 0.  Returns (D [5, *ext, E], max
+    speed); hanging faces and walls are the caller's.  The JAX package's
+    muscl_core (t8gpu_tpu/ops/subgrid.py:980)."""
+    if space == "prim":
+        if flux != "kepes":
+            raise ValueError("primitive-space MUSCL ('<lim>-prim') "
+                             "supports the kepes flux")
+        w = torch.stack(prim_rows(u, gamma))
+
+        def guard_p(w_rec, w_first):
+            if not positivity:
+                return w_rec
+            ok = (w_rec[0] > 0.0) & (w_rec[4] > 0.0)
+            return torch.where(ok[None], w_rec, w_first)
+
+        return muscl_core_rows(
+            w, volumes, conn, spec, n_rows=5, rotate=axis_rotate,
+            unrotate=axis_unrotate,
+            iface=lambda l, r: kepes_pair_flux(prim_pair_fields(tuple(l)),
+                                               prim_pair_fields(tuple(r)),
+                                               gamma),
+            guard=guard_p, limiter=limiter)
+
+    def guard(u_rec, u_first):
+        if not positivity:
+            return u_rec
+        _, p = primitives(u_rec, gamma)
+        ok = (u_rec[0] > 0.0) & (p > 0.0)
+        return torch.where(ok[None], u_rec, u_first)
+
+    return muscl_core_rows(
+        u, volumes, conn, spec, n_rows=5, rotate=axis_rotate,
+        unrotate=axis_unrotate,
+        iface=lambda l, r: numerical_flux(l, r, gamma=gamma, flux=flux),
+        guard=guard, limiter=limiter)
+
+
+def muscl_core_rows(u: torch.Tensor, volumes: torch.Tensor, conn,
+                    spec: SubgridSpec, *, n_rows: int, rotate, unrotate,
+                    iface, guard, limiter: str = "minmod"):
+    """Row-generic per-axis MUSCL core of the block scheme, for any C-row
+    system: `rotate`/`unrotate` its face frame (a row permutation),
+    `iface(u_l, u_r) -> (f [C, ...], speed)` its interface flux on
+    rotated stacked operands, `guard(u_rec, u_first)` its admissibility.
+    In-block interfaces and equal-level mesh faces at second order, each
+    edge cell's outward difference from the equal-level neighbour's
+    facing layer (masked to 0 at hanging faces and walls, where minmod
+    then kills the edge slope); both elements of an equal-level face build
+    the same four layers, so they compute the same flux.  Returns (D
+    [n_rows, *ext, E], max speed).  The JAX package's muscl_core_rows
+    (t8gpu_tpu/ops/subgrid.py:1040)."""
+    if limiter == "minmod":
+        lim = _minmod
+    elif limiter == "none":
+        # the unlimited central slope: at a masked side the edge cell keeps
+        # half its interior slope (only minmod falls back to first order)
+        lim = _central
+    else:
+        raise ValueError(f"unknown subgrid limiter: {limiter!r}")
+    dim = spec.dim
+    ext = spec.extent
+    h_cell = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim) / ext
+    area_t = h_cell ** (dim - 1)
+    surface = area_t * (volumes > 0)
+    D = torch.zeros((n_rows,) + tuple(u.shape[1:]), dtype=u.dtype,
+                    device=u.device)
+    speed = torch.zeros((), dtype=u.dtype, device=u.device)
+
+    for a in range(dim):
+        ax = 1 + a
+        v = rotate(u, a)                      # v[1] is the normal row
+        # the equal-level neighbour's facing and second layers per side
+        sides = {}
+        for s_i, hi in ((0, True), (1, False)):
+            k = 2 * a + s_i
+            nbr1 = conn.nbr[k][:, :1]
+            e_idx, s_idx = (0, 1) if hi else (ext - 1, ext - 2)
+            nb0 = _gather_layers(v.select(ax, e_idx), nbr1)[..., 0]
+            nb1 = _gather_layers(v.select(ax, s_idx), nbr1)[..., 0]
+            eq = ((conn.rel[k] == 0) & (conn.mask[k] > 0)).to(u.dtype)
+            sides[hi] = (nb0, nb1, eq, k)
+        my_lo = v.select(ax, 0)
+        my_hi = v.select(ax, ext - 1)
+
+        # one-sided differences d_lo[i] = u_i - u_{i-1}, d_hi[i] = u_{i+1}
+        # - u_i; the outward ones masked to 0 off equal-level faces
+        d_int = v.narrow(ax, 1, ext - 1) - v.narrow(ax, 0, ext - 1)
+        d_out_lo = (my_lo - sides[False][0]) * sides[False][2]
+        d_out_hi = (sides[True][0] - my_hi) * sides[True][2]
+        d_lo = torch.cat([d_out_lo.unsqueeze(ax), d_int], dim=ax)
+        d_hi = torch.cat([d_int, d_out_hi.unsqueeze(ax)], dim=ax)
+        slope = lim(d_lo, d_hi)
+
+        # in-block interfaces
+        v_l = v.narrow(ax, 0, ext - 1)
+        v_r = v.narrow(ax, 1, ext - 1)
+        u_l = guard(v_l + 0.5 * slope.narrow(ax, 0, ext - 1), v_l)
+        u_r = guard(v_r - 0.5 * slope.narrow(ax, 1, ext - 1), v_r)
+        f, sp = iface(u_l, u_r)
+        D = interior_face_divergence(D, unrotate(f, a) * surface, a)
+        speed = torch.maximum(speed, (sp * (surface > 0)).max())
+
+        # equal-level mesh faces at second order
+        for hi in (True, False):
+            nb0, nb1, eq, k = sides[hi]
+            my_edge = my_hi if hi else my_lo
+            s_edge = slope.select(ax, ext - 1 if hi else 0)
+            if hi:
+                s_nbr = lim(nb0 - my_edge, nb1 - nb0)
+                u_lf = guard(my_edge + 0.5 * s_edge, my_edge)
+                u_rf = guard(nb0 - 0.5 * s_nbr, nb0)
+            else:
+                s_nbr = lim(nb0 - nb1, my_edge - nb0)
+                u_lf = guard(nb0 + 0.5 * s_nbr, nb0)
+                u_rf = guard(my_edge - 0.5 * s_edge, my_edge)
+            f, sp = iface(u_lf, u_rf)
+            w = conn.mask[k] * area_t * eq
+            f = unrotate(f, a) * w
+            D = _slab_add(D, (-f if hi else f).reshape(n_rows, -1), a,
+                          layer_hi=hi, spec=spec)
+            speed = torch.maximum(speed, (sp * (w > 0)).max())
     return D, speed
 
 
@@ -760,64 +922,97 @@ def inner_divergence_fields(q: tuple, volumes: torch.Tensor,
     return D, speed
 
 
-def outer_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
-                volumes: torch.Tensor, gamma: float, flux: str,
-                exclude_equal: bool = False):
-    """Add the mesh faces' fluxes into the block divergence [5, *ext, E]:
-    per element side, gather the neighbour's facing layer of the cell
-    fields `q` (a tuple of C rows), evaluate the faces against the own
-    boundary layer and add them into it.  Returns (D, max speed).
+def mesh_face_passes(D: torch.Tensor, rows: torch.Tensor, conn,
+                     spec: SubgridSpec, volumes: torch.Tensor, iface,
+                     rotate=axis_rotate, unrotate=axis_unrotate,
+                     exclude_equal: bool = False, fine_only: bool = False):
+    """Add the mesh faces' fluxes into the block divergence D [n_out, *ext,
+    E], for any row system: per element side, the neighbour's facing
+    layer of `rows` [C, *ext, E] (cell fields or states) against my
+    boundary layer, both rotated into the face frame (`rotate`), through
+    iface(left, right) -> (flux [n_out, ...], speed), rotated back
+    (`unrotate`) and added into my layer.  Returns (D, max speed).
 
-    This is pass 1 of the JAX package's two (the faces at the element's
-    own resolution); on uniform meshes every face is an equal-level one.
-    exclude_equal skips them (what the order-2 closure wants).  Meshes
-    with coarser or finer neighbours (its coarse window and virtual-fine
-    pass, the path of extents 2 and 16 under AMR) raise
-    NotImplementedError."""
-    _require_uniform(conn, "the torch stencil's mesh faces")
-    speed = torch.zeros((), dtype=q[0].dtype, device=q[0].device)
-    if exclude_equal:
-        return D, speed              # uniform: every face is equal-level
+    Two passes per side, as in the JAX package's outer_apply
+    (t8gpu_tpu/ops/subgrid.py:195): pass 1 at the element's own
+    resolution takes the equal-level neighbours and the coarser ones,
+    whose layer is sampled at my resolution (`_coarse_window`), with the
+    weight mask*area*(rel <= 0); pass 2 at the virtual fine resolution
+    takes the finer neighbours (`fine_side_dense`, only on sides that
+    have them).  exclude_equal (the order-2 closure) weighs pass 1 by
+    (rel < 0) and skips it on sides without coarser neighbours: the
+    equal-level faces are the MUSCL divergence's.  fine_only skips pass 1
+    (what the divergence kernels leave to torch).  Each pass evaluates its
+    sides' faces in one iface call (`_joined_sides`).  Shared by
+    `outer_apply`, `outer_fine_apply` and the GLM-MHD interface engine
+    (ops/subgrid_mhd._interface_engine)."""
     dim = spec.dim
     ext = spec.extent
     h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
     area_t = (h_e / ext) ** (dim - 1)
-    for a in range(dim):
-        q_rot = fields_axis_rotate(q, a)
+    fine, speed = fine_side_dense(rows, conn, spec, volumes, iface,
+                                  rotate=rotate, unrotate=unrotate)
+    sides = []
+    for a in () if fine_only else range(dim):
+        r_rot = rotate(rows, a)
         for s_i, hi in ((0, True), (1, False)):
             k = 2 * a + s_i
-            my_layer = torch.stack([r.select(a, ext - 1 if hi else 0)
-                                    for r in q_rot])
-            opp_layer = torch.stack([r.select(a, 0 if hi else ext - 1)
-                                     for r in q_rot])
-            base = _gather_layers(opp_layer, conn.nbr[k][:, :1])[..., 0]
-            q_l, q_r = (my_layer, base) if hi else (base, my_layer)
-            f, sp = fields_flux(tuple(q_l), tuple(q_r), gamma=gamma,
-                                flux=flux)
-            w1 = conn.mask[k] * area_t * (conn.rel[k] <= 0)
-            f = axis_unrotate(f, a) * w1
-            speed = torch.maximum(speed, (sp * (w1 > 0)).max())
-            D = _slab_add(D, (-f if hi else f).reshape(5, -1), a,
-                          layer_hi=hi, spec=spec)
+            if exclude_equal and not conn.has_coarse[k]:
+                continue
+            rel = conn.rel[k]
+            my_layer = r_rot.select(1 + a, ext - 1 if hi else 0)
+            base = _gather_layers(r_rot.select(1 + a, 0 if hi else ext - 1),
+                                  conn.nbr[k][:, :1])[..., 0]
+            if conn.has_coarse[k]:
+                base = torch.where(
+                    rel < 0, _coarse_window(base, conn.bits[k], spec), base)
+            w1 = conn.mask[k] * area_t * ((rel < 0) if exclude_equal
+                                          else (rel <= 0))
+            sides.append((k, my_layer if hi else base,
+                          base if hi else my_layer, w1))
+    pass1, sp1 = _joined_sides(sides, iface)
+    if sp1 is not None:
+        speed = torch.maximum(speed, sp1)
+    n_out = D.shape[0]
+    for k in range(2 * dim):
+        contrib = None
+        if k in pass1:
+            f = unrotate(pass1[k], k // 2)
+            contrib = -f if k % 2 == 0 else f
+        if k in fine:
+            contrib = fine[k] if contrib is None else contrib + fine[k]
+        if contrib is not None:
+            D = _slab_add(D, contrib.reshape(n_out, -1), k // 2,
+                          layer_hi=k % 2 == 0, spec=spec)
     return D, speed
+
+
+def _fields_iface(gamma: float, flux: str):
+    """The field-form flux on stacked cell-field operands."""
+    return lambda l, r: fields_flux(tuple(l), tuple(r), gamma=gamma,
+                                    flux=flux)
+
+
+def outer_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
+                volumes: torch.Tensor, gamma: float, flux: str,
+                exclude_equal: bool = False):
+    """Add the mesh faces' fluxes into the block divergence [5, *ext, E]
+    from the cell fields `q` (a tuple of C rows): `mesh_face_passes`
+    through the field-form flux.  Returns (D, max speed).  The JAX
+    package's outer_apply (t8gpu_tpu/ops/subgrid.py:195)."""
+    return mesh_face_passes(D, torch.stack(q), conn, spec, volumes,
+                            _fields_iface(gamma, flux),
+                            exclude_equal=exclude_equal)
 
 
 def outer_fine_apply(D: torch.Tensor, q: tuple, conn, spec: SubgridSpec,
                      volumes: torch.Tensor, gamma: float, flux: str):
     """The hanging-fine (2:1) faces' pass that the field-input divergence
-    kernel leaves to torch: per side with finer neighbours, my boundary
-    layer's cell fields against the finer neighbours' facing layers in
-    the virtual fine tiling (`_fine_side_fluxes`, through the field-form
-    flux `fields_flux`), added into D.  q: the cell-fields tuple.  Returns
-    (D, max speed); D unchanged and speed 0 without finer neighbours."""
-    faces, speed = _fine_side_fluxes(
-        torch.stack(q), conn, spec, volumes,
-        lambda l, r: fields_flux(tuple(l), tuple(r), gamma=gamma, flux=flux),
-        compact=False)
-    for k, c in faces:
-        D = _slab_add(D, c.reshape(5, -1), k // 2, layer_hi=k % 2 == 0,
-                      spec=spec)
-    return D, speed
+    kernel leaves to torch: `mesh_face_passes(fine_only=True)` on the
+    cell fields `q` (a tuple).  Returns (D, max speed); D unchanged and
+    speed 0 without finer neighbours."""
+    return mesh_face_passes(D, torch.stack(q), conn, spec, volumes,
+                            _fields_iface(gamma, flux), fine_only=True)
 
 
 def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
@@ -841,9 +1036,9 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
     the exterior state's fields (`farfield_field_rows`) in every dispatch.
     `weights`: `face_weights`, built once per mesh by the caller (or
     here).  On AMR meshes the kernel path takes the coarser neighbours in
-    its side layers and the finer ones in `outer_fine_apply`; the
-    stencil paths (extents 2 and 16, use_kernel=False) raise
-    NotImplementedError there.  The JAX package's flux_divergence
+    its side layers and the finer ones in `outer_fine_apply`, the stencil
+    paths both in `outer_apply`'s two passes.  The JAX package's
+    flux_divergence
     (t8gpu_tpu/ops/subgrid.py:854)."""
     ghost_f = (None if farfield is None else
                farfield_field_rows(farfield, gamma, flux, u.dtype, u.device))
@@ -855,7 +1050,9 @@ def flux_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
                                        weights=weights)
         D, sp_e = fused_flux(qs, w, others, gamma=gamma, flux=flux)
         sp_i = sp_e.max()
-        D, sp_o = outer_fine_apply(D, q, conn, spec, volumes, gamma, flux)
+        with amr_glue(any(conn.has_fine)):
+            D, sp_o = outer_fine_apply(D, q, conn, spec, volumes, gamma,
+                                       flux)
     else:
         if use_kernel:
             D, sp_i = inner_divergence_kernel(u, volumes, gamma=gamma,

@@ -1,8 +1,7 @@
 """GLM-MHD on the dense-block (subgrid) scheme, on torch tensors.
 
-Counterpart of t8gpu_tpu/ops/subgrid_mhd.py for uniform meshes (equal-level
-neighbours and conductor walls).  The 9-row state [9, *ext, E] runs
-through the slab-exchange machinery of ops/subgrid.py:
+Counterpart of t8gpu_tpu/ops/subgrid_mhd.py.  The 9-row state [9, *ext, E]
+runs through the slab-exchange machinery of ops/subgrid.py:
 
   * the face-frame rotation is a static row permutation per axis that
     moves BOTH vector triplets (momentum and B) (models/mhd.axis_rotate9);
@@ -14,13 +13,17 @@ through the slab-exchange machinery of ops/subgrid.py:
   * the parabolic damping -alpha c_h psi V_cell / h_cell is a source on
     the psi row of the divergence.
 
-Order 1: per evaluation one launch of the CUDA kernel
-`ops/kernels.fused_mhd_flux` (interior, equal-level and wall faces; the
-walls' conductor ghosts ride in as side layers).  Order 2: one launch of
-`ops/kernels.fused_mhd_muscl` (interior and equal-level faces), plus the
-first-order wall closure of `_interface_engine`.  On the CPU each kernel's
-plain PyTorch version runs.  Coarser or finer neighbours (AMR) raise
-NotImplementedError.
+Order 1: at extents 4 and 8 per evaluation one launch of the CUDA kernel
+`ops/kernels.fused_mhd_flux` (interior, equal-level, coarser-neighbour and
+wall faces; a coarser neighbour's layer and the walls' conductor ghosts
+ride in as side layers), plus the virtual-fine faces of the hanging sides
+(`_interface_engine(fine_only=True)`); at other extents the torch engine
+`_interface_engine`.  Order 2: at extents 4 and 8 one launch of
+`ops/kernels.fused_mhd_muscl` (interior and equal-level faces), at other
+extents the row-generic torch stencil ops/subgrid.muscl_core_rows, plus
+the first-order closure of hanging faces and walls
+(`_interface_engine(exclude_equal=True)`).  On the CPU each kernel's
+plain PyTorch version runs.
 """
 
 from __future__ import annotations
@@ -28,19 +31,10 @@ from __future__ import annotations
 import torch
 
 from t8gpu_tpu_torch.memory.subgrid import SubgridSpec
-from t8gpu_tpu_torch.models.mhd import (N_ROWS, _rusanov_rows, axis_rotate9,
-                                        axis_unrotate9, glm_ch)
+from t8gpu_tpu_torch.models.mhd import (N_ROWS, _mhd_guard, _rusanov_rows,
+                                        axis_rotate9, axis_unrotate9, glm_ch)
 from t8gpu_tpu_torch.ops import subgrid as sg
 from t8gpu_tpu_torch.ops.kernels import fused_mhd_flux, fused_mhd_muscl
-
-def _require_uniform(conn, spec: SubgridSpec):
-    if any(conn.has_coarse) or any(conn.has_fine):
-        raise NotImplementedError(
-            "subgrid GLM-MHD on meshes with coarser/finer neighbors (AMR) is "
-            "not ported yet")
-    if spec.extent not in (4, 8):
-        raise NotImplementedError(
-            f"the MHD kernels take extents 4 and 8, not {spec.extent}")
 
 
 def _rusanov_stack(u_l: torch.Tensor, u_r: torch.Tensor, gamma: float, ch):
@@ -66,59 +60,51 @@ def _conductor_ghost_unrot(layer: torch.Tensor, axis: int) -> torch.Tensor:
 
 def _interface_engine(u: torch.Tensor, volumes: torch.Tensor, conn,
                       spec: SubgridSpec, n_out: int, iface, unrotate, ghost,
-                      exclude_equal: bool = False):
-    """Surface accumulation over the cell interfaces of a uniform block
-    mesh, parameterised by the interface function: the interior stencil,
-    the equal-level mesh faces (slab exchange) and the wall groups.
+                      fine_only: bool = False, exclude_equal: bool = False):
+    """Surface accumulation over the cell interfaces of a block mesh,
+    parameterised by the interface function: the interior stencil, the
+    mesh faces (ops/subgrid.mesh_face_passes: pass 1 at my resolution for
+    equal-level and coarser neighbours, through the coarse window; pass 2
+    at the virtual fine resolution for finer ones) and the wall groups.
 
     u: stacked [9, *ext, E].  iface(u_l, u_r) -> (f [n_out, ...], sp) on
     axis-rotated stacked operands; unrotate(f, axis) restores x, y, z
     rows; ghost(q_rot) builds the wall ghost.  Returns the inward-oriented
     accumulation D [n_out, *ext, E] and the max interface speed (0-d).
-    exclude_equal=True evaluates the walls only: the first-order closure
-    of the order-2 path, whose kernel covers the interior and equal-level
-    faces.  The flux and the div-B diagnostic share it, so they cannot
-    disagree on the surface decomposition."""
-    _require_uniform(conn, spec)
+    fine_only=True evaluates only pass 2, what the flux kernel leaves to
+    torch.  exclude_equal=True is the first-order closure of the order-2
+    path: the coarser-neighbour faces (rel < 0), pass 2 and the walls, the
+    interior and equal-level faces being the MUSCL divergence's.  The
+    flux and the div-B diagnostic share it, so they cannot disagree on the
+    surface decomposition.  The JAX package's _interface_engine
+    (t8gpu_tpu/ops/subgrid_mhd.py:106)."""
     dim = spec.dim
     ext = spec.extent
     h_e = torch.where(volumes > 0, volumes, 1.0) ** (1.0 / dim)
     surface = (h_e / ext) ** (dim - 1) * (volumes > 0)   # interior cell face
-    area_t = (h_e / ext) ** (dim - 1)                    # mesh-face cell face
 
     D = torch.zeros((n_out,) + tuple(u.shape[1:]), dtype=u.dtype,
                     device=u.device)
     speed = torch.zeros((), dtype=u.dtype, device=u.device)
-
-    for a in () if exclude_equal else range(dim):
-        u_rot = axis_rotate9(u, a)
-        ax = 1 + a
-
+    for a in () if fine_only or exclude_equal else range(dim):
         # interior interfaces (ext-1 per axis): f[i-1] lands on cell i,
         # f[i] leaves it
+        u_rot = axis_rotate9(u, a)
+        ax = 1 + a
         f, sp = iface(u_rot.narrow(ax, 0, ext - 1),
                       u_rot.narrow(ax, 1, ext - 1))
         f = unrotate(f, a) * surface
         zero = torch.zeros_like(f.narrow(ax, 0, 1))
         D = D + torch.cat([zero, f], dim=ax) - torch.cat([f, zero], dim=ax)
         speed = torch.maximum(speed, (sp * (surface > 0)).max())
-
-        # equal-level mesh faces, from the neighbour's facing layer
-        for s_i, hi in ((0, True), (1, False)):
-            k = 2 * a + s_i
-            my_layer = u_rot.select(ax, ext - 1 if hi else 0)
-            opp_layer = u_rot.select(ax, 0 if hi else ext - 1)
-            other = sg._gather_layers(opp_layer, conn.nbr[k][:, :1])[..., 0]
-            q_l, q_r = (my_layer, other) if hi else (other, my_layer)
-            f, sp = iface(q_l, q_r)
-            w1 = conn.mask[k] * area_t * (conn.rel[k] <= 0)
-            f = unrotate(f, a) * w1
-            speed = torch.maximum(speed, (sp * (w1 > 0)).max())
-            D = sg._slab_add(D, (-f if hi else f).reshape(n_out, -1), a,
-                             layer_hi=hi, spec=spec)
+    D, sp_m = sg.mesh_face_passes(D, u, conn, spec, volumes, iface,
+                                  rotate=axis_rotate9, unrotate=unrotate,
+                                  exclude_equal=exclude_equal,
+                                  fine_only=fine_only)
+    speed = torch.maximum(speed, sp_m)
 
     # wall groups (ops/subgrid.boundary_apply's shape)
-    if conn.b_groups:
+    if conn.b_groups and not fine_only:
         u_flat = u.reshape(u.shape[0], -1)
         for (axis, sign), bc, ar, br in zip(conn.b_groups, conn.b_cell,
                                             conn.b_area, conn.b_recv):
@@ -155,12 +141,13 @@ def mhd_flux_weights(conn, spec: SubgridSpec, volumes: torch.Tensor):
 
 def mhd_side_inputs(u: torch.Tensor, conn, spec: SubgridSpec,
                     volumes: torch.Tensor, ch, weights=None):
-    """Inputs of ops/kernels.fused_mhd_flux: per side the equal-level
-    neighbour's facing layer as a 9-row state slab [9, *t_ext, E]
-    (unrotated; wall sides carry the conductor ghost of the own layer),
-    and the packed weights [8, E] with row 7 = ch.  `weights` may pass in
-    `mhd_flux_weights`, which depends on the mesh only."""
-    _require_uniform(conn, spec)
+    """Inputs of ops/kernels.fused_mhd_flux: per side the resolved
+    equal-level or coarser neighbour's facing layer as a 9-row state slab
+    [9, *t_ext, E] (unrotated; a coarser neighbour's layer sampled at my
+    resolution by ops/subgrid._coarse_window; wall sides carry the
+    conductor ghost of the own layer), and the packed weights [8, E] with
+    row 7 = ch.  `weights` may pass in `mhd_flux_weights`, which depends
+    on the mesh only."""
     ext = spec.extent
     walls = sg._wall_masks(conn, spec, volumes)
     others = []
@@ -169,6 +156,10 @@ def mhd_side_inputs(u: torch.Tensor, conn, spec: SubgridSpec,
             k = 2 * a + s_i
             opp_layer = u.select(1 + a, 0 if hi else ext - 1)
             base = sg._gather_layers(opp_layer, conn.nbr[k][:, :1])[..., 0]
+            if conn.has_coarse[k]:
+                base = torch.where(conn.rel[k] < 0,
+                                   sg._coarse_window(base, conn.bits[k],
+                                                     spec), base)
             if walls is not None:
                 own_layer = u.select(1 + a, ext - 1 if hi else 0)
                 base = torch.where(walls[k] > 0,
@@ -199,14 +190,30 @@ def mhd_subgrid_divergence(u: torch.Tensor, volumes: torch.Tensor, conn,
                            spec: SubgridSpec, gamma: float, alpha: float,
                            weights=None):
     """First-order GLM-MHD divergence: u [9, *ext, E] -> (D [9, *ext, E],
-    max signal speed, 0-d).  c_h comes fresh from u; the interior,
-    equal-level and wall faces are one launch of the flux kernel; the
-    damping source lands on the psi row.  `weights`: mhd_flux_weights,
-    cached by the caller."""
+    max signal speed, 0-d).  c_h comes fresh from u.  At extents 4 and 8
+    the interior, equal-level, coarser-neighbour and wall faces are one
+    launch of the flux kernel, the virtual-fine faces of hanging sides
+    the engine's fine_only pass; at other extents the whole divergence is
+    the torch engine.  The damping source lands on the psi row.
+    `weights`: mhd_flux_weights, cached by the caller."""
     ch = _cleaning_speed(u, volumes, gamma)
-    others, w = mhd_side_inputs(u, conn, spec, volumes, ch, weights)
-    D, sp_e = fused_mhd_flux(u, w, others, gamma=gamma)
-    return _add_damping(D, u, volumes, spec, ch, alpha), sp_e.max()
+
+    def iface(l, r):
+        return _rusanov_stack(l, r, gamma, ch)
+    if spec.extent in (4, 8):
+        others, w = mhd_side_inputs(u, conn, spec, volumes, ch, weights)
+        D, sp_e = fused_mhd_flux(u, w, others, gamma=gamma)
+        speed = sp_e.max()
+        if any(conn.has_fine):
+            with torch.profiler.record_function(sg.AMR_GLUE_RANGE):
+                D2, sp_f = _interface_engine(u, volumes, conn, spec, N_ROWS,
+                                             iface, axis_unrotate9,
+                                             _conductor_ghost, fine_only=True)
+            D, speed = D + D2, torch.maximum(speed, sp_f)
+    else:
+        D, speed = _interface_engine(u, volumes, conn, spec, N_ROWS, iface,
+                                     axis_unrotate9, _conductor_ghost)
+    return _add_damping(D, u, volumes, spec, ch, alpha), speed
 
 
 def mhd_muscl_engine(u: torch.Tensor, volumes: torch.Tensor, conn,
@@ -214,25 +221,41 @@ def mhd_muscl_engine(u: torch.Tensor, volumes: torch.Tensor, conn,
                      limiter: str = "minmod", positivity: bool = True,
                      weights=None):
     """Second-order GLM-MHD surface accumulation: the interior and
-    equal-level faces are one launch of the MHD MUSCL kernel (per-axis
-    slopes, thermal-pressure guard, the ch-threaded Rusanov/GLM flux), the
-    conductor walls the first-order closure of `_interface_engine`.
-    `weights`: ops/subgrid.muscl_weights, cached by the caller (row 7 is
-    set to ch here).  Returns (D, max signal speed); the damping source
-    is the caller's."""
-    _require_uniform(conn, spec)
-    if weights is None:
-        weights = sg.muscl_weights(conn, spec, volumes)
-    others = sg.muscl_side_slabs(u, conn, spec)
-    D, sp_e = fused_mhd_muscl(u, _with_ch(weights, ch), others, gamma=gamma,
-                              limiter=limiter, positivity=positivity)
-    speed = sp_e.max()
-    if conn.b_groups:
-        def iface(l, r):
-            return _rusanov_stack(l, r, gamma, ch)
-        D2, sp2 = _interface_engine(u, volumes, conn, spec, N_ROWS, iface,
-                                    axis_unrotate9, _conductor_ghost,
-                                    exclude_equal=True)
+    equal-level faces are one launch of the MHD MUSCL kernel at extents 4
+    and 8 (per-axis slopes, thermal-pressure guard, the ch-threaded
+    Rusanov/GLM flux), ops/subgrid.muscl_core_rows with the same guard
+    (models/mhd._mhd_guard) at the others; hanging faces and conductor
+    walls take the first-order closure of `_interface_engine(
+    exclude_equal=True)`.  `weights`: ops/subgrid.muscl_weights, cached
+    by the caller (row 7 is set to ch here).  Returns (D, max signal
+    speed); the damping source is the caller's."""
+    def iface(l, r):
+        return _rusanov_stack(l, r, gamma, ch)
+    if spec.extent in (4, 8) and limiter in ("minmod", "none"):
+        if weights is None:
+            weights = sg.muscl_weights(conn, spec, volumes)
+        others = sg.muscl_side_slabs(u, conn, spec)
+        D, sp_e = fused_mhd_muscl(u, _with_ch(weights, ch), others,
+                                  gamma=gamma, limiter=limiter,
+                                  positivity=positivity)
+        speed = sp_e.max()
+    else:
+        if positivity:
+            def guard(rec, first):
+                return _mhd_guard(rec, first, gamma)
+        else:
+            def guard(rec, first):
+                return rec
+        D, speed = sg.muscl_core_rows(
+            u, volumes, conn, spec, n_rows=N_ROWS, rotate=axis_rotate9,
+            unrotate=axis_unrotate9, iface=iface, guard=guard,
+            limiter=limiter)
+    hanging = any(conn.has_coarse) or any(conn.has_fine)
+    if conn.b_groups or hanging:
+        with sg.amr_glue(hanging):
+            D2, sp2 = _interface_engine(u, volumes, conn, spec, N_ROWS,
+                                        iface, axis_unrotate9,
+                                        _conductor_ghost, exclude_equal=True)
         D, speed = D + D2, torch.maximum(speed, sp2)
     return D, speed
 

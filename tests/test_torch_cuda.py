@@ -23,7 +23,9 @@ kernels with the side extras of AMR meshes (bit for bit, no spills, a
 launch without extras unchanged) and an adapt cycle on the card against
 the CPU; the stage kernel's viscous and gravity instantiations in every
 case, at a part-full last wave of blocks and with side weights other
-than 0 and 1 (bit for bit, no spills).
+than 0 and 1 (bit for bit, no spills); the MUSCL and GLM-MHD kernels on
+the inputs of adapted meshes (coarse windows, hanging sides weight 0; bit
+for bit) and a GLM-MHD adapt cycle on the card against the CPU.
 """
 
 import numpy as np
@@ -1326,3 +1328,117 @@ def test_cuda_farfield_solver_matches_cpu(cuda, mode, ext, kw):
     np.testing.assert_allclose(dk.cpu().numpy(), dc.numpy(), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(float(sk), float(sc), rtol=RTOL)
+
+
+# -- the divergence kernels on adapted meshes ----------------------------------
+
+
+def _adapted_solver(cuda, kind, dim, ext):
+    """A solver on the card whose forest was adapted once from seeded
+    criteria (coarser and finer neighbours on its sides): Euler with a
+    noisy KH state ("euler") or GLM-MHD with a noisy Orszag-Tang one
+    ("mhd")."""
+    from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    from tests.torch_port_inputs import noisy_orszag_tang
+    level = 3 if dim == 2 else 1
+    mgr = subgrid_manager(Forest.uniform(level, dim=dim),
+                          SubgridSpec((ext,) * dim),
+                          AMRConfig(1, level + 1, 1.0))
+    if kind == "euler":
+        s = SubgridCompressibleEulerSolver(mgr, noisy_kh(dim, 2), device=cuda)
+    else:
+        s = SubgridMHDSolver(mgr, noisy_orszag_tang(2), device=cuda)
+    rng = np.random.default_rng(10 * dim + ext)
+    s.adapt(criteria=rng.uniform(0.0, 2.0, s.n_elements).astype(np.float32))
+    assert any(s.conn.has_fine) and any(s.conn.has_coarse)
+    return s
+
+
+def _assert_bits(k1, k2, ref):
+    for a, b, r in zip(k1, k2, ref):
+        assert _bits_equal(a, b)                      # on repeat
+        assert _bits_equal(a, r)                      # the plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space,flux", [("cons", "kepes"), ("prim", "kepes"),
+                                        ("cons", "hll"), ("cons", "hllc")])
+@pytest.mark.parametrize("dim,ext", [(3, 4), (2, 8)])
+def test_cuda_muscl_amr_inputs_match_reference(cuda, dim, ext, space, flux):
+    """The MUSCL kernel on the side slabs and weights of an adapted mesh
+    (hanging sides weight 0, their slabs a coarser or finer neighbour's
+    layer), bit for bit against its plain version and on repeat."""
+    s = _adapted_solver(cuda, "euler", dim, ext)
+    w = tsg.muscl_weights(s.conn, s.spec, s.volumes)
+    assert bool((w[1:1 + 2 * dim] == 0).any())        # hanging sides masked
+    others = tsg.muscl_side_slabs(s.u, s.conn, s.spec)
+    kw = dict(gamma=GAMMA, flux=flux, limiter="minmod", space=space)
+    _assert_bits(fused_muscl(s.u, w, others, **kw),
+                 fused_muscl(s.u, w, others, **kw),
+                 fused_muscl_reference(s.u, w, others, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("dim,ext", [(2, 8), (2, 4), (3, 4)])
+def test_cuda_mhd_amr_inputs_match_reference(cuda, dim, ext, order):
+    """The two GLM-MHD kernels on the inputs of an adapted mesh: the flux
+    kernel's side layers with coarser neighbours through the coarse
+    window, the MUSCL kernel's side slabs with hanging sides weight 0;
+    bit for bit against their plain versions and on repeat."""
+    s = _adapted_solver(cuda, "mhd", dim, ext)
+    ch = tsm._cleaning_speed(s.u, s.volumes, MHD_GAMMA)
+    if order == 1:
+        others, w = tsm.mhd_side_inputs(s.u, s.conn, s.spec, s.volumes, ch)
+        kern, ref, kw = fused_mhd_flux, fused_mhd_flux_reference, {}
+    else:
+        w = tsm._with_ch(tsg.muscl_weights(s.conn, s.spec, s.volumes), ch)
+        others = tsg.muscl_side_slabs(s.u, s.conn, s.spec)
+        kern, ref = fused_mhd_muscl, fused_mhd_muscl_reference
+        kw = dict(limiter="minmod", positivity=True)
+    _assert_bits(kern(s.u, w, others, gamma=MHD_GAMMA, **kw),
+                 kern(s.u, w, others, gamma=MHD_GAMMA, **kw),
+                 ref(s.u, w, others, gamma=MHD_GAMMA, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2])
+def test_cuda_mhd_adapt_matches_cpu(cuda, order):
+    """One GLM-MHD adapt cycle on the card and on the CPU
+    (tests/test_subgrid_mhd.py's: Forest.uniform(2, dim=2), Subgrid<4,4>,
+    AMRConfig(1, 3, 0.02), its blob): two steps, the card's criteria on
+    both, the same forest and the remapped state within tolerance, then
+    one step (3 launches of the order's kernel) within tolerance."""
+    from t8gpu_tpu_torch.models.subgrid_euler import subgrid_manager
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+
+    def blob(c):
+        d2 = ((c - 0.5) ** 2).sum(axis=1)
+        rho = 1.0 + 1.5 * np.exp(-d2 / 0.02)
+        return mhd_state(rho, (0.3, -0.2, 0.0), 1.0, (0.5, 0.3, 0.0),
+                         gamma=MHD_GAMMA)
+    pair = [SubgridMHDSolver(subgrid_manager(
+        Forest.uniform(2, dim=2), SubgridSpec((4, 4)), AMRConfig(1, 3, 0.02)),
+        blob, order=order, device=dev) for dev in (cuda, "cpu")]
+    gpu, cpu = pair
+    dt = cpu.compute_timestep()
+    for s in pair:
+        s.iterate_many(2, dt)
+    crit = tsg.h1_criteria(gpu.u, gpu.volumes, gpu.spec).cpu()
+    for s in pair:
+        s.adapt(criteria=crit.numpy())
+    assert np.array_equal(gpu.manager.forest.level, cpu.manager.forest.level)
+    assert np.array_equal(gpu.manager.forest.anchor,
+                          cpu.manager.forest.anchor)
+    assert gpu.n_elements != 16
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    cpu.u = gpu.u.cpu()
+    kern = fused_mhd_flux if order == 1 else fused_mhd_muscl
+    before = kern.launches
+    gpu.iterate(dt)
+    cpu.iterate(dt)
+    assert kern.launches == before + 3
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)

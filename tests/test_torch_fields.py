@@ -395,42 +395,49 @@ def _hanging_conn(ext=4):
 
 @pytest.mark.parametrize("mode", ["fields", "logs"])
 def test_refusals(mode):
-    """What is not ported raises, in every stage-input mode and in
-    flux_divergence's dispatches: AMR meshes on the torch stencil (extent
-    2 here; the stage kernels' extents 4 and 8 take them), with open
-    boundaries too; unknown stage inputs.  (Open boundaries themselves
-    run: tests/test_torch_farfield.py.)"""
+    """Unknown stage inputs raise; AMR meshes on the torch stencil
+    (extent 2 here; the stage kernels' extents 4 and 8 take them through
+    their side extras) step in every stage-input mode, with open
+    boundaries too, conserving mass on the periodic mesh; and
+    flux_divergence's dispatches agree on them: at extent 2 the inner-only
+    kernel's plain version (use_kernel=True) with the stencil, at extent 4
+    the stencil's outer_apply passes with the field-input kernel's plain
+    version plus outer_fine_apply, within rtol 2e-5 / atol 2e-6.  (Open
+    boundaries themselves: tests/test_torch_farfield.py; the stencil's
+    hanging faces against the JAX package: tests/test_torch_hanging.py.)"""
     amr = SubgridCompressibleEulerSolver(_hanging_conn(ext=2),
                                          noisy_kh(2, 1), device="cpu")
     ts = _port(WALLED_2D_4)
     ff = (1.0, 0.0, 0.0, 0.0, 1.0)
     old = tsg.RK_STAGE_INPUTS
+    m0 = amr.compute_integral()
     try:
         tsg.RK_STAGE_INPUTS = mode
-        with pytest.raises(NotImplementedError, match="AMR"):
-            amr.iterate(1e-4)
+        amr.iterate(1e-4)
+        assert torch.isfinite(amr.u).all()
+        np.testing.assert_allclose(amr.compute_integral(), m0, rtol=1e-6)
         amr.config = EulerConfig(boundary="farfield", farfield=ff)
-        with pytest.raises(NotImplementedError, match="AMR"):
-            amr.iterate(1e-4)
+        amr.iterate(1e-4)
+        assert torch.isfinite(amr.u).all()
         amr.config = EulerConfig()
         tsg.RK_STAGE_INPUTS = "field"
         with pytest.raises(ValueError, match="RK_STAGE_INPUTS"):
             ts.iterate(1e-4)
     finally:
         tsg.RK_STAGE_INPUTS = old
-    for use_kernel in (None, True, False):
-        with pytest.raises(NotImplementedError, match="AMR"):
-            tsg.flux_divergence(amr.u, amr.volumes, amr.conn, amr.spec,
-                                GAMMA, "kepes", use_kernel=use_kernel)
-        with pytest.raises(NotImplementedError, match="AMR"):
-            tsg.flux_divergence(amr.u, amr.volumes, amr.conn, amr.spec,
-                                GAMMA, "kepes", use_kernel=use_kernel,
-                                farfield=ff)
     amr4 = SubgridCompressibleEulerSolver(_hanging_conn(), noisy_kh(2, 1),
                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="AMR"):
-        tsg.flux_divergence(amr4.u, amr4.volumes, amr4.conn, amr4.spec,
-                            GAMMA, "kepes", use_kernel=False)
+    for s in (amr, amr4):
+        for farfield in (None, ff):
+            got = [tsg.flux_divergence(s.u, s.volumes, s.conn, s.spec, GAMMA,
+                                       "kepes", use_kernel=use_kernel,
+                                       farfield=farfield)
+                   for use_kernel in (None, True, False)]
+            for D, sp in got[1:]:
+                np.testing.assert_allclose(D.numpy(), got[0][0].numpy(),
+                                           rtol=RTOL, atol=ATOL)
+                np.testing.assert_allclose(float(sp), float(got[0][1]),
+                                           rtol=RTOL)
 
 
 def test_kernel_input_refusals():

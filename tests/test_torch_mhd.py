@@ -458,13 +458,22 @@ def test_solver_unported_options_raise():
     with pytest.raises(ValueError, match="minmod"):
         SubgridMHDSolver(mesh, ic, limiter="bj", device="cpu")
     s = SubgridMHDSolver(mesh, ic, device="cpu")
-    for call in (s.adapt, s.adapt_prefetch, s.iterate_record):
-        with pytest.raises(NotImplementedError):
+    for call in (s.adapt, s.adapt_prefetch):     # a fixed mesh
+        with pytest.raises(RuntimeError, match="adaptive"):
             call()
+    with pytest.raises(NotImplementedError):
+        s.iterate_record()
+    # hanging meshes step at both orders (tests/test_torch_mhd_amr.py holds
+    # them against the JAX package): the 8 conserved rows kept
     for order in (1, 2):
         h = SubgridMHDSolver(_hanging_mesh(), ic, order=order, device="cpu")
-        with pytest.raises(NotImplementedError, match="AMR"):
-            h.iterate(1e-4)
+        cell_vol = h.volumes / h.spec.size
+        tot0 = (h.u[:8] * cell_vol).sum(dim=(1, 2, 3))
+        h.iterate(1e-4)
+        assert torch.isfinite(h.u).all()
+        tot1 = (h.u[:8] * cell_vol).sum(dim=(1, 2, 3))
+        scale = (h.u[:8].abs() * cell_vol).sum(dim=(1, 2, 3))
+        assert ((tot1 - tot0).abs() <= 1e-5 * scale).all()
     if not torch.cuda.is_available():         # the default device is CUDA
         with pytest.raises(RuntimeError, match="CUDA"):
             SubgridMHDSolver(mesh, ic)
