@@ -223,6 +223,40 @@ Phases, one line each; any failure raises and the exit code is not 0:
                    on adapted meshes (the torch stencil; at 16 also
                    flux_divergence(use_kernel=True), one inner-only launch);
                    the blocked uniform and AMR solvers at level 5
+  sphere           bench.py's bench_sphere at its own size: the plain-element
+                   gather path (CompressibleEulerSolver) on
+                   shell_manager(subdiv=2, level=1, AMRConfig(0, 2, 10.0)),
+                   kh_sphere, dt 5e-4; 100 warm steps, then 3 cycles of
+                   iterate_many(95), adapt_prefetch(), iterate_many(5),
+                   adapt() (sphere_cycle: elements, ms/step, the adapt's
+                   host seconds by part); elem-updates/s with the adapts;
+                   the forest 2:1 after each adapt, the relative mass
+                   change < 1e-4, a finite state, no launch of the seven
+                   kernels (no kernel lies on the plain paths); a profile
+                   line (device time by group of PyTorch's kernels, idle
+                   share, runtime launches per step; also without
+                   --profile)
+  sphere_vs_cpu    the gather path on the card against the CPU, one step
+                   each within rtol 2e-5 / atol 2e-6 and bit-identical on
+                   repeat: a subdiv-1 shell and walled uniform meshes (2D
+                   level 4, 3D level 3: the axis-aligned branch) in kepes,
+                   hll, hllc x "gather", "segment_sum"; hllc with farfield
+                   and kepes with gravity; both lattices (uniform and
+                   banded shells, two steps); one adapt of the shell with
+                   the card's criteria on both (the same forest and
+                   connectivity, the remapped state) and a step after it
+  sphere_blocked   bench_sphere_blocked: BlockedShellEulerSolver on
+                   PrismForest.uniform(shell_roots(2, n_layers=2), 2)
+                   (40,960 prisms): 3 steps within rtol 2e-5 / atol 1e-6
+                   of the gather path on the card; elem-updates/s from the
+                   slope of 10 and 210 steps (median of three), the gather
+                   path's ms/step beside it
+  sphere_blocked_amr  bench_sphere_blocked_amr: BlockedShellAMRSolver on the
+                   same roots, AMRConfig(1, 4, 10.0), two cycles of 100
+                   steps and an adapt; the levels not all equal; 2 steps
+                   within a relative max error of 5e-6 of the gather path
+                   on the same forest and state; elem-updates/s from the
+                   slope of 10 and 210 steps; mass within 1e-4
 Then one JSON line with the seven kernels (the stage kernel's log input,
 hll, hllc, extras, viscous and gravity instantiations, its 2D plain path
 and 2D extras as variants of its row, the field-input stage kernel's hll,
@@ -247,6 +281,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -422,6 +457,20 @@ MHD_AMR_EVERY, MHD_AMR_CYCLES, MHD_AMR_MAX_ELEMENTS = 25, 4, 65536
 BLOCKED_CPU_LEVEL, EXT16_CPU_LEVEL = 5, 1
 AMR_MHD_KERNEL_LEVEL = 6
 EXTRAS_2D_SHAPE = (2, 8, 4374, 4096)
+# sphere: bench.py's bench_sphere (:369-404): shell_manager(subdiv=2,
+# level=1, AMRConfig(0, 2, 10.0)), kh_sphere, dt 5e-4 (ref main.cu:30),
+# 100 warm steps, then 3 cycles of 95 steps, adapt_prefetch(), 5 steps,
+# adapt()
+SPHERE_SUBDIV, SPHERE_LEVEL = 2, 1
+SPHERE_AMR = dict(min_level=0, max_level=2, refine_threshold=10.0)
+SPHERE_DT, SPHERE_WARM, SPHERE_CYCLES = 5e-4, 100, 3
+SPHERE_EVERY, SPHERE_LAG = 100, 5
+# sphere_blocked(_amr): bench_sphere_blocked(_amr) (:407-482): the slope of
+# 10 and 210 steps; the adapted shell: AMRConfig(1, 4, 10.0), 2 cycles of
+# 100 steps and an adapt
+SHELL_BLOCKED_STEPS = (10, 210)
+SHELL_AMR_CONFIG = dict(min_level=1, max_level=4, refine_threshold=10.0)
+SHELL_AMR_CYCLES, SHELL_AMR_EVERY = 2, 100
 # what the profiler's name of a path's kernel contains: the MUSCL kernels
 # are muscl_pencil.cuh's walk, named by their physics policy; each key
 # matches no other kernel's name
@@ -594,18 +643,18 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, rtol=RTOL, atol=ATOL):
     """(max abs error, max rel error where |ref| >= atol/rtol, the share
     max err / (atol + rtol |ref|) of the tolerance); raises when that
     share exceeds 1 or `got` is not finite."""
     got, ref = got.double(), ref.double()
     err = (got - ref).abs()
-    used = float((err / (ATOL + RTOL * ref.abs())).max())
+    used = float((err / (atol + rtol * ref.abs())).max())
     if not torch.isfinite(got).all() or not used <= 1.0:    # NaN fails too
         raise AssertionError(f"{name}: disagrees with its reference: max abs "
                              f"err {float(err.max()):.3e}, {used:.2f}x the "
                              f"tolerance")
-    big = ref.abs() >= ATOL / RTOL
+    big = ref.abs() >= atol / rtol
     rel = float((err[big] / ref.abs()[big]).max()) if bool(big.any()) else 0.0
     return float(err.max()), rel, used
 
@@ -3265,6 +3314,393 @@ def phase_kernel_amr():
                                        "bit_identical": True})
 
 
+# -- the plain-element gather path and the spherical-shell flagship ----------
+
+
+def _profile_plain(solver, dt, ms_step, tag, out=None, n=4):
+    """Device time of n steps of a path without a kernel of the port, by
+    group of PyTorch's own kernels (gathers, reductions, elementwise,
+    copies, other), the runtime launches per step and the idle share
+    against the unprofiled ms/step; with `out`, the table and the trace
+    go there, named by tag.  Returns the launches per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    solver.iterate_many(1, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.iterate_many(n, dt)
+        torch.cuda.synchronize()
+    groups = dict(gathers=0.0, reductions=0.0, elementwise=0.0,
+                  copies=0.0, other=0.0)
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            k = e.key.lower()
+            key = ("gathers" if "index" in k or "gather" in k else
+                   "reductions" if "reduce" in k else
+                   "elementwise" if "elementwise" in k else
+                   "copies" if "copy" in k or "memcpy" in k or "memset" in k
+                   else "other")
+            groups[key] += e.device_time_total / 1e3 / n
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += e.count
+    busy = sum(groups.values())
+    if out is not None:
+        out = pathlib.Path(out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"profile_{tag}.txt").write_text(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+        prof.export_chrome_trace(str(out / f"profile_{tag}.json"))
+    phase("profile", path=tag, kernel="none (plain PyTorch)", steps=n,
+          **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in groups.items()},
+          device_busy_ms_per_step=f"{busy:.4f}",
+          idle_share=f"{max(0.0, 1.0 - busy / ms_step):.3f}",
+          runtime_launches_per_step=f"{launches / n:.1f}")
+    return launches / n
+
+
+def _no_kernel_launches(name):
+    """None of the seven kernels ran on a plain-PyTorch path."""
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{name}: kernel launches {counts} on a path "
+                             f"without kernels")
+
+
+def _two_to_one(name, forest):
+    """The prism forest is 2:1 across every face."""
+    pairs = forest._adjacency_pairs()
+    d = np.abs(forest.level[pairs[:, 0]].astype(int)
+               - forest.level[pairs[:, 1]].astype(int))
+    if len(d) and d.max() > 1:
+        raise AssertionError(f"{name}: the forest is not 2:1 "
+                             f"(level jump {d.max()})")
+
+
+def phase_sphere(profile_dir):
+    """bench.py's bench_sphere at its own size: the gather path
+    (CompressibleEulerSolver) on shell_manager(subdiv=2, level=1,
+    AMRConfig(0, 2, 10.0)), kh_sphere, dt 5e-4; SPHERE_WARM warm steps,
+    then SPHERE_CYCLES cycles of iterate_many(95), adapt_prefetch(),
+    iterate_many(5), adapt().  elem-updates/s with the adapts (bench's
+    metric), ms/step and the adapt's host seconds by part per cycle, the
+    forest 2:1 after each adapt, the relative mass change < 1e-4, a
+    finite state, no launch of the seven kernels; the runtime launches
+    per step and the idle share from a short profile."""
+    from t8gpu_tpu_torch import AMRConfig, CompressibleEulerSolver, kh_sphere
+    from t8gpu_tpu_torch.mesh.shell_forest import shell_manager
+    mgr = shell_manager(subdiv=SPHERE_SUBDIV, level=SPHERE_LEVEL,
+                        amr=AMRConfig(**SPHERE_AMR))
+    solver = CompressibleEulerSolver(mgr, kh_sphere)      # the card
+    m0 = solver.compute_integral()
+    n0 = solver.n_elements
+    reset_launches()
+    dt = SPHERE_DT
+    solver.iterate_many(SPHERE_WARM, dt)
+    torch.cuda.synchronize()
+    advanced, t_run = 0, time.perf_counter()
+    step_ms = []
+    for c in range(SPHERE_CYCLES):
+        n_before = solver.n_elements
+        t0 = time.perf_counter()
+        solver.iterate_many(SPHERE_EVERY - SPHERE_LAG, dt)
+        solver.adapt_prefetch()
+        solver.iterate_many(SPHERE_LAG, dt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        advanced += n_before * SPHERE_EVERY
+        solver.adapt()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _two_to_one("sphere", solver.manager.forest)
+        step_ms.append((t1 - t0) / SPHERE_EVERY * 1e3)
+        phase("sphere_cycle", cycle=c, elements_before=n_before,
+              elements_after=solver.n_elements,
+              ms_per_step=f"{step_ms[-1]:.4f}",
+              adapt_s=f"{t2 - t1:.4f}",
+              **{f"adapt_{k}_s": f"{v:.4f}"
+                 for k, v in solver.adapt_timings.items()})
+    wall = time.perf_counter() - t_run
+    _no_kernel_launches("sphere")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("sphere: non-finite state")
+    mass = abs(solver.compute_integral() - m0) / abs(m0)
+    if mass >= 1e-4:
+        raise AssertionError(f"sphere: relative mass change {mass:.3e}")
+    levels = solver.manager.forest.level
+    ms_last = step_ms[-1]
+    phase("sphere", elements_start=n0, elements_final=solver.n_elements,
+          levels=f"{int(levels.min())}-{int(levels.max())}",
+          steps=SPHERE_WARM + SPHERE_CYCLES * SPHERE_EVERY,
+          elem_updates_per_s=f"{advanced / wall:.4e}",
+          ms_per_step=",".join(f"{x:.4f}" for x in step_ms),
+          mass_change=f"{mass:.3e}", dt=dt)
+    launches = _profile_plain(solver, dt, ms_last, "sphere", profile_dir)
+    phase("sphere_launches", runtime_launches_per_step=f"{launches:.1f}")
+
+
+def _gather_pair(mesh_fn, config, accumulation="gather", ic=None):
+    """The gather path on the card and on the CPU from the same state."""
+    from t8gpu_tpu_torch import CompressibleEulerSolver, kh_sphere
+    ic = ic or kh_sphere
+    return tuple(CompressibleEulerSolver(mesh_fn(), ic, config=config,
+                                         accumulation=accumulation,
+                                         device=d) for d in (None, "cpu"))
+
+
+def _noisy_ic(dim):
+    """A seeded noisy state for the Cartesian meshes (tests/
+    torch_port_inputs.noisy_kh on plain cell centres)."""
+    from tests.torch_port_inputs import noisy_kh
+    return noisy_kh(dim, 0)
+
+
+def phase_sphere_vs_cpu():
+    """The gather path, both lattices and an adapt on the card against the
+    CPU: one step each (rtol 2e-5, atol 2e-6) and bit-identical when run
+    twice on the card: the shell_manager(1, 1) shell and uniform_mesh
+    level 4 in 2D and level 3 in 3D (walled: the axis_ranges branch), in
+    kepes, hll and hllc, each in both accumulation modes; hllc with
+    farfield and kepes with gravity on the shell and the 3D mesh; the two
+    lattices on PrismForest.uniform(shell_roots(1), 1) and its banded
+    adapted forest; one adapt of the shell on the card and on the CPU
+    with the card's criteria (the same forest and connectivity, the
+    remapped state), and a step after it."""
+    from t8gpu_tpu_torch import (AMRConfig, BlockedShellAMRSolver,
+                                 BlockedShellEulerSolver, EulerConfig,
+                                 kh_sphere)
+    from t8gpu_tpu_torch.mesh.shell_forest import (PrismForest,
+                                                   shell_manager, shell_roots)
+    from t8gpu_tpu_torch.mesh.uniform import uniform_mesh
+    torch.set_num_threads(os.cpu_count() or 1)
+    reset_launches()
+    meshes = {
+        "shell": (lambda: shell_manager(1, 1, AMRConfig(0, 2, 3.0)), None),
+        "uniform2d": (lambda: uniform_mesh(4, dim=2, periodic=False),
+                      _noisy_ic(2)),
+        "uniform3d": (lambda: uniform_mesh(3, dim=3, periodic=False),
+                      _noisy_ic(3)),
+    }
+    cases = []
+    for m in meshes:
+        for flux in STAGE_FLUXES:
+            for acc in ("gather", "segment_sum"):
+                cases.append((m, acc, f"{flux}", EulerConfig(flux=flux)))
+    for m in ("shell", "uniform3d"):
+        cases.append((m, "gather", "hllc-farfield", EulerConfig(
+            flux="hllc", boundary="farfield", farfield=FARFIELD)))
+        cases.append((m, "segment_sum", "kepes-gravity",
+                      EulerConfig(gravity=(0.0, -0.5, 0.3))))
+    worst = 0.0
+    for m, acc, tag, cfg in cases:
+        mesh_fn, ic = meshes[m]
+        gpu, cpu = _gather_pair(mesh_fn, cfg, acc, ic)
+        gpu2 = _gather_pair(mesh_fn, cfg, acc, ic)[0]
+        dt = cpu.compute_timestep() * 0.5
+        for s in (gpu, cpu, gpu2):
+            s.iterate(dt)
+        name = f"sphere_vs_cpu {m} {tag} {acc}"
+        if not torch.equal(gpu.u, gpu2.u):
+            raise AssertionError(f"{name}: not bit-identical on repeat")
+        _, _, used = compare(name, gpu.u.cpu(), cpu.u)
+        worst = max(worst, used)
+    # the two lattices
+    f1 = PrismForest.uniform(shell_roots(subdiv=1), 1)
+    c = f1.centers()
+    f2, _ = f1.adapt(f1.balance_flags((np.abs(c[:, 2]) < 0.3)
+                                      .astype(np.int8)))
+    amr = AMRConfig(1, 3, 10.0)
+    lattices = [("blocked", lambda d: BlockedShellEulerSolver(
+                    f1, kh_sphere, device=d)),
+                ("blocked_amr", lambda d: BlockedShellAMRSolver(
+                    f2, kh_sphere, amr=amr, device=d))]
+    for tag, make in lattices:
+        gpu, cpu, gpu2 = make(None), make("cpu"), make(None)
+        for s in (gpu, cpu, gpu2):
+            s.iterate_many(2, 1e-3)
+        a, b = gpu.conserved_state(), gpu2.conserved_state()
+        if not np.array_equal(a, b):
+            raise AssertionError(f"sphere_vs_cpu {tag}: not bit-identical "
+                                 f"on repeat")
+        _, _, used = compare(f"sphere_vs_cpu {tag}", torch.from_numpy(a),
+                             torch.from_numpy(cpu.conserved_state()))
+        worst = max(worst, used)
+    # one adapt with the card's criteria, then a step
+    gpu, cpu = _gather_pair(lambda: shell_manager(1, 1, AMRConfig(0, 2, 3.0)),
+                            EulerConfig())
+    gpu.iterate_many(20, 1e-3)
+    cpu.u = gpu.u.cpu()
+    crit = gpu._criteria_device().cpu().numpy()
+    crit_cpu = cpu._criteria_device().numpy()
+    _, _, used = compare("sphere_vs_cpu criteria", torch.from_numpy(crit),
+                         torch.from_numpy(crit_cpu))
+    worst = max(worst, used)
+    gpu.adapt(criteria=crit)
+    cpu.adapt(criteria=crit)
+    fg, fc = gpu.manager.forest, cpu.manager.forest
+    if not (np.array_equal(fg.level, fc.level)
+            and np.array_equal(fg.path, fc.path)
+            and np.array_equal(fg.root, fc.root)):
+        raise AssertionError("sphere_vs_cpu adapt: the forests differ")
+    for k in ("left", "right", "normal", "area", "b_elem", "b_normal",
+              "b_area", "inc_slot", "inc_sign"):
+        if not torch.equal(getattr(gpu.conn, k).cpu(), getattr(cpu.conn, k)):
+            raise AssertionError(f"sphere_vs_cpu adapt: conn.{k} differs")
+    _, _, used = compare("sphere_vs_cpu remap", gpu.u.cpu(), cpu.u)
+    worst = max(worst, used)
+    gpu.iterate(1e-3)
+    cpu.iterate(1e-3)
+    _, _, used = compare("sphere_vs_cpu after adapt", gpu.u.cpu(), cpu.u)
+    worst = max(worst, used)
+    _no_kernel_launches("sphere_vs_cpu")
+    phase("sphere_vs_cpu", cases=len(cases) + len(lattices) + 3,
+          elements_after_adapt=gpu.n_elements, rtol=RTOL, atol=ATOL,
+          tolerance_used=f"{worst:.3f}", bit_identical_on_repeat=True)
+
+
+def _median_slope_ms(run, n1, n2, trials=3):
+    slopes = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        run(n1)
+        t1 = time.perf_counter()
+        run(n2)
+        t2 = time.perf_counter()
+        slopes.append(((t2 - t1) - (t1 - t0)) / (n2 - n1) * 1e3)
+    return statistics.median(slopes), slopes
+
+
+def _lattice_fetcher(solver, dt):
+    def run_and_fetch(n):
+        solver.iterate_many(n, dt)
+        float(solver.compute_integral())
+    return run_and_fetch
+
+
+def phase_sphere_blocked(profile_dir):
+    """bench.py's bench_sphere_blocked: BlockedShellEulerSolver on
+    PrismForest.uniform(shell_roots(subdiv=2, n_layers=2), 2) (40,960
+    prisms), kh_sphere, dt 5e-4: 3 steps held against the gather path on
+    the card (rtol 2e-5, atol 1e-6, tests/test_shell_forest.py's bound),
+    then elem-updates/s from the slope of 10 and 210 steps (median of
+    three); the gather path's ms/step on the same shell beside it."""
+    from t8gpu_tpu_torch import (BlockedShellEulerSolver,
+                                 CompressibleEulerSolver, kh_sphere)
+    from t8gpu_tpu_torch.mesh.shell_forest import (PrismForest,
+                                                   ShellForestMesh,
+                                                   shell_roots)
+    roots = shell_roots(subdiv=2, r_in=0.8, thickness=0.2, n_layers=2)
+    forest = PrismForest.uniform(roots, 2)
+    reset_launches()
+    solver = BlockedShellEulerSolver(forest, kh_sphere)
+    ref = CompressibleEulerSolver(ShellForestMesh.from_forest(forest),
+                                  kh_sphere)
+    dt = SPHERE_DT
+    m0 = solver.compute_integral()
+    solver.iterate_many(3, dt)
+    ref.iterate_many(3, dt)
+    a, r, used = compare("sphere_blocked vs gather",
+                         torch.from_numpy(solver.conserved_state()),
+                         torch.from_numpy(ref.conserved_state()),
+                         rtol=2e-5, atol=1e-6)
+    n1, n2 = SHELL_BLOCKED_STEPS
+    run = _lattice_fetcher(solver, dt)
+    run(n1)
+    ms, slopes = _median_slope_ms(run, n1, n2)
+    g_ms, _ = _median_slope_ms(_lattice_fetcher(ref, dt), 5, 25, trials=1)
+    _no_kernel_launches("sphere_blocked")
+    if not torch.isfinite(solver.u).all():
+        raise AssertionError("sphere_blocked: non-finite state")
+    mass = abs(solver.compute_integral() - m0) / abs(m0)
+    if mass >= 1e-4:
+        raise AssertionError(f"sphere_blocked: relative mass change "
+                             f"{mass:.3e}")
+    phase("sphere_blocked", elements=solver.n_elements,
+          external_faces=solver.n_external_faces,
+          max_abs_err=f"{a:.3e}", tolerance_used=f"{used:.3f}",
+          ms_per_step=f"{ms:.4f}",
+          slopes_ms=",".join(f"{x:.4f}" for x in slopes),
+          elem_updates_per_s=f"{solver.n_elements / (ms / 1e3):.4e}",
+          gather_ms_per_step=f"{g_ms:.4f}", mass_change=f"{mass:.3e}")
+    launches = _profile_plain(solver, dt, ms, "sphere_blocked", profile_dir)
+    phase("sphere_blocked_launches",
+          runtime_launches_per_step=f"{launches:.1f}")
+
+
+def phase_sphere_blocked_amr(profile_dir):
+    """bench.py's bench_sphere_blocked_amr: BlockedShellAMRSolver on the
+    same roots at level 2, AMRConfig(1, 4, 10.0), kh_sphere, dt 5e-4, two
+    cycles of 100 steps and an adapt (the adapt's host seconds by part);
+    the levels not all equal; 2 steps held against the gather path on
+    the same adapted forest and state (relative max error < 5e-6,
+    tests/test_blocked_shell_amr.py's bound); elem-updates/s from the
+    slope of 10 and 210 steps (median of three); mass within 1e-4."""
+    from t8gpu_tpu_torch import (AMRConfig, BlockedShellAMRSolver,
+                                 CompressibleEulerSolver, kh_sphere)
+    from t8gpu_tpu_torch.io.interop import state_ic
+    from t8gpu_tpu_torch.mesh.manager import MeshManager
+    from t8gpu_tpu_torch.mesh.shell_forest import (PrismForest,
+                                                   ShellForestMesh,
+                                                   shell_roots)
+    roots = shell_roots(subdiv=2, r_in=0.8, thickness=0.2, n_layers=2)
+    amr = AMRConfig(**SHELL_AMR_CONFIG)
+    reset_launches()
+    solver = BlockedShellAMRSolver(PrismForest.uniform(roots, 2), kh_sphere,
+                                   amr=amr)
+    m0 = solver.compute_integral()
+    dt = SPHERE_DT
+    for c in range(SHELL_AMR_CYCLES):
+        n_before = solver.n_elements
+        solver.iterate_many(SHELL_AMR_EVERY, dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.adapt()
+        torch.cuda.synchronize()
+        _two_to_one("sphere_blocked_amr", solver.forest)
+        phase("sphere_blocked_amr_cycle", cycle=c, elements_before=n_before,
+              elements_after=solver.n_elements, slots=solver.n_slots,
+              adapt_s=f"{time.perf_counter() - t0:.4f}",
+              **{f"adapt_{k}_s": f"{v:.4f}"
+                 for k, v in solver.adapt_timings.items()})
+    lv = solver.forest.level
+    if lv.min() == lv.max():
+        raise AssertionError("sphere_blocked_amr: expected an adapted shell")
+    ref = CompressibleEulerSolver(
+        MeshManager(solver.forest, amr,
+                    mesh_factory=ShellForestMesh.from_forest),
+        state_ic(solver.conserved_state()))
+    solver.iterate_many(2, dt)
+    ref.iterate_many(2, dt)
+    ug, ub = ref.conserved_state(), solver.conserved_state()
+    rel = float(np.abs(ug - ub).max() / np.abs(ug).max())
+    if not rel < 5e-6:
+        raise AssertionError(f"sphere_blocked_amr: relative error {rel:.3e} "
+                             f"against the gather path")
+    n1, n2 = SHELL_BLOCKED_STEPS
+    run = _lattice_fetcher(solver, dt)
+    run(n1)
+    ms, slopes = _median_slope_ms(run, n1, n2)
+    _no_kernel_launches("sphere_blocked_amr")
+    if not np.isfinite(solver.conserved_state()).all():
+        raise AssertionError("sphere_blocked_amr: non-finite state")
+    mass = abs(solver.compute_integral() - m0) / abs(m0)
+    if mass >= 1e-4:
+        raise AssertionError(f"sphere_blocked_amr: relative mass change "
+                             f"{mass:.3e}")
+    phase("sphere_blocked_amr", levels=f"{int(lv.min())}-{int(lv.max())}",
+          elements=solver.n_elements, slots=solver.n_slots,
+          classes=sum(ch.n_cols > 0 for ch in solver._classes_meta),
+          rel_err_vs_gather=f"{rel:.3e}", ms_per_step=f"{ms:.4f}",
+          slopes_ms=",".join(f"{x:.4f}" for x in slopes),
+          elem_updates_per_s=f"{solver.n_elements / (ms / 1e3):.4e}",
+          mass_change=f"{mass:.3e}")
+    launches = _profile_plain(solver, dt, ms, "sphere_blocked_amr",
+                              profile_dir)
+    phase("sphere_blocked_amr_launches",
+          runtime_launches_per_step=f"{launches:.1f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3318,6 +3754,10 @@ def main(argv=None) -> int:
     for o in (1, 2):
         mhd_amr_launches[o], k_mhd_amr[o] = phase_mhd_amr(o, args.profile)
     amr2_launches, k_inner_amr = phase_amr2_vs_cpu()
+    phase_sphere(args.profile)
+    phase_sphere_vs_cpu()
+    phase_sphere_blocked(args.profile)
+    phase_sphere_blocked_amr(args.profile)
 
     def row(name, replaces, launches, k, source=None):
         return {"name": name, "route": "cuda",

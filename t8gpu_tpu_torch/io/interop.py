@@ -5,9 +5,13 @@ and the mesh arrays.  These helpers take the JAX package's arrays as
 NumPy (`np.asarray(solver.u)`, `np.asarray(solver.volumes)`,
 `np.asarray(solver.inv_cell_volume)`) and return the port's tensors, so
 that both packages step the same state; `forest_from` rebuilds the port's
-Forest from a JAX forest's arrays, so that an adapted JAX mesh can be
-installed in the port.  Nothing here imports JAX: the caller does the
-`np.asarray`, and `forest_from` reads plain attributes.
+Forest from a JAX forest's arrays, and `shell_roots_from` /
+`prism_forest_from` the shell's roots and prism forest, so that an
+adapted JAX mesh can be installed in the port; `state_ic` carries a
+plain-element conserved state [5, N] into any of the three shell solvers
+(CompressibleEulerSolver, BlockedShellEulerSolver, BlockedShellAMRSolver)
+as their `ic`.  Nothing here imports JAX: the caller does the
+`np.asarray`, and the forest helpers read plain attributes.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from t8gpu_tpu_torch.mesh.forest import Forest
+from t8gpu_tpu_torch.mesh.shell_forest import PrismForest, ShellRoots
 
 STATE_ROWS = (5, 9)     # compressible Euler, GLM-MHD
 
@@ -55,3 +60,37 @@ def forest_from(forest) -> Forest:
     return Forest(int(forest.dim), np.array(forest.level, np.int8),
                   np.array(forest.anchor, np.int64), int(forest.L),
                   forest.periodic)
+
+
+def shell_roots_from(roots) -> ShellRoots:
+    """The port's ShellRoots of `roots`, any object with the JAX package's
+    ShellRoots attributes: `verts` [Nv, 3], `tris` [Nt, 3], `radii`
+    [n_layers + 1] and `edge_id` (sorted vertex pair -> root-edge id)."""
+    return ShellRoots(verts=np.array(roots.verts, np.float64),
+                      tris=np.array(roots.tris, np.int64),
+                      radii=np.array(roots.radii, np.float64),
+                      edge_id=dict(roots.edge_id))
+
+
+def prism_forest_from(forest) -> PrismForest:
+    """The port's PrismForest with the leaves of `forest`, any object with
+    the JAX package's PrismForest attributes: `roots`, `root` [N],
+    `level` [N] and `path` [N] (NumPy)."""
+    return PrismForest(shell_roots_from(forest.roots),
+                       np.array(forest.root, np.int64),
+                       np.array(forest.level, np.int8),
+                       np.array(forest.path, np.int64))
+
+
+def state_ic(u):
+    """An `ic` callable that returns the conserved state u [5, N] (or the
+    first N columns of [5, cap]) for a mesh of N elements, whatever the
+    centres; e.g. the JAX solver's `np.asarray(solver.u)`."""
+    u = np.array(u)
+
+    def ic(centers):
+        n = len(centers)
+        if u.ndim != 2 or u.shape[0] != 5 or u.shape[1] < n:
+            raise ValueError(f"expected a state [5, >= {n}], got {u.shape}")
+        return u[:, :n]
+    return ic

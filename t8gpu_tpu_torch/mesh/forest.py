@@ -6,8 +6,10 @@ construction, the geometric queries, point location, the face
 enumeration with the reference's dedup rule, and adaptation:
 criteria -> refine/coarsen flags (`flags_from_criteria`), flags
 pre-balanced so that one pass keeps the forest 2:1 and moves every
-element by at most one level (`balance_flags`), and the pass itself
-(`adapt`, which returns the old -> new `RemapSpec`).  The JAX package's
+element by at most one level (`balance_flags`), the pass itself
+(`adapt`, which returns the old -> new `RemapSpec`), the iterative 2:1
+`balance`, the plain-element connectivity (`connectivity`, `ForestMesh`)
+and the CFL length (`cfl_h`, `cfl_h_from_faces`).  The JAX package's
 optional C++ face walk and balance are not ported: its NumPy paths
 compute the same arrays.
 """
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from t8gpu_tpu_torch.mesh.connectivity import (FaceConnectivity,
+                                               build_connectivity)
 from t8gpu_tpu_torch.mesh.morton import morton_decode, morton_encode
 
 
@@ -37,6 +41,14 @@ class RemapSpec:
     src_count: np.ndarray     # int32 [N_new]
     child_id: np.ndarray      # int8 [N_new]
     level_change: np.ndarray  # int8 [N_new]
+
+    def compose(self, later: "RemapSpec") -> "RemapSpec":
+        """This remap followed by `later`.  Exact for cell-constant
+        element data; multi-level chains lose the subgrid octant."""
+        return RemapSpec(self.src_start[later.src_start],
+                         self.src_count[later.src_start],
+                         later.child_id,
+                         self.level_change[later.src_start] + later.level_change)
 
 
 class Forest:
@@ -109,6 +121,10 @@ class Forest:
 
     def edge_lengths(self) -> np.ndarray:
         return self.sizes() * self.h_unit
+
+    def cfl_h(self) -> float:
+        """The CFL length: the finest edge (0.5^max_level)."""
+        return float(self.edge_lengths().min())
 
     # -- family detection ----------------------------------------------------
 
@@ -245,6 +261,23 @@ class Forest:
                 continue
             flags[viol & (flags == 0)] = 1
         return flags
+
+    def balance(self) -> Tuple["Forest", RemapSpec]:
+        """Refine until no face neighbour differs by more than one level;
+        returns the balanced forest and the composed remap."""
+        forest = self
+        n = self.n_elements
+        remap = RemapSpec(np.arange(n, dtype=np.int32), np.ones(n, np.int32),
+                          np.zeros(n, np.int8), np.zeros(n, np.int8))
+        for _ in range(64):
+            viol = forest._balance_violations()
+            if not viol.any():
+                break
+            flags = np.zeros(forest.n_elements, np.int8)
+            flags[viol] = 1
+            forest, r = forest.adapt(flags)
+            remap = remap.compose(r)
+        return forest, remap
 
     def _probe_leaves(self, axis: int, sign: int, size: np.ndarray):
         """(leaf index, valid) [N] per face probe point of side (axis,
@@ -412,3 +445,67 @@ class Forest:
             face_center=face_center,
             b_face_center=b_face_center if B else None,
         )
+
+    def connectivity(self, element_capacity: Optional[int] = None,
+                     recon_geometry: bool = True) -> FaceConnectivity:
+        """The plain-element FaceConnectivity of the leaves (axis groups;
+        the displacement geometry unless recon_geometry is False)."""
+        f = self.build_faces()
+        return build_connectivity(
+            left=f["left"], right=f["right"], normal=f["normal"], area=f["area"],
+            n_elements=self.n_elements,
+            b_elem=f["b_elem"], b_normal=f["b_normal"], b_area=f["b_area"],
+            element_capacity=element_capacity,
+            axis=f["axis"], sign=f["sign"],
+            b_axis=f["b_axis"], b_sign=f["b_sign"],
+            face_center=f["face_center"] if recon_geometry else None,
+            b_face_center=f["b_face_center"] if recon_geometry else None,
+            centers=self.centers() if recon_geometry else None,
+            wrap=1.0 if any(self.periodic_axes) else None,
+        )
+
+
+@dataclasses.dataclass
+class ForestMesh:
+    """A Forest with the mesh interface of the plain-element solver
+    (.conn, .volumes, .centers)."""
+
+    forest: Forest
+    conn: FaceConnectivity
+    centers: np.ndarray
+    volumes: np.ndarray
+
+    @property
+    def dim(self) -> int:
+        return self.forest.dim
+
+    @property
+    def n_elements(self) -> int:
+        return self.forest.n_elements
+
+    @property
+    def max_level(self) -> int:
+        return int(self.forest.level.max())
+
+    @staticmethod
+    def from_forest(forest: Forest, element_capacity: Optional[int] = None,
+                    recon_geometry: bool = True) -> "ForestMesh":
+        return ForestMesh(
+            forest=forest,
+            conn=forest.connectivity(element_capacity, recon_geometry),
+            centers=forest.centers().astype(np.float32),
+            volumes=forest.volumes().astype(np.float32),
+        )
+
+
+def cfl_h_from_faces(forest) -> float:
+    """The CFL length dim * min(V / sum A) over the elements: half the
+    smallest extent of anisotropic elements (shell prisms), where
+    V^(1/dim) overestimates the binding direction."""
+    f = forest.build_faces()
+    suma = np.zeros(forest.n_elements)
+    np.add.at(suma, f["left"], f["area"].astype(np.float64))
+    np.add.at(suma, f["right"], f["area"].astype(np.float64))
+    if f["b_elem"] is not None:
+        np.add.at(suma, f["b_elem"], f["b_area"].astype(np.float64))
+    return float(forest.dim * (forest.volumes() / suma).min())

@@ -1,23 +1,27 @@
 """Adaptive mesh manager: the host forest and its mesh across adapts.
 
 Counterpart of t8gpu_tpu/mesh/manager.py.  `MeshManager` owns the forest
-and the mesh built from it by `mesh_factory(forest, element_capacity)`;
-`adapt_forest` runs the host half of an adapt cycle (criteria -> flags
--> balanced flags -> one adapt pass -> a new mesh at the capacity bucket
-of the new element count) and returns the `RemapSpec` with which the
-caller remaps its state.  The subgrid solver builds it through
-models/subgrid_euler.subgrid_manager.  The plain-element state remap
-(`adapt`) comes with the plain-mesh slice.
+(a brick Forest or a shell PrismForest) and the mesh built from it by
+`mesh_factory(forest, element_capacity)`, by default the plain-element
+ForestMesh.from_forest; `adapt_forest` runs the host half of an adapt
+cycle (criteria -> flags -> balanced flags -> one adapt pass -> a new
+mesh at the capacity bucket of the new element count) and returns the
+`RemapSpec` with which the caller remaps its state; `adapt` also remaps a
+plain-element state, the family mean weighted by the old volumes.  The
+subgrid solvers build theirs through models/subgrid_euler.subgrid_manager.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 
 import numpy as np
+import torch
 
 from t8gpu_tpu_torch.memory.store import bucket_capacity
-from t8gpu_tpu_torch.mesh.forest import Forest
+from t8gpu_tpu_torch.mesh.forest import Forest, ForestMesh
+from t8gpu_tpu_torch.ops.amr import apply_remap_weighted, pad_remap
 from t8gpu_tpu_torch.utils.config import AMRConfig
 
 
@@ -25,21 +29,31 @@ class MeshManager:
     """An adaptive forest and the mesh built from it.
 
     `mesh_factory(forest, element_capacity)` builds the mesh (None: the
-    factory's own capacity for the first mesh).  `timings` holds the host
-    seconds of the last adapt_forest by part: "flags+balance",
-    "forest-adapt", "mesh-build"."""
+    factory's own capacity for the first mesh); the default is the
+    plain-element ForestMesh.from_forest.  `recon_geometry`: whether the
+    meshes of later adapts carry the face-centroid displacements (only
+    factories with that keyword take it; the plain-element solver sets
+    it).  `timings` holds the host seconds of the last adapt_forest by
+    part: "flags+balance", "forest-adapt", "mesh-build"."""
 
     def __init__(self, forest: Forest, amr: AMRConfig = AMRConfig(),
                  mesh_factory=None):
-        if mesh_factory is None:
-            raise NotImplementedError(
-                "plain-element meshes are not ported yet; pass a "
-                "mesh_factory (models/subgrid_euler.subgrid_manager)")
         self.forest = forest
         self.amr = amr
-        self._factory = mesh_factory
-        self.mesh = mesh_factory(forest, None)
+        self._factory = mesh_factory or ForestMesh.from_forest
+        self.recon_geometry = True
+        try:
+            self._factory_has_recon = ("recon_geometry" in inspect.signature(
+                self._factory).parameters)
+        except (TypeError, ValueError):   # callables without a signature
+            self._factory_has_recon = False
+        self.mesh = self._factory(forest, None)
         self.timings = {}
+
+    def _build_mesh(self, forest, cap):
+        if not self.recon_geometry and self._factory_has_recon:
+            return self._factory(forest, cap, recon_geometry=False)
+        return self._factory(forest, cap)
 
     @property
     def dim(self) -> int:
@@ -68,7 +82,7 @@ class MeshManager:
         new_forest, remap = self.forest.adapt(flags)
         t2 = time.perf_counter()
         self.forest = new_forest
-        self.mesh = self._factory(
+        self.mesh = self._build_mesh(
             new_forest, bucket_capacity(new_forest.n_elements,
                                         self.amr.growth_factor))
         t3 = time.perf_counter()
@@ -76,9 +90,23 @@ class MeshManager:
                         "mesh-build": t3 - t2}
         return remap
 
-    def adapt(self, criteria, u):
-        """The plain-element adapt cycle (criteria and a state remap in
-        one call) is not ported yet."""
-        raise NotImplementedError(
-            "the plain-element adapt (ops/amr.apply_remap_weighted) is not "
-            "ported yet")
+    def adapt(self, criteria: np.ndarray, u: torch.Tensor) -> torch.Tensor:
+        """One adapt cycle of a plain-element state u [..., capacity]:
+        adapt_forest, then the state remapped by gathers on u's device,
+        the family mean weighted by the old volumes (exactly
+        mass-conserving on the shell, whose family members differ in
+        volume).  Returns the state padded to the new capacity; the
+        timings gain "remap" (its host seconds)."""
+        w_old = np.ones(u.shape[-1], np.float32)
+        vols = np.asarray(self.mesh.volumes)
+        w_old[: len(vols)] = vols
+        remap = self.adapt_forest(criteria)
+        t0 = time.perf_counter()
+        cap_new = self.mesh.conn.element_capacity
+        start, count = pad_remap(remap.src_start, remap.src_count, cap_new,
+                                 device=u.device)
+        u_new = apply_remap_weighted(
+            u, start, count, torch.from_numpy(w_old).to(u.device),
+            k=1 << self.forest.dim)
+        self.timings["remap"] = time.perf_counter() - t0
+        return u_new

@@ -1,6 +1,7 @@
 """Initial conditions (NumPy; copy of t8gpu_tpu/models/initial_conditions.py).
 
   * kh_planar — periodic square/cube Kelvin-Helmholtz shear layer
+  * kh_sphere — Kelvin-Helmholtz on the spherical shell
 """
 
 from __future__ import annotations
@@ -35,3 +36,32 @@ def kh_planar(centers: np.ndarray, dim: int, gamma: float = 1.4) -> np.ndarray:
 
     rho_e = 2.5 / (gamma - 1.0) + 0.5 * (rho_v1**2 + rho_v2**2 + rho_v3**2) / rho
     return np.stack([rho, rho_v1, rho_v2, rho_v3, rho_e]).astype(np.float32)
+
+
+def kh_sphere(centers: np.ndarray, gamma: float = 1.4) -> np.ndarray:
+    """Kelvin-Helmholtz on a spherical shell (ref solver.cu:17-73).
+
+    centers: [N, 3] element centroids of the shell mesh.  Velocity is built
+    in the local tangent basis (e_phi along latitudes, e_theta along
+    longitudes) with a latitude-dependent shear and a longitude perturbation.
+    """
+    x, y, z = centers[:, 0], centers[:, 1], centers[:, 2]
+    r = np.sqrt(x * x + y * y + z * z)
+    sigma = 0.2 / np.sqrt(2.0)
+
+    e_r = np.stack([x / r, y / r, z / r])
+    hyp = np.sqrt(e_r[0] ** 2 + e_r[1] ** 2)
+    e_phi = np.stack([e_r[1] / hyp, -e_r[0] / hyp, np.zeros_like(hyp)])
+    e_theta = np.cross(e_r.T, e_phi.T).T
+
+    phi = np.where(y >= 0.0, np.arccos(x / np.sqrt(x * x + y * y)),
+                   2.0 * np.pi - np.arccos(x / np.sqrt(x * x + y * y)))
+    theta = np.arcsin(z / r)
+
+    v_phi = r * np.cos(theta) * np.where(theta < 0, -0.5, 0.5)
+    v_theta = 0.5 * r * np.sin(2.0 * phi) * np.exp(-((theta / (2 * sigma)) ** 2))
+
+    rho = np.where(theta < 0.0, 2.0, 1.0)
+    mom = rho * (v_phi * e_phi + v_theta * e_theta)
+    rho_e = 2.5 / (gamma - 1.0) + 0.5 * (mom**2).sum(axis=0) / rho
+    return np.concatenate([rho[None], mom, rho_e[None]]).astype(np.float32)

@@ -61,6 +61,7 @@ from t8gpu_tpu_torch.mesh.manager import MeshManager
 from t8gpu_tpu_torch.mesh.subgrid import SubgridMesh
 from t8gpu_tpu_torch.ops import rk
 from t8gpu_tpu_torch.ops import subgrid as sg
+from t8gpu_tpu_torch.ops.amr import fetch_pending, pending_criteria
 from t8gpu_tpu_torch.ops.euler import cfl_sum_speed
 from t8gpu_tpu_torch.ops.source import (has_gravity, volume_from_inverse,
                                         with_gravity)
@@ -127,25 +128,15 @@ class SubgridAdaptive:
         adapt(): called a few steps before it, the copy overlaps those
         steps instead of stalling the adapt."""
         self._require_manager("adapt_prefetch()")
-        crit = sg.h1_criteria(self.u, self.volumes, self.spec)
-        if crit.device.type == "cuda":
-            host = torch.empty(crit.shape, dtype=crit.dtype, pin_memory=True)
-            host.copy_(crit, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            self._crit_pending = (host, done)
-        else:
-            self._crit_pending = (crit.clone(), None)
+        self._crit_pending = pending_criteria(
+            sg.h1_criteria(self.u, self.volumes, self.spec))
 
     def _criteria(self) -> np.ndarray:
         """The prefetched criteria (waiting for their copy), or computed
         and copied now."""
         if self._crit_pending is not None:
-            host, done = self._crit_pending
-            self._crit_pending = None
-            if done is not None:
-                done.synchronize()
-            return host.numpy()
+            pending, self._crit_pending = self._crit_pending, None
+            return fetch_pending(pending)
         return sg.h1_criteria(self.u, self.volumes, self.spec).cpu().numpy()
 
     def adapt(self, criteria=None):
@@ -282,9 +273,7 @@ class SubgridCompressibleEulerSolver(SubgridAdaptive):
     # -- time stepping ---------------------------------------------------------
 
     def _dt(self, dt) -> torch.Tensor:
-        if torch.is_tensor(dt):
-            return dt.to(device=self.device, dtype=self.dtype)
-        return torch.tensor(float(dt), dtype=self.dtype, device=self.device)
+        return rk.as_dt(dt, self.dtype, self.device)
 
     def _sg_limiter(self) -> str:
         """The subgrid limiter of config.limiter: "none" stays, every

@@ -147,10 +147,7 @@ class SubgridMHDSolver(SubgridAdaptive):
     # -- time stepping --------------------------------------------------------
 
     def _dt(self, dt) -> torch.Tensor:
-        if torch.is_tensor(dt):
-            return dt.to(device=self.device, dtype=torch.float32)
-        return torch.tensor(float(dt), dtype=torch.float32,
-                            device=self.device)
+        return rk.as_dt(dt, torch.float32, self.device)
 
     def _flux(self, u: torch.Tensor):
         if self.order == 2:

@@ -6,8 +6,10 @@ primitives, the axis-summed CFL speed, the state-form interface fluxes
 the per-cell fields formulation (`cell_fields_tuple`, optionally from
 precomputed logs) and the fields-based interface fluxes (KEPES, HLL,
 HLLC), the pair-flux formulation of order-2 MUSCL (`kepes_pair_fields`,
-`prim_rows`, `prim_pair_fields`, `kepes_pair_flux`), the wall mirror and
-the axis-aligned face-frame rotations.  The arithmetic is the JAX
+`prim_rows`, `prim_pair_fields`, `kepes_pair_flux`), the wall mirror, the
+axis-aligned face-frame rotations and the general-normal ones of the
+plain-element path (`face_basis`, `rotate_state`, `inverse_rotate_state`,
+`fields_rotate`, with `cell_fields` stacked into one tensor).  The arithmetic is the JAX
 package's, in the same order, so that the two agree to f32 round-off; the
 CUDA kernels (csrc/*.cu) repeat the KEPES paths.
 
@@ -592,7 +594,84 @@ def fields_axis_rotate(q, axis: int):
 
 
 def flux_axis_unrotate(f: torch.Tensor, axis: int) -> torch.Tensor:
-    """Rotate a stacked 5-row flux back from the +axis face frame."""
+    """Rotate a stacked 5-row flux back from the +axis face frame (its rows
+    stacked, so no index tensor goes to the device)."""
     if axis == 0:
         return f
-    return f[list(AXIS_UNROTATE[axis])]
+    return torch.stack([f[i] for i in AXIS_UNROTATE[axis]])
+
+
+# -- general face normals (the plain-element path) ---------------------------
+
+
+def face_basis(n: torch.Tensor):
+    """Complete unit normals [3, ...] to an orthonormal basis (n, t1, t2).
+
+    The reference seeds t1 with a permuted normal and projects n out
+    (kernels.cu:177-193), which collapses for n parallel to
+    (1,-1,1)/sqrt(3): the seed is -n, and t1 comes out +-n with t2 = 0.
+    The prismed shell has radial faces with exactly that normal.  The
+    seed here is the coordinate axis least aligned with n (|h.n| <=
+    1/sqrt(3), so the projected seed has norm >= sqrt(2/3)), chosen by
+    selects, never degenerate; the JAX package's construction."""
+    a0, a1, a2 = torch.abs(n[0]), torch.abs(n[1]), torch.abs(n[2])
+    use0 = (a0 <= a1) & (a0 <= a2)
+    use1 = (~use0) & (a1 <= a2)
+    one = torch.ones_like(n[0])
+    zero = torch.zeros_like(n[0])
+    h = torch.stack([torch.where(use0, one, zero),
+                     torch.where(use1, one, zero),
+                     torch.where(use0 | use1, zero, one)])
+    dot = n[0] * h[0] + n[1] * h[1] + n[2] * h[2]
+    t1 = h - dot * n
+    t1 = t1 / torch.sqrt(t1[0] ** 2 + t1[1] ** 2 + t1[2] ** 2)
+    t2 = torch.stack([
+        n[1] * t1[2] - n[2] * t1[1],
+        n[2] * t1[0] - n[0] * t1[2],
+        n[0] * t1[1] - n[1] * t1[0],
+    ])
+    return n, t1, t2
+
+
+def rotate_state(u, n, t1, t2) -> torch.Tensor:
+    """Rotate the momentum rows from (x, y, z) into the basis (n, t1, t2)."""
+    return torch.stack([
+        u[0],
+        u[1] * n[0] + u[2] * n[1] + u[3] * n[2],
+        u[1] * t1[0] + u[2] * t1[1] + u[3] * t1[2],
+        u[1] * t2[0] + u[2] * t2[1] + u[3] * t2[2],
+        u[4],
+    ])
+
+
+def inverse_rotate_state(u_rot, n, t1, t2) -> torch.Tensor:
+    """Rotate the momentum rows back from (n, t1, t2) to (x, y, z)."""
+    return torch.stack([
+        u_rot[0],
+        u_rot[1] * n[0] + u_rot[2] * t1[0] + u_rot[3] * t2[0],
+        u_rot[1] * n[1] + u_rot[2] * t1[1] + u_rot[3] * t2[1],
+        u_rot[1] * n[2] + u_rot[2] * t1[2] + u_rot[3] * t2[2],
+        u_rot[4],
+    ])
+
+
+def fields_rotate(q, n, t1, t2):
+    """Rotate the velocity rows 1..3 of cell fields (a tuple of rows or a
+    stacked [C, ...] tensor) into the basis (n, t1, t2); the scalar rows
+    pass through.  Returns a tuple of rows."""
+    vn = q[1] * n[0] + q[2] * n[1] + q[3] * n[2]
+    vt1 = q[1] * t1[0] + q[2] * t1[1] + q[3] * t1[2]
+    vt2 = q[1] * t2[0] + q[2] * t2[1] + q[3] * t2[2]
+    return (q[0], vn, vt1, vt2) + tuple(q[4:])
+
+
+def cell_fields(u, gamma: float, flux: str = "kepes") -> torch.Tensor:
+    """cell_fields_tuple stacked into one [C, ...] tensor (the
+    plain-element path gathers whole field columns per face)."""
+    return torch.stack(cell_fields_tuple(u, gamma, flux))
+
+
+def maybe_barrier(q):
+    """The JAX package's optional materialization barrier of the cell
+    fields; eager PyTorch materializes them anyway."""
+    return q

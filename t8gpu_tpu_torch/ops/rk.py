@@ -10,9 +10,19 @@ the order-2 MUSCL path steps through them.
 
 from __future__ import annotations
 
+import torch
+
 STAGE_1 = (1.0, 0.0, 1.0)
 STAGE_2 = (0.75, 0.25, 0.25)
 STAGE_3 = (1.0 / 3.0, 2.0 / 3.0, 2.0 / 3.0)
+
+
+def as_dt(dt, dtype, device) -> torch.Tensor:
+    """dt (a float or a tensor) as a 0-d tensor of `dtype` on `device`; a
+    device tensor stays there, so no step waits for the host."""
+    if torch.is_tensor(dt):
+        return dt.to(device=device, dtype=dtype)
+    return torch.tensor(float(dt), dtype=dtype, device=device)
 
 
 def stage1(u_prev, flux, dt, inv_volume):

@@ -1442,3 +1442,136 @@ def test_cuda_mhd_adapt_matches_cpu(cuda, order):
     assert kern.launches == before + 3
     np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
                                rtol=RTOL, atol=ATOL)
+
+
+# -- the plain-element gather path and the spherical shell --------------------
+
+def _gather_mesh(kind):
+    from t8gpu_tpu_torch.mesh.shell_forest import shell_manager
+    from t8gpu_tpu_torch.mesh.uniform import uniform_mesh
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    if kind == "shell":
+        return shell_manager(1, 1, AMRConfig(0, 2, 3.0))
+    if kind == "forest2d":
+        f = Forest.uniform(3, dim=2, periodic=(True, False))
+        flags = np.zeros(f.n_elements, np.int8)
+        flags[::5] = 1
+        from t8gpu_tpu_torch.mesh.forest import ForestMesh
+        return ForestMesh.from_forest(f.adapt(f.balance_flags(flags))[0])
+    return uniform_mesh(3, dim=3, periodic=False)
+
+
+def _gather_ic(kind):
+    from t8gpu_tpu_torch.models.initial_conditions import kh_sphere
+    return kh_sphere if kind == "shell" else noisy_kh(
+        2 if kind == "forest2d" else 3, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,acc,kw", [
+    ("shell", "gather", {}),
+    ("shell", "segment_sum", dict(flux="hllc", boundary="farfield",
+                                  farfield=(1.0, 0.5, 0.0, 0.0, 1.0))),
+    ("uniform3d", "segment_sum", dict(flux="hll")),
+    ("forest2d", "gather", dict(gravity=(0.0, -0.5, 0.0))),
+])
+def test_cuda_gather_solver_matches_cpu(cuda, kind, acc, kw):
+    """CompressibleEulerSolver on the card by default (state, connectivity
+    and tables on CUDA), one step against the CPU within the tolerance
+    and bit-identical on repeat (both accumulations: no atomics); on the
+    shell also an adapt with the card's criteria (the same forest and
+    connectivity) and a step after it."""
+    from t8gpu_tpu_torch.models.compressible_euler import \
+        CompressibleEulerSolver
+    cfg = EulerConfig(**kw)
+    gpu, gpu2 = (CompressibleEulerSolver(_gather_mesh(kind), _gather_ic(kind),
+                                         config=cfg, accumulation=acc)
+                 for _ in range(2))
+    cpu = CompressibleEulerSolver(_gather_mesh(kind), _gather_ic(kind),
+                                  config=cfg, accumulation=acc, device="cpu")
+    assert gpu.u.is_cuda and gpu.conn.inc_slot.is_cuda
+    assert gpu.volume.is_cuda and gpu.inv_volume.is_cuda
+    if acc == "segment_sum":
+        assert all(t.is_cuda for t in gpu._tables)
+    dt = cpu.compute_timestep()
+    for s in (gpu, gpu2, cpu):
+        s.iterate_many(2, dt)
+    assert torch.equal(gpu.u, gpu2.u)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    if kind != "shell":
+        return
+    crit = gpu._criteria_device().cpu().numpy()
+    cpu.u = gpu.u.cpu()
+    for s in (gpu, cpu):
+        s.adapt(criteria=crit)
+    assert np.array_equal(gpu.manager.forest.path, cpu.manager.forest.path)
+    assert torch.equal(gpu.conn.inc_slot.cpu(), cpu.conn.inc_slot)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    for s in (gpu, cpu):
+        s.iterate(dt)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_is_deterministic(cuda):
+    """The "segment_sum" accumulation (padded per-element tables, no
+    index_add_) repeats bit for bit on the card over many steps and
+    agrees with "gather"."""
+    from t8gpu_tpu_torch.models.compressible_euler import \
+        CompressibleEulerSolver
+    runs = [CompressibleEulerSolver(_gather_mesh("shell"), _gather_ic("shell"),
+                                    accumulation=acc)
+            for acc in ("segment_sum", "segment_sum", "gather")]
+    for s in runs:
+        s.iterate_many(20, 1e-3)
+    assert torch.equal(runs[0].u, runs[1].u)
+    torch.testing.assert_close(runs[0].u, runs[2].u, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", ["uniform", "adapted"])
+def test_cuda_blocked_shell_matches_cpu(cuda, lattice):
+    """The two shell lattices on the card by default: two steps against
+    the CPU within the tolerance, bit-identical on repeat; the adapted
+    lattice also through an adapt from the card's state (the same forest
+    on both) and a step."""
+    from t8gpu_tpu_torch.mesh.shell_forest import PrismForest, shell_roots
+    from t8gpu_tpu_torch.models.blocked_shell import BlockedShellEulerSolver
+    from t8gpu_tpu_torch.models.blocked_shell_amr import \
+        BlockedShellAMRSolver
+    from t8gpu_tpu_torch.models.initial_conditions import kh_sphere
+    from t8gpu_tpu_torch.utils.config import AMRConfig
+    f = PrismForest.uniform(shell_roots(subdiv=1), 1)
+    if lattice == "uniform":
+        def make(dev=None):
+            return BlockedShellEulerSolver(f, kh_sphere, device=dev)
+    else:
+        c = f.centers()
+        f = f.adapt(f.balance_flags((np.abs(c[:, 2]) < 0.3)
+                                    .astype(np.int8)))[0]
+
+        def make(dev=None):
+            return BlockedShellAMRSolver(f, kh_sphere,
+                                         amr=AMRConfig(1, 3, 10.0),
+                                         device=dev)
+    gpu, gpu2, cpu = make(), make(), make("cpu")
+    for s in (gpu, gpu2, cpu):
+        s.iterate_many(2, 1e-3)
+    assert np.array_equal(gpu.conserved_state(), gpu2.conserved_state())
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)
+    if lattice == "uniform":
+        assert gpu.u.is_cuda
+        return
+    assert all(u is None or u.is_cuda for u in gpu.us)
+    # the card's state on both, so the host criteria agree
+    cpu.us = [None if u is None else u.cpu() for u in gpu.us]
+    for s in (gpu, cpu):
+        s.adapt()
+        s.iterate(1e-3)
+    assert np.array_equal(gpu.forest.path, cpu.forest.path)
+    np.testing.assert_allclose(gpu.conserved_state(), cpu.conserved_state(),
+                               rtol=RTOL, atol=ATOL)

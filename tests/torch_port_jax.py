@@ -10,10 +10,10 @@ an ulp of float32.  NO_BACKEND_OPT keeps the fusion emitters, for inputs
 so ill-conditioned that an ulp moves the result by more than a test's
 tolerance.  `op_by_op` runs a JAX reference one primitive at a time
 (`jax.disable_jit`) with each primitive compiled FAST, in about half the
-CPU time.  `solver_steps` steps a JAX subgrid solver (Euler or GLM-MHD)
-with its divergence closure jitted FAST: a jitted whole step compiles each
-stage's closure apart, and a step op by op pays the dispatch of every
-primitive."""
+CPU time.  `solver_steps` steps a JAX solver (subgrid Euler or GLM-MHD,
+or the plain-element CompressibleEulerSolver) with its divergence closure
+jitted FAST: a jitted whole step compiles each stage's closure apart, and
+a step op by op pays the dispatch of every primitive."""
 
 import contextlib
 
@@ -68,15 +68,40 @@ def compiled(fn, *args, **static):
     return lowered.compile(compiler_options=FAST)(*args)
 
 
+def _plain_flux_fn(js):
+    """The divergence closure of the JAX package's plain-element
+    CompressibleEulerSolver `js` as its step builds it (`_make_flux_fn`),
+    compiled FAST with the connectivity, 1/V and the farfield ghost as
+    arguments (the mesh's arrays are not baked in as constants)."""
+    from t8gpu_tpu.models.compressible_euler import _make_flux_fn
+
+    c = js.config
+
+    def flux_fn(w, conn, inv_volume, ghost):
+        return _make_flux_fn(
+            conn, inv_volume, gamma=c.gamma, flux=c.flux,
+            mode=js.accumulation, order=c.order, limiter=c.limiter,
+            dim=js.mesh_dim, gravity=tuple(c.gravity), mu=float(c.mu),
+            prandtl=float(c.prandtl), wall=c.wall,
+            wall_velocity=js._wall_vel,
+            wall_temperature=c.wall_temperature, ghost=ghost)(w)
+    args = (js.conn, js.inv_volume, js._ghost)
+    fn = jax.jit(flux_fn).lower(js.u, *args).compile(compiler_options=FAST)
+    return lambda w: fn(w, *args)
+
+
 def solver_flux_fn(js):
     """The divergence closure of the JAX package's
     SubgridCompressibleEulerSolver `js` as its non-fused step takes it
-    with the Pallas kernels off (`_base_flux_fn`), or of its
+    with the Pallas kernels off (`_base_flux_fn`), of its
     SubgridMHDSolver as `_rk3_multi` takes it (the order's divergence),
+    or of its plain-element CompressibleEulerSolver as its step builds it,
     compiled FAST for the state's shape."""
     from t8gpu_tpu.models.subgrid_euler import _base_flux_fn
     from t8gpu_tpu.ops import subgrid_mhd as jsm
 
+    if hasattr(js, "accumulation"):                # CompressibleEulerSolver
+        return _plain_flux_fn(js)
     if hasattr(js, "glm_alpha"):                   # SubgridMHDSolver
         args = (js.volumes, js.conn, js.spec, js.gamma, js.glm_alpha)
         if js.order == 2:
@@ -96,17 +121,33 @@ def solver_flux_fn(js):
     return jax.jit(flux_fn).lower(js.u).compile(compiler_options=FAST)
 
 
-def solver_steps(js, n_steps: int, dt, flux_fn=None):
-    """n_steps of the JAX package's subgrid solver `js` (Euler or GLM-MHD)
-    as its step takes them, `rk.ssp_rk3` over `flux_fn` (by default its
-    `solver_flux_fn`, compiled once); updates js.u."""
+def solver_steps(js, n_steps: int, dt, flux_fn=None, fast_stages=False):
+    """n_steps of the JAX package's solver `js` (subgrid Euler or GLM-MHD,
+    or the plain-element CompressibleEulerSolver) as its step takes them,
+    `rk.ssp_rk3` over `flux_fn` (by default its `solver_flux_fn`,
+    compiled once); updates js.u.  fast_stages: the three stage updates
+    each compiled FAST (rk.stage1..3, as ssp_rk3 calls them), in place of
+    one eager dispatch, and compile, per primitive."""
     import jax.numpy as jnp
 
     from t8gpu_tpu.ops import rk
 
     if flux_fn is None:
         flux_fn = solver_flux_fn(js)
+    inv = getattr(js, "inv_cell_volume", None)
+    if inv is None:
+        inv = js.inv_volume
     u, dt = js.u, jnp.asarray(dt, js.u.dtype)
+    if not fast_stages:
+        for _ in range(n_steps):
+            u = rk.ssp_rk3(u, flux_fn, dt, inv)[0]
+        js.u = u
+        return
+    s1, s2, s3 = (jax.jit(st).lower(*(u,) * k, dt, inv).compile(
+        compiler_options=FAST)
+        for st, k in ((rk.stage1, 2), (rk.stage2, 3), (rk.stage3, 3)))
     for _ in range(n_steps):
-        u = rk.ssp_rk3(u, flux_fn, dt, js.inv_cell_volume)[0]
+        u1 = s1(u, flux_fn(u)[0], dt, inv)
+        u2 = s2(u, u1, flux_fn(u1)[0], dt, inv)
+        u = s3(u, u2, flux_fn(u2)[0], dt, inv)
     js.u = u
